@@ -1,0 +1,13 @@
+"""pdmp3_tpu_torch: the PyTorch / CUDA port of pdmp3_tpu's device half.
+
+The native host frontend (``pdmp3_tpu.host``) parses streams into the
+packed int16 wire; this package decodes the wire to PCM with PyTorch,
+and on an NVIDIA GPU with the hand-written kernel
+``csrc/fused_granule.cu``.  It imports no JAX.
+"""
+from .models.decoder import init_state
+from .ops.fused_step import fused_granule_step
+from .runtime.scheduler import LoopFeeder, StreamDecoder
+
+__all__ = ["LoopFeeder", "StreamDecoder", "fused_granule_step",
+           "init_state"]

@@ -1,0 +1,137 @@
+"""Constants of the fast MPEG-1 granule step: per-(layout, line) index
+maps and the small float tables.
+
+The JAX package expands every per-line lookup as a one-hot matrix
+product ([576, 9*K] constants), because its TPU gathers slowly.  A GPU
+gathers at memory speed, so the port keeps the lookups as what they
+are: int16 index maps ``line_maps()[map, layout, line]``, composed with
+the short-block reorder exactly where the JAX package composes its
+matrices (ops/dsp.py ``_compose_reorder``), and read by a plain index.
+Both the plain PyTorch step and the CUDA kernel read these same arrays.
+
+Family 0 (MPEG-1) only.  Every array is derived from ``pdmp3_tpu.tables``
+(which imports no JAX) so there is one source of truth for the numbers.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from pdmp3_tpu import tables as T
+
+from .. import device as _device  # noqa: F401  (numeric guards)
+
+# rows of line_maps(): what each per-(layout, line) map holds
+MAP_SFB_L = 0        # long scalefactor band, clipped to 0..21
+MAP_SFB_S = 1        # flat short slot min(sfb,12)*3 + win, reorder-composed
+MAP_SFB_S_PLAIN = 2  # the same slot in window-major (raw) line order
+MAP_WIN = 3          # short window 0..2, reorder-composed (subblock gain)
+MAP_PRETAB = 4       # pretab value of long lines, 0 elsewhere
+MAP_SHORT = 5        # 1 on short-block lines
+MAP_BAND_START = 6   # first line of the line's band (intensity bound)
+MAP_IOK = 7          # 1 where the reference's intensity loops reach
+N_MAPS = 8
+
+# 2^(-d/4) and 2^(d/4) for d = 0..3, rounded to f32 (the fractional
+# factor of the exponent-bitcast gains)
+QUARTER_DOWN4 = np.array([2.0 ** 0, 2.0 ** -0.25, 2.0 ** -0.5,
+                          2.0 ** -0.75], np.float32)
+QUARTER_UP4 = np.array([2.0 ** 0, 2.0 ** 0.25, 2.0 ** 0.5,
+                        2.0 ** 0.75], np.float32)
+INV_SQRT2_F32 = np.float32(T.INV_SQRT2)
+POW43_MAX = 8206     # largest |ix| the table covers (pdmp3.c:2117)
+
+
+def compose_reorder(src: np.ndarray) -> np.ndarray:
+    """out[l, i] = src[l, perm_l[i]]: a per-(layout, line) map read in
+    the wire's line order (the host applies the short-block reorder
+    while it packs ix)."""
+    return np.take_along_axis(np.asarray(src),
+                              T.layout_maps(0)["reorder"], axis=1)
+
+
+@functools.lru_cache(maxsize=1)
+def pretab_line_map() -> np.ndarray:
+    """pretab value per (layout, line) for long regions (pdmp3.c:2123)."""
+    m = T.layout_maps(0)
+    pretab22 = np.concatenate([T.PRETAB, [0]]).astype(np.int32)
+    out = np.zeros((T.N_LAYOUTS, 576), np.int32)
+    for lay in range(T.N_LAYOUTS):
+        sfb = m["sfb"][lay]
+        long_mask = m["is_short"][lay] == 0
+        out[lay][long_mask] = pretab22[np.minimum(sfb[long_mask], 21)]
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def line_maps() -> np.ndarray:
+    """int16 [N_MAPS, 9, 576]: every per-(layout, line) index map of the
+    step, rows named by the MAP_* constants."""
+    lm, sm = T.layout_maps(0), T.stereo_maps(0)
+    slot_s = np.minimum(lm["sfb"], 12) * 3 + lm["win"]
+    maps = np.zeros((N_MAPS, T.N_LAYOUTS, 576), np.int16)
+    maps[MAP_SFB_L] = np.clip(compose_reorder(lm["sfb"]), 0, 21)
+    maps[MAP_SFB_S] = compose_reorder(slot_s)
+    # intensity reads short is_pos window-major even after the reorder
+    # (the reference walks window-major spans of the reordered array,
+    # pdmp3.c:2190-2220), hence the uncomposed map
+    maps[MAP_SFB_S_PLAIN] = slot_s
+    maps[MAP_WIN] = compose_reorder(lm["win"])
+    maps[MAP_PRETAB] = pretab_line_map()
+    maps[MAP_SHORT] = lm["is_short"]
+    maps[MAP_BAND_START] = sm["band_start"]
+    maps[MAP_IOK] = sm["intensity_ok"]
+    maps.setflags(write=False)
+    return maps
+
+
+@functools.lru_cache(maxsize=1)
+def host_consts() -> dict:
+    """Every constant of the step as numpy arrays (float32 unless noted).
+
+    cos36 [18,36] long IMDCT basis (m, p); c3 [18,36] the three
+    interleaved 12-point IMDCTs folded into one basis, c3[k, w*12+p] =
+    COS_N12[k//3, p] with w = k%3 (pdmp3.c:1678-1686);
+    imdct_win [4,36] per block type; win2 [12] the short window; nwin
+    [64,32] polyphase matrixing; synth_d [16,32] D window; inv [32,18]
+    frequency-inversion sign; cs/ca [8] antialias; ratio_l/ratio_r [16]
+    intensity ratios incl. the reference's out-of-bounds slots 8..15;
+    pow43 [8207] |x|^(4/3); quarter_down/quarter_up [4]; maps int16
+    (line_maps()); inv_sqrt2, two32 and k32767 f32 scalars (0-d, so
+    products with them stay in f32)."""
+    cos12 = np.asarray(T.COS_N12, np.float32)
+    c3 = np.zeros((18, 36), np.float32)
+    for k in range(18):
+        c3[k, (k % 3) * 12:(k % 3 + 1) * 12] = cos12[k // 3]
+    ratio_l, ratio_r = T.intensity_ratio_tables()
+    out = dict(
+        cos36=np.asarray(T.COS_N36, np.float32),
+        c3=c3,
+        imdct_win=np.asarray(T.IMDCT_WIN, np.float32),
+        win2=np.asarray(T.IMDCT_WIN[2][:12], np.float32),
+        nwin=np.asarray(T.SYNTH_NWIN, np.float32),
+        synth_d=np.asarray(T.SYNTH_D, np.float32).reshape(16, 32),
+        inv=T.freq_inversion_sign(),
+        cs=np.asarray(T.ANTIALIAS_CS, np.float32),
+        ca=np.asarray(T.ANTIALIAS_CA, np.float32),
+        ratio_l=np.asarray(ratio_l, np.float32),
+        ratio_r=np.asarray(ratio_r, np.float32),
+        pow43=np.asarray(T.POW43[:POW43_MAX + 1], np.float32),
+        quarter_down=QUARTER_DOWN4,
+        quarter_up=QUARTER_UP4,
+        maps=line_maps(),
+        inv_sqrt2=INV_SQRT2_F32,
+        two32=np.float32(2.0 ** 32),
+        k32767=np.float32(32767.0),
+    )
+    return {k: np.array(v, order="C") for k, v in out.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def device_consts(device: str) -> dict:
+    """host_consts() as contiguous tensors on ``device`` (cached per
+    device; read-only by convention)."""
+    return {k: torch.from_numpy(v.copy()).to(device)
+            for k, v in host_consts().items()}

@@ -1,0 +1,193 @@
+"""The port's serving runtime (pdmp3_tpu_torch/runtime/scheduler.py) on
+the CPU: against the JAX StreamDecoder(kernel="pallas") on the same feed
+schedule, against the native scalar decoder per slot, and across a
+checkpoint the JAX decoder saved.
+
+Tolerance: the fast contract, at most 1 LSB on fewer than 1% of samples
+(the port and JAX fast differ only in f32 summation order and the <= 2
+ulp pow43 table difference; the native decoder is the bit-exact scalar
+C++ reference).  The port's own checkpoint round trip is bitwise.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pdmp3_tpu.host import native_decode_file
+from pdmp3_tpu.runtime import StreamDecoder as JaxStreamDecoder
+from pdmp3_tpu.testing import mp3gen
+from pdmp3_tpu_torch import StreamDecoder
+from test_torch_fused_step import assert_pcm_contract
+
+N = 6
+MONO = 4   # corpus index of the mono stream
+# GPU clock cycles of the device-side wait queued before each upload in
+# the CUDA serving test (~0.1 s at H100 clocks): far longer than the
+# host's parse of N slots, so the device stays behind the host
+SLEEP_CYCLES = 200_000_000
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    """tests/test_runtime.py's corpus: long, short, MS, mixed 32 kHz,
+    mono, 48 kHz with the bit reservoir."""
+    def mk(seed, **kw):
+        return mp3gen.make_stream(n_frames=6, seed=seed, **kw)
+    return [mk(70, blocks="long"), mk(71, blocks="short"),
+            mk(72, blocks="varied", mode=1, mode_extension=2),
+            mk(73, blocks="mixed", sfreq=2), mk(74, blocks="long", mode=3),
+            mk(75, blocks="varied", sfreq=1, use_reservoir=True)]
+
+
+def _run(decs, max_steps=40):
+    """Step every decoder in lockstep; returns per-decoder lists of
+    (pcm, active) per step."""
+    out = [[] for _ in decs]
+    for _ in range(max_steps):
+        n = [d.parse_step() for d in decs]
+        assert len(set(n)) == 1, n
+        if n[0] == 0:
+            break
+        for k, d in enumerate(decs):
+            out[k].append((d.decode_step(), d.active.copy()))
+    return out
+
+
+def _slot_pcm(steps, slot):
+    return np.concatenate([p[slot] for p, a in steps if a[slot]])
+
+
+def _check_vs_native(data, got, mono=False):
+    """A slot's PCM vs the native decoder over the aligned prefix (the
+    native decoder emits one channel for mono; the batch duplicates)."""
+    want = np.frombuffer(native_decode_file(data), "<i2")
+    if mono:
+        np.testing.assert_array_equal(got[:, 0], got[:, 1])
+    a = got[:, 0] if mono else got.reshape(-1)
+    n = min(len(a), len(want))
+    assert n >= len(want) - 2 * 1152 * (1 if mono else 2)
+    assert_pcm_contract(a[:n], want[:n])
+
+
+def test_port_serving_matches_jax_pallas_and_native(corpus):
+    tdec = StreamDecoder(N, device="cpu")
+    jdec = JaxStreamDecoder(N, kernel="pallas")
+    for s, data in enumerate(corpus):
+        assert tdec.feed(s, data) == 0
+        assert jdec.feed(s, data) == 0
+    tsteps, jsteps = _run([tdec, jdec])
+    assert len(tsteps) >= 5
+    for (pt, at), (pj, aj) in zip(tsteps, jsteps):
+        np.testing.assert_array_equal(at, aj)
+        assert pt.shape == (N, 1152, 2) and pt.dtype == np.int16
+        assert_pcm_contract(pt, pj)
+        assert not pt[at == 0].any()
+    for s, data in enumerate(corpus):
+        _check_vs_native(data, _slot_pcm(tsteps, s), s == MONO)
+
+
+def test_jax_checkpoint_restored_into_port_continues(corpus):
+    jdec = JaxStreamDecoder(N, kernel="pallas")
+    for s, data in enumerate(corpus):
+        jdec.feed(s, data)
+    head = _run([jdec], max_steps=2)[0]
+    ckpt = jdec.save_checkpoint()
+    tdec = StreamDecoder(N, device="cpu")
+    tdec.restore_checkpoint(ckpt)
+    tail_t, tail_j = _run([tdec, jdec])
+    assert len(tail_t) >= 2
+    for (pt, _), (pj, _) in zip(tail_t, tail_j):
+        assert_pcm_contract(pt, pj)
+    for s, data in enumerate(corpus):
+        _check_vs_native(data, _slot_pcm(head + tail_t, s), s == MONO)
+
+
+def test_port_checkpoint_round_trip_is_bitwise(corpus):
+    a = StreamDecoder(N, device="cpu")
+    for s, data in enumerate(corpus):
+        a.feed(s, data)
+    _run([a], max_steps=2)
+    b = StreamDecoder(N, device="cpu")
+    b.restore_checkpoint(a.save_checkpoint())
+    ta, tb = _run([a, b])
+    assert len(ta) >= 2
+    for (pa, _), (pb, _) in zip(ta, tb):
+        np.testing.assert_array_equal(pa, pb)
+
+
+def test_garbage_stream_isolated(corpus):
+    """A garbage stream occupies a slot without perturbing its neighbour."""
+    dec = StreamDecoder(2, device="cpu")
+    dec.feed(0, corpus[2])
+    dec.feed(1, bytes([0x31] * 4096))
+    steps = _run([dec])[0]
+    _check_vs_native(corpus[2], _slot_pcm(steps, 0))
+
+
+@pytest.mark.cuda
+def test_cuda_serving_with_device_behind_host(corpus):
+    """The pinned double-buffered upload on the card, with the device
+    held behind the host: a wait queued before each step's upload keeps
+    every upload pending while the host parses the next step and carries
+    this step's active/meta into the other buffer.  With fetch=False and
+    no sync until the end, every slot must still match the CPU decoder
+    and the native one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cdec = StreamDecoder(N, device="cpu")
+    gdec = StreamDecoder(N, device="cuda")
+    for s, data in enumerate(corpus):
+        cdec.feed(s, data)
+        gdec.feed(s, data)
+    csteps = _run([cdec])[0]
+    gsteps = []
+    for _ in range(len(csteps) + 1):
+        if gdec.parse_step() == 0:
+            break
+        torch.cuda._sleep(SLEEP_CYCLES)
+        gsteps.append((gdec.decode_step(fetch=False), gdec.active.copy()))
+    # the device was still behind the host when the loop ended
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert len(gsteps) == len(csteps) >= 5
+    gsteps = [(p.cpu().numpy(), a) for p, a in gsteps]
+    for (pg, ag), (pc, ac) in zip(gsteps, csteps):
+        np.testing.assert_array_equal(ag, ac)
+        assert_pcm_contract(pg, pc)
+        assert not pg[ag == 0].any()
+    for s, data in enumerate(corpus):
+        _check_vs_native(data, _slot_pcm(gsteps, s), s == MONO)
+
+
+@pytest.mark.parametrize("kw", [dict(exact=True), dict(family=1),
+                                dict(float_pcm=True),
+                                dict(resample_to=48000),
+                                dict(frames_per_step=2)])
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError):
+        StreamDecoder(2, device="cpu", **kw)
+
+
+def test_port_imports_no_jax():
+    """One CPU step through the port in a fresh interpreter leaves JAX
+    out of sys.modules."""
+    code = (
+        "import sys\n"
+        "import pdmp3_tpu_torch as P\n"
+        "from pdmp3_tpu.testing import mp3gen\n"
+        "d = P.StreamDecoder(1, device='cpu')\n"
+        "d.feed(0, mp3gen.make_stream(n_frames=3, seed=5))\n"
+        "assert d.parse_step() == 1\n"
+        "pcm = d.decode_step()\n"
+        "assert pcm.shape == (1, 1152, 2) and pcm.any()\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules\n"
+        "                                        if 'jax' in m)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
