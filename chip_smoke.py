@@ -3,26 +3,40 @@
 
     python3 chip_smoke.py
 
-Fast-mode MPEG-1 Layer III serving through ``pdmp3_tpu_torch`` at
-B = 8192 stream slots, in four phases; any failure exits non-zero:
+MPEG-1 Layer III decoding through ``pdmp3_tpu_torch`` at B = 8192
+stream slots, fast and exact, in nine phases; any failure exits
+non-zero.  The kernels are built here from ``pdmp3_tpu_torch/csrc``.
 
 1. the card's name and power limit, then a check that CUDA is visible;
-2. the hand-written granule kernel (built here from
-   ``pdmp3_tpu_torch/csrc``) against its plain PyTorch version on the
+2. K1, the fast granule kernel, against its plain PyTorch version on the
    same CUDA tensors: one frame (two granule steps) of natively parsed
    wire, a few idle slots, a random starting state; both timed;
-3. the main path: ``StreamDecoder(8192, device="cuda")`` fed by
+3. the fast main path: ``StreamDecoder(8192, device="cuda")`` fed by
    ``LoopFeeder`` from 64 distinct generated streams, 2 warm-up and 32
-   timed frame steps of feed -> parse_step -> decode_step, with the
-   kernel's launch count checked against the steps run;
+   timed frame steps of feed -> parse_step -> decode_step, with K1's
+   launch count checked against the steps run;
 4. the PCM of slots covering long, short, mixed, MS, intensity, mono,
-   32 and 48 kHz streams against the native scalar C++ decoder.
+   32 and 48 kHz streams against the native scalar C++ decoder;
+5. K2, the exact granule kernel, against its plain version as in phase
+   2, and on a directed granule whose band-12 carry holds subnormal bit
+   patterns (denormal band-12 gains); bitwise, both timed;
+6. the exact main path: phase 3 with ``exact=True`` (K2), and its
+   watched slots bitwise equal to the native decoder;
+7. K4, the back-half kernel, against its plain version in both modes on
+   one frame's post-antialias spectra, bitwise and timed; then the fused
+   exact route (K2) against the split one (stage ops + K4 + the f64
+   quantize), bitwise;
+8. the per-stream route: ``pdmp3_tpu.api.decode_file`` with
+   ``TorchDSP(device="cuda")`` (K4) on 6 generated streams, exact
+   byte-equal to the native decoder and fast within 1 LSB;
+9. K6: the exact kernel's three float64 rounding points over all 2^32
+   f32 inputs on the card against their plain f64 versions, bitwise.
 
     python3 chip_smoke.py --profile
 
-adds a fifth phase after the fourth: ``torch.profiler`` over serving
-steps (device time by kernel and copy, and the device's busy share of
-the loop), then the serving loop at 1, 2, 4 and 8 parse threads.
+adds a tenth phase: ``torch.profiler`` over fast serving steps (device
+time by kernel and copy, and the device's busy share of the loop), then
+the serving loop at 1, 2, 4 and 8 parse threads.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
@@ -30,8 +44,9 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import functools
 import json
-import os
+import re
 import subprocess
 import sys
 import time
@@ -55,13 +70,56 @@ MAX_LSB, MAX_FRAC = 1, 0.01
 # the plain version's order and rounds where it rounds, so it is expected
 # to match bit for bit; the bound only catches a wrong stage
 STATE_RTOL = 1e-5
-KERNEL_SRC = "pdmp3_tpu_torch/csrc/fused_granule.cu"
-REPLACES = "pdmp3_tpu/ops/pallas_step.py:771"
+CSRC = "pdmp3_tpu_torch/csrc/"
+# TPU kernels replaced (file:line of each kernel body)
+REPLACES = {"fused_granule": "pdmp3_tpu/ops/pallas_step.py:771",
+            "fused_granule_exact": "pdmp3_tpu/ops/pallas_step.py:771",
+            "back_half": "pdmp3_tpu/ops/pallas_step.py:463",
+            "rounding_sweep": "tools/prove_on_tpu.py:88"}
+# the subnormal band-12 bit patterns of phase 5's directed granule
+SUBNORMAL_BITS = (126, 321)
+# phase 8's streams: tests/test_jax_decoder.py CONFIGS (8 frames, seed 2)
+API_CONFIGS = {
+    "long": dict(blocks="long"),
+    "varied_ms": dict(blocks="varied", mode=1, mode_extension=2),
+    "ms_intensity": dict(blocks="long", mode=1, mode_extension=3,
+                         stereo_extent_ch1=0.3, intensity_pos=True),
+    "mono_48k": dict(blocks="varied", mode=3, sfreq=1),
+    "mixed_32k": dict(blocks="mixed", sfreq=2),
+    "reservoir_stuffing": dict(blocks="short", use_reservoir=True,
+                               stuffing=4),
+}
+SWEEP_TIMED = 9      # chunk launches timed for K6's ms / plain_ms
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def _counters() -> dict:
+    """kernel name -> (module, attribute) of its wrapper's launch count."""
+    from pdmp3_tpu_torch.ops import back_half as BH
+    from pdmp3_tpu_torch.ops import fused_step as FS
+    from pdmp3_tpu_torch.ops import rounding as R
+    return {"fused_granule": (FS, "LAUNCHES"),
+            "fused_granule_exact": (FS, "LAUNCHES_EXACT"),
+            "back_half": (BH, "LAUNCHES"),
+            "rounding_sweep": (R, "LAUNCHES")}
+
+
+def reset_launch_counts() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def launch_counts(path: str, kernel: str) -> int:
+    """The launches of `kernel` since the last reset; every other kernel
+    must have launched no time on the path."""
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+    others = {k: n for k, n in counts.items() if k != kernel and n}
+    check(not others, f"{path}: launched {others} beside {kernel}")
+    return counts[kernel]
 
 
 def corpus() -> list[tuple[bytes, dict]]:
@@ -114,36 +172,49 @@ def pcm_error(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
     return int(d.max()), float((d != 0).float().mean())
 
 
-def phase_kernel(streams: list[bytes], dev) -> dict:
-    """The kernel vs its plain version on one natively parsed frame."""
+def parsed_frame(streams: list[bytes], dev) -> dict:
+    """One natively parsed frame of wire for B slots on the card (the
+    INACTIVE slots idle) and a random starting state."""
     from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
     from pdmp3_tpu_torch.models.decoder import DecoderState, wire_sections
-    from pdmp3_tpu_torch.ops import fused_step as FS
 
     dec = StreamDecoder(B, device=dev)
     LoopFeeder(dec, streams).step()
-    check(dec.parse_step() == B, "phase 2: not every slot parsed a frame")
+    check(dec.parse_step() == B, "not every slot parsed a frame")
     w = wire_sections(torch.from_numpy(dec.wire.copy()).to(dev), B)
     del dec
-    ix, scf_l, scf_s = w["ix"], w["scf_l"], w["scf_s"]
-    meta = w["meta"].to(torch.int32)
     active = w["active"].to(torch.int32)
     active[list(INACTIVE)] = 0
     rng = np.random.default_rng(0)
     st0 = DecoderState(*(torch.from_numpy(
         rng.standard_normal(shape).astype(np.float32)).to(dev)
         for shape in ((B, 2, 32, 18), (B, 2, 15, 64), (B, 3))))
+    return {"ix": w["ix"], "scf_l": w["scf_l"], "scf_s": w["scf_s"],
+            "meta": w["meta"].to(torch.int32), "active": active,
+            "st0": st0}
 
-    def frame(step, state):
+
+def granule_args(fr: dict, gr: int) -> tuple:
+    return (fr["ix"][gr], fr["scf_l"][gr], fr["scf_s"][gr],
+            fr["meta"][gr].contiguous(), fr["active"], gr)
+
+
+def compare_steps(fr: dict, step_k, step_r, phase: str, grs=(0, 1),
+                  st0=None) -> dict:
+    """Run the granules grs with a kernel step and its plain version from
+    the same state; require PCM and state bitwise equal and the idle
+    slots silent and frozen."""
+    st0 = fr["st0"] if st0 is None else st0
+
+    def run(step, state):
         outs = []
-        for gr in range(2):
-            pcm, state = step(ix[gr], scf_l[gr], scf_s[gr],
-                              meta[gr].contiguous(), active, gr, state)
+        for gr in grs:
+            pcm, state = step(*granule_args(fr, gr), state)
             outs.append(pcm)
         return torch.cat(outs, 1), state
 
-    pk, sk = frame(FS.fused_granule_step, clone_state(st0))
-    pr, sr = frame(FS.fused_granule_step_ref, clone_state(st0))
+    pk, sk = run(step_k, clone_state(st0))
+    pr, sr = run(step_r, clone_state(st0))
     torch.cuda.synchronize()
     lsb, frac = pcm_error(pk, pr)
     res = {"tolerance": "bitwise (PCM, store, v, prev_lines); reported: "
@@ -160,41 +231,197 @@ def phase_kernel(streams: list[bytes], dev) -> dict:
     # the kernel rounds where the plain version rounds and sums in its
     # order (no FMA contraction), so any difference is a fault
     check(lsb <= MAX_LSB and frac < MAX_FRAC,
-          f"phase 2: kernel vs plain PCM {lsb} LSB on {frac:.4%}")
+          f"{phase}: kernel vs plain PCM {lsb} LSB on {frac:.4%}")
     for name in ("pcm", "store", "v_blocks", "prev_lines"):
         check(res[f"{name}_bitwise_equal"],
-              f"phase 2: {name} not bitwise equal to the plain version "
+              f"{phase}: {name} not bitwise equal to the plain version "
               f"({json.dumps(res)})")
     for s in INACTIVE:
-        check(not bool(pk[s].any()), f"phase 2: idle slot {s} has PCM")
+        check(not bool(pk[s].any()), f"{phase}: idle slot {s} has PCM")
         for name in ("store", "v_blocks", "prev_lines"):
             check(torch.equal(getattr(sk, name)[s].view(torch.int32),
                               getattr(st0, name)[s].view(torch.int32)),
-                  f"phase 2: idle slot {s} {name} changed")
-    check(bool(pk[0].any()), "phase 2: active slot 0 is silent")
-
-    # one granule step per timed call, each on its own state copy
-    sk, sr = clone_state(st0), clone_state(st0)
-    args = (ix[0], scf_l[0], scf_s[0], meta[0].contiguous(), active, 0)
-    res["kernel_ms"] = median_ms(lambda: FS.fused_granule_step(*args, sk),
-                                 TIMED_LAUNCHES)
-    res["plain_ms"] = median_ms(
-        lambda: FS.fused_granule_step_ref(*args, sr), TIMED_LAUNCHES)
+                  f"{phase}: idle slot {s} {name} changed")
+    check(bool(pk[0].any()), f"{phase}: active slot 0 is silent")
     return res
 
 
-def phase_main_path(streams: list[bytes], dev, watch: list[int]) -> dict:
-    """StreamDecoder serving at B slots; returns timings and the PCM of
-    the watched slots."""
-    from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
+def phase_kernel(fr: dict, exact: bool) -> dict:
+    """The fused kernel (K1, or K2 when exact) vs its plain version on
+    one natively parsed frame; both timed per granule step."""
     from pdmp3_tpu_torch.ops import fused_step as FS
 
-    dec = StreamDecoder(B, device=dev)
+    phase = "phase 5" if exact else "phase 2"
+    step_k = functools.partial(FS.fused_granule_step, exact=exact)
+    step_r = functools.partial(FS.fused_granule_step_ref, exact=exact)
+    res = compare_steps(fr, step_k, step_r, phase)
+    if exact:
+        res["band12_subnormal"] = phase_band12_subnormal(fr, step_k,
+                                                         step_r)
+    # one granule step per timed call, each on its own state copy
+    sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
+    args = granule_args(fr, 0)
+    res["kernel_ms"] = median_ms(lambda: step_k(*args, sk), TIMED_LAUNCHES)
+    res["plain_ms"] = median_ms(lambda: step_r(*args, sr), TIMED_LAUNCHES)
+    return res
+
+
+def phase_band12_subnormal(fr: dict, step_k, step_r) -> dict:
+    """Granule 1 with prev_lines holding the subnormal bit patterns
+    SUBNORMAL_BITS and every ch1 line coded, so the short band-12 lines
+    of ch1 take the true gain GAIN_QUARTER_TRUE[q], subnormal for q in
+    504..599: the exact kernel vs its plain version, bitwise."""
+    from pdmp3_tpu_torch.ops import dsp as D
+
+    lo, hi = SUBNORMAL_BITS
+    bits = lo + torch.arange(B * 3, device=fr["ix"].device) % (hi - lo)
+    st0 = clone_state(fr["st0"])
+    st0.prev_lines.copy_(bits.to(torch.int32).view(torch.float32)
+                         .reshape(B, 3))
+    ix = fr["ix"].clone()
+    ix[1, :, 1] = (torch.arange(576, device=ix.device) % 7 - 3) \
+        .to(torch.int16)
+    res = compare_steps(dict(fr, ix=ix), step_k, step_r,
+                        "phase 5 band-12 subnormal", grs=(1,), st0=st0)
+    f = D.fields(fr["meta"][1])
+    q = (2 << f.scalefac_scale[:, 1:2].long()) * bits.reshape(B, 3)
+    short1 = f.layout[:, 1] % 3 != 0
+    hit = short1 & (fr["active"] != 0) & ((q >= 504) & (q < 600)).any(1)
+    res["slots_with_subnormal_band12_gain"] = int(hit.sum())
+    check(res["slots_with_subnormal_band12_gain"] > 0,
+          "phase 5: no slot reached a subnormal band-12 gain")
+    return res
+
+
+def phase_back_half(fr: dict) -> dict:
+    """K4 vs its plain version, exact and fast, on the post-antialias
+    spectra of granule 0, bitwise and timed; then the fused exact route
+    (K2) vs the split one (stage ops + K4 + f64 quantize), bitwise."""
+    from pdmp3_tpu_torch.ops import back_half as BH
+    from pdmp3_tpu_torch.ops import dsp as D
+    from pdmp3_tpu_torch.ops import fused_step as FS
+
+    args = granule_args(fr, 0)
+    f = D.fields(args[3])
+    bt = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
+    res = {}
+    for exact in (True, False):
+        mode = "exact" if exact else "fast"
+        xa = D.front_half(*args[:4], 0, fr["st0"].prev_lines, exact)
+        sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
+        ok, pk = BH.back_half_step(xa, sk, bt, fr["active"], exact)
+        orf, pr = BH.back_half_step_ref(xa, sr, bt, fr["active"], exact)
+        torch.cuda.synchronize()
+        pairs = {"out": (ok, orf), "prev3": (pk, pr),
+                 "store": (sk.store, sr.store),
+                 "v_blocks": (sk.v_blocks, sr.v_blocks)}
+        r = {"max_abs_err": max(float((a - b).abs().max())
+                                for a, b in pairs.values())}
+        for name, (a, b) in pairs.items():
+            r[f"{name}_bitwise_equal"] = bool(
+                torch.equal(a.view(torch.int32), b.view(torch.int32)))
+            check(r[f"{name}_bitwise_equal"],
+                  f"phase 7: K4 {mode} {name} differs from the plain "
+                  "version")
+        sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
+        r["kernel_ms"] = median_ms(
+            lambda: BH.back_half_step(xa, sk, bt, fr["active"], exact),
+            TIMED_LAUNCHES)
+        r["plain_ms"] = median_ms(
+            lambda: BH.back_half_step_ref(xa, sr, bt, fr["active"], exact),
+            TIMED_LAUNCHES)
+        res[mode] = r
+    res["fused_vs_split"] = compare_steps(
+        fr, functools.partial(FS.fused_granule_step, exact=True),
+        functools.partial(BH.split_granule_step, exact=True),
+        "phase 7 fused vs split")
+    return res
+
+
+def phase_api(dev) -> dict:
+    """decode_file through TorchDSP on the card: exact byte-equal to the
+    native decoder, fast within the fast contract; K4 launched in both."""
+    from pdmp3_tpu.api import decode_file
+    from pdmp3_tpu.host import native_decode_file
+    from pdmp3_tpu.testing import mp3gen
+    from pdmp3_tpu_torch import TorchDSP
+
+    streams = {name: mp3gen.make_stream(n_frames=8, seed=2, **spec)
+               for name, spec in API_CONFIGS.items()}
+    res = {"streams": len(streams)}
+    reset_launch_counts()
+    for exact in (True, False):
+        mode = "exact" if exact else "fast"
+        n0 = launch_counts("phase 8", "back_half")
+        t0 = time.perf_counter()
+        worst = []
+        for name, data in streams.items():
+            got = decode_file(data, dsp=TorchDSP(exact=exact, device=dev))
+            want = native_decode_file(data)
+            check(len(want) > 0 and len(got) == len(want),
+                  f"phase 8: {name} {mode}: {len(got)} vs {len(want)} B")
+            if exact:
+                check(got == want, f"phase 8: {name} exact differs from "
+                                   "the native decoder")
+            lsb, frac = pcm_error(
+                torch.from_numpy(np.frombuffer(got, "<i2").copy()),
+                torch.from_numpy(np.frombuffer(want, "<i2").copy()))
+            check(lsb <= MAX_LSB and frac < MAX_FRAC,
+                  f"phase 8: {name} {mode} {lsb} LSB on {frac:.4%}")
+            worst.append((lsb, frac))
+        res[f"{mode}_seconds"] = time.perf_counter() - t0
+        res[f"{mode}_k4_launches"] = launch_counts("phase 8",
+                                                   "back_half") - n0
+        res[f"{mode}_max_lsb"] = max(w[0] for w in worst)
+        res[f"{mode}_max_frac_differing"] = max(w[1] for w in worst)
+        check(res[f"{mode}_k4_launches"] > 0,
+              f"phase 8: {mode} decode launched no K4")
+    res["k4_launches"] = launch_counts("phase 8", "back_half")
+    return res
+
+
+def phase_sweep(dev) -> dict:
+    """K6: the three rounding points over all 2^32 inputs, then one
+    chunk's kernel and plain times."""
+    from pdmp3_tpu_torch.ops import rounding as R
+
+    reset_launch_counts()
+    res = {"results": [R.sweep(name, device=dev) for name in R.CONSTRUCTIONS]}
+    res["launches"] = launch_counts("phase 9", "rounding_sweep")
+    check(res["launches"] == 256 * len(R.CONSTRUCTIONS),
+          f"phase 9: {res['launches']} sweep launches")
+    for r in res["results"]:
+        check(r["mismatching_chunks"] == [] and r["chunks_swept"] == 256,
+              f"phase 9: {json.dumps(r)}")
+    n = 1 << 24
+    x = R.chunk_inputs(n, n, dev)
+    res["chunk_inputs"] = n
+    res["kernel_ms"] = {name: median_ms(
+        lambda: R.rounding_sweep_step(name, n, n, dev), SWEEP_TIMED)
+        for name in R.CONSTRUCTIONS}
+    res["plain_ms"] = {name: median_ms(lambda: R.PLAIN[name](x),
+                                       SWEEP_TIMED)
+                       for name in R.CONSTRUCTIONS}
+    res["seconds"] = sum(r["seconds"] for r in res["results"])
+    res["max_abs_err"] = max(r["max_abs_err"] for r in res["results"])
+    return res
+
+
+def phase_main_path(streams: list[bytes], dev, watch: list[int],
+                    exact: bool = False) -> dict:
+    """StreamDecoder serving at B slots, fast (K1) or exact (K2); returns
+    timings, with an exact_ prefix when exact, and the PCM of the watched
+    slots."""
+    from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
+
+    path = f"main path (exact={exact})"
+    kernel = "fused_granule_exact" if exact else "fused_granule"
+    dec = StreamDecoder(B, exact=exact, device=dev)
     feeder = LoopFeeder(dec, streams)
     sel = torch.tensor(watch, device=dev)
     kept, events, feed_s, parse_s = [], [], [], []
     decoded = 0
-    FS.LAUNCHES = 0
+    reset_launch_counts()
     for step in range(WARMUP_STEPS + TIMED_STEPS):
         if step == WARMUP_STEPS:
             torch.cuda.synchronize()
@@ -215,16 +442,17 @@ def phase_main_path(streams: list[bytes], dev, watch: list[int]) -> dict:
         decoded += 1
     torch.cuda.synchronize()
     loop_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
-    launches = FS.LAUNCHES
+    launches = launch_counts(path, kernel)
     check(launches == 2 * decoded,
-          f"main path: {launches} kernel launches for {decoded} frame steps")
+          f"{path}: {launches} {kernel} launches for {decoded} frame steps")
 
     # the device half alone, replayed on the last uploaded wire
     from pdmp3_tpu_torch.models.decoder import decode_frame_packed
     wire = dec._wires_t[dec._cur ^ 1].to(dev)
     state = clone_state(dec.state)
     replay_ms = median_ms(
-        lambda: decode_frame_packed(wire, state, B=B), TIMED_STEPS)
+        lambda: decode_frame_packed(wire, state, B=B, exact=exact),
+        TIMED_STEPS)
 
     step_ms = float(np.median([a.elapsed_time(b)
                                for a, b in events[WARMUP_STEPS:]]))
@@ -233,7 +461,9 @@ def phase_main_path(streams: list[bytes], dev, watch: list[int]) -> dict:
     check(pcm.shape == (len(watch), decoded * 1152, 2)
           and pcm.dtype == np.int16, f"main path: PCM {pcm.shape}")
     check(bool(pcm.any(axis=(1, 2)).all()), "main path: a slot is silent")
-    return {
+    pre = "exact_" if exact else ""
+    return {f"{pre}{k}" if k not in ("batch_slots", "steps", "_pcm")
+            else k: v for k, v in {
         "batch_slots": B,
         "steps": TIMED_STEPS,
         "step_ms": step_ms,
@@ -250,7 +480,7 @@ def phase_main_path(streams: list[bytes], dev, watch: list[int]) -> dict:
         "kernel_launches": launches,
         "frame_steps": decoded,
         "_pcm": pcm,
-    }
+    }.items()}
 
 
 def phase_profile(streams: list[bytes], dev) -> dict:
@@ -273,7 +503,7 @@ def phase_profile(streams: list[bytes], dev) -> dict:
             t1 = time.perf_counter()
             feeder.step()
             t2 = time.perf_counter()
-            check(dec.parse_step() > 0, "phase 5: no active slot")
+            check(dec.parse_step() > 0, "phase 10: no active slot")
             t3 = time.perf_counter()
             dec.decode_step(fetch=False)
             feed.append(t2 - t1)
@@ -296,7 +526,7 @@ def phase_profile(streams: list[bytes], dev) -> dict:
         spans.append((a, b))
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + (b - a))
-    check(bool(spans), "phase 5: the profiler saw no device activity")
+    check(bool(spans), "phase 10: the profiler saw no device activity")
     busy_us, end = 0.0, -np.inf
     for a, b in sorted(spans):
         busy_us += max(0.0, b - max(a, end))
@@ -331,9 +561,11 @@ def phase_profile(streams: list[bytes], dev) -> dict:
 
 
 def phase_correctness(pcm: np.ndarray, watch: list[int],
-                      specs: list[tuple[bytes, dict]]) -> list[dict]:
+                      specs: list[tuple[bytes, dict]],
+                      exact: bool = False) -> list[dict]:
     """Each watched slot's PCM against the native scalar decoder over
-    the aligned prefix (the slot keeps decoding its looping stream)."""
+    the aligned prefix (the slot keeps decoding its looping stream):
+    bitwise when exact, else the fast contract."""
     from pdmp3_tpu.host import native_decode_file
 
     out = []
@@ -351,8 +583,9 @@ def phase_correctness(pcm: np.ndarray, watch: list[int],
                     "mode_extension": spec.get("mode_extension", 0),
                     "sfreq": spec["sfreq"], "samples": int(len(want)),
                     "max_lsb": lsb, "frac_differing": frac})
-        check(lsb <= MAX_LSB and frac < MAX_FRAC,
-              f"slot {slot}: {lsb} LSB on {frac:.4%} vs native")
+        check(lsb == 0 if exact else lsb <= MAX_LSB and frac < MAX_FRAC,
+              f"slot {slot} (exact={exact}): {lsb} LSB on {frac:.4%} vs "
+              "native")
     return out
 
 
@@ -369,10 +602,26 @@ def watched_slots(specs: list[tuple[bytes, dict]]) -> list[int]:
     return slots
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """Registers, shared memory and spills of each kernel from nvcc's
+    -Xptxas -v report."""
+    out, name = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
+                      r"I(L\w+?)E", ln)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+        elif "spill stores" in ln:
+            out.append(f"{name}: {ln.split(',', 1)[1].strip()}")
+        elif "registers" in ln:
+            out[-1] += "; " + ln.split(":", 1)[1].strip()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 5: torch.profiler over serving steps "
+                    help="add phase 10: torch.profiler over serving steps "
                          "and a parse-thread sweep")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -388,11 +637,8 @@ def main() -> int:
     t0 = time.perf_counter()
     from pdmp3_tpu_torch.ops import _build
     _build.ensure_built()
-    ptxas = []
-    if os.path.exists(_build.LOG):
-        with open(_build.LOG) as f:
-            ptxas = [ln.strip() for ln in f if "registers" in ln
-                     or "spill" in ln]
+    with open(_build.LOG) as f:
+        ptxas = ptxas_summary(f.read())
     print(f"kernel build {time.perf_counter() - t0:.1f} s; "
           + " | ".join(ptxas))
 
@@ -401,26 +647,60 @@ def main() -> int:
     streams = [s for s, _ in specs]
     print(f"corpus: {len(streams)} streams x {FRAMES_PER_STREAM} frames "
           f"in {time.perf_counter() - t0:.1f} s")
+    fr = parsed_frame(streams, dev)
 
-    k = phase_kernel(streams, dev)
-    print("phase 2 kernel vs plain:", json.dumps(k))
+    k1 = phase_kernel(fr, exact=False)
+    print("phase 2 K1 vs plain:", json.dumps(k1))
 
     watch = watched_slots(specs)
     m = phase_main_path(streams, dev, watch)
-    pcm = m.pop("_pcm")
-    print("phase 3 main path:", json.dumps(m))
-
-    slots = phase_correctness(pcm, watch, specs)
+    print("phase 3 main path:",
+          json.dumps({k: v for k, v in m.items() if k != "_pcm"}))
+    slots = phase_correctness(m["_pcm"], watch, specs)
     print("phase 4 vs native:", json.dumps(slots))
+
+    k2 = phase_kernel(fr, exact=True)
+    print("phase 5 K2 vs plain:", json.dumps(k2))
+
+    me = phase_main_path(streams, dev, watch, exact=True)
+    slots = phase_correctness(me.pop("_pcm"), watch, specs, exact=True)
+    me["exact_over_fast_step_ms"] = me["exact_step_ms"] / m["step_ms"]
+    print("phase 6 exact main path:", json.dumps(me))
+    print("phase 6 vs native (bitwise):", json.dumps(slots))
+
+    k4 = phase_back_half(fr)
+    print("phase 7 K4 vs plain, fused vs split:", json.dumps(k4))
+    del fr
+
+    api = phase_api(dev)
+    print("phase 8 TorchDSP decode_file:", json.dumps(api))
+
+    k6 = phase_sweep(dev)
+    print("phase 9 K6 sweep:", json.dumps(k6))
     if args.profile:
-        print("phase 5 profile:", json.dumps(phase_profile(streams, dev)))
+        print("phase 10 profile:", json.dumps(phase_profile(streams, dev)))
     check("jax" not in sys.modules, "JAX was imported")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_granule", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": REPLACES, "launches": m["kernel_launches"],
-        "max_abs_err": k["pcm_max_lsb"], "ms": k["kernel_ms"],
-        "plain_ms": k["plain_ms"]}]}))
+    def entry(name, src, launches, err, ms, plain_ms, **extra):
+        return {"name": name, "route": "cuda", "source": CSRC + src,
+                "replaces": REPLACES[name], "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **extra}
+    print(json.dumps({"kernels": [
+        entry("fused_granule", "fused_granule.cu", m["kernel_launches"],
+              k1["pcm_max_lsb"], k1["kernel_ms"], k1["plain_ms"]),
+        entry("fused_granule_exact", "fused_granule.cu",
+              me["exact_kernel_launches"], k2["pcm_max_lsb"],
+              k2["kernel_ms"], k2["plain_ms"]),
+        entry("back_half", "back_half.cu", api["k4_launches"],
+              max(k4["exact"]["max_abs_err"], k4["fast"]["max_abs_err"]),
+              k4["exact"]["kernel_ms"], k4["exact"]["plain_ms"],
+              ms_fast=k4["fast"]["kernel_ms"],
+              plain_ms_fast=k4["fast"]["plain_ms"]),
+        entry("rounding_sweep", "rounding_sweep.cu", k6["launches"],
+              k6["max_abs_err"], sum(k6["kernel_ms"].values()),
+              sum(k6["plain_ms"].values()),
+              sweep_seconds=k6["seconds"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,11 @@
-"""The batched granule decoder over the packed wire."""
-from .decoder import (DecoderState, GranuleBatch, decode_frame_packed,
-                      decode_frame_soa, init_state, soa_layout,
-                      state_from_jax, state_from_pallas, wire_sections)
+"""The batched granule decoder: the packed wire and the per-stream DSP."""
+from .decoder import (DecoderState, GranuleBatch, TorchDSP,
+                      decode_frame_packed, decode_frame_soa,
+                      decode_granules, frame_to_batches, init_state,
+                      soa_layout, state_from_jax, state_from_pallas,
+                      wire_sections)
 
-__all__ = ["DecoderState", "GranuleBatch", "decode_frame_packed",
-           "decode_frame_soa", "init_state", "soa_layout",
+__all__ = ["DecoderState", "GranuleBatch", "TorchDSP",
+           "decode_frame_packed", "decode_frame_soa", "decode_granules",
+           "frame_to_batches", "init_state", "soa_layout",
            "state_from_jax", "state_from_pallas", "wire_sections"]

@@ -1,9 +1,19 @@
-"""The batched, stateful Layer III granule decoder over the packed wire.
+"""The batched, stateful Layer III granule decoder.
 
-Counterpart of ``pdmp3_tpu/models/decoder.py`` for the fast MPEG-1
-serving path.  One frame step decodes one frame per slot as two granule
-steps (``ops.fused_step.fused_granule_step``) from the native frontend's
-packed int16 wire, threading the per-slot recurrent ``DecoderState``.
+Counterpart of ``pdmp3_tpu/models/decoder.py`` for MPEG-1 (family 0), in
+fast and exact precision.  Two routes:
+
+- serving: one frame step decodes one frame per slot as two granule
+  steps (``ops.fused_step.fused_granule_step``: K1 fast, K2 exact on
+  CUDA) from the native frontend's packed int16 wire
+  (``decode_frame_packed``);
+- per stream: ``TorchDSP`` plugs into the streaming API
+  (``pdmp3_tpu.api``) and decodes parsed ``FrameData`` through
+  ``frame_to_batches`` and ``decode_granules``, the split route (stage-op
+  front half, then the back-half kernel K4 on CUDA).
+
+Both thread the per-slot recurrent ``DecoderState`` and give the same
+bits.
 
 State is kept in the canonical slot-major layout ([B,2,32,18],
 [B,2,15,64], [B,3]) on every device: one thread block per slot reads its
@@ -16,7 +26,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.fused_step import META_WORDS, fused_granule_step
+from pdmp3_tpu import tables as T
+
+from ..ops import dsp as D
+from ..ops.back_half import split_granule_step
+from ..ops.dsp import META_WORDS
+from ..ops.fused_step import fused_granule_step
 
 
 @dataclass
@@ -86,8 +101,73 @@ def _batch_from_meta(ix, scf_l, scf_s, meta, active, gr: int
                         active=active.to(torch.int32).contiguous(), gr1=gr)
 
 
+def decode_granules(batch: GranuleBatch, state: DecoderState,
+                    exact: bool = True, bug_compat: bool = True):
+    """One batched granule step on the split route
+    (ops.back_half.split_granule_step): the stage-op front half, the back
+    half (K4 on CUDA) and the pack.  Returns (pcm int16 [B,576,2], state
+    updated in place); the same bits as the fused step."""
+    return split_granule_step(batch.ix, batch.scf_l, batch.scf_s,
+                              batch.meta, batch.active, batch.gr1, state,
+                              bug_compat, exact)
+
+
+def frame_to_batches(fds, device="cpu") -> list[GranuleBatch]:
+    """One parsed MPEG-1 frame per slot (``pdmp3_tpu.frontend.FrameData``)
+    as the two granule steps' wire-form batches on ``device``: ix
+    reordered to line order as the native wire packs it, meta words in
+    the PDMP3_META_* layout of the int16 wire (sample rate / 25), every
+    slot active.  Family 0 only."""
+    if any(fd.header.family != 0 or fd.sb_samples is not None
+           for fd in fds):
+        raise NotImplementedError(
+            "only MPEG-1 Layer III frames are ported to the PyTorch "
+            "backend yet")
+    perm = T.layout_maps(0)["reorder"]
+    B = len(fds)
+    out = []
+    for gr in range(2):
+        ix = np.zeros((B, 2, 576), np.int16)
+        scf_l = np.zeros((B, 2, 22), np.int16)
+        scf_s = np.zeros((B, 2, 39), np.int16)
+        meta = np.zeros((B, META_WORDS), np.int32)
+        for b, fd in enumerate(fds):
+            h, s = fd.header, fd.side
+            m = meta[b]
+            m[D.M_MS] = int(h.mode == 1 and bool(h.mode_extension & 2))
+            m[D.M_IS] = int(h.mode == 1 and bool(h.mode_extension & 1))
+            m[D.M_NCH] = h.nch
+            m[D.M_SAMPLE_RATE] = h.sample_rate // 25
+            for ch in range(h.nch):
+                lay = T.layout_id(h.sampling_frequency,
+                                  int(s.win_switch_flag[gr][ch]),
+                                  int(s.block_type[gr][ch]),
+                                  int(s.mixed_block_flag[gr][ch]))
+                ix[b, ch] = fd.ix[gr][ch][perm[lay]]
+                scf_l[b, ch] = fd.scalefac_l[gr][ch]
+                scf_s[b, ch] = np.asarray(fd.scalefac_s[gr][ch]).reshape(39)
+                for k, v in ((D.M_LAYOUT, lay),
+                             (D.M_BT, s.block_type[gr][ch]),
+                             (D.M_WSF, s.win_switch_flag[gr][ch]),
+                             (D.M_MIXED, s.mixed_block_flag[gr][ch]),
+                             (D.M_GG, s.global_gain[gr][ch]),
+                             (D.M_SFS, s.scalefac_scale[gr][ch]),
+                             (D.M_PRE, s.preflag[gr][ch]),
+                             (D.M_C1, s.count1[gr][ch])):
+                    m[k + ch] = v
+                m[D.M_SBG + 3 * ch:D.M_SBG + 3 * ch + 3] = \
+                    s.subblock_gain[gr][ch]
+
+        def t(a):
+            return torch.from_numpy(a).to(device)
+        out.append(GranuleBatch(
+            ix=t(ix), scf_l=t(scf_l), scf_s=t(scf_s), meta=t(meta),
+            active=t(np.ones(B, np.int32)), gr1=gr))
+    return out
+
+
 def decode_frame_soa(ix2, scf_l2, scf_s2, meta2, active, state,
-                     bug_compat: bool = True):
+                     bug_compat: bool = True, exact: bool = False):
     """Decode one frame per slot (two granule steps) from the wire's
     section tensors: ix2 int16 [2,B,2,576], scf_l2 int16 [2,B,2,22],
     scf_s2 int16 [2,B,2,39], meta2 [2,B,32], active [B].
@@ -97,7 +177,8 @@ def decode_frame_soa(ix2, scf_l2, scf_s2, meta2, active, state,
         b = _batch_from_meta(ix2[gr], scf_l2[gr], scf_s2[gr], meta2[gr],
                              active, gr)
         pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
-                                        b.active, b.gr1, state, bug_compat)
+                                        b.active, b.gr1, state, bug_compat,
+                                        exact)
         pcms.append(pcm)
     return torch.cat(pcms, 1), state
 
@@ -139,9 +220,39 @@ def wire_sections(buf, B: int) -> dict:
             for name, shape in shapes.items()}
 
 
-def decode_frame_packed(buf, state, B: int, bug_compat: bool = True):
+def decode_frame_packed(buf, state, B: int, bug_compat: bool = True,
+                        exact: bool = False):
     """decode_frame_soa over the packed one-frame wire, on the decode
     device.  Returns (pcm int16 [B,1152,2], state updated in place)."""
     w = wire_sections(buf, B)
     return decode_frame_soa(w["ix"], w["scf_l"], w["scf_s"], w["meta"],
-                            w["active"], state, bug_compat)
+                            w["active"], state, bug_compat, exact)
+
+
+class TorchDSP:
+    """Single-stream DSP adapter with the OracleDSP interface, so the
+    streaming API (``pdmp3_tpu.api.PDMP3`` / ``decode_file``) can decode
+    on the port's backend: ``decode_file(data, dsp=TorchDSP(device=...))``.
+    Counterpart of the JAX package's JaxDSP; MPEG-1 Layer III only
+    (Layer I/II and LSF frames raise NotImplementedError)."""
+
+    def __init__(self, exact: bool = True, bug_compat: bool = True, *,
+                 device):
+        self.exact = exact
+        self.bug_compat = bug_compat
+        self.device = torch.device(device)
+        self.state = init_state(1, self.device)
+
+    def reset(self) -> None:
+        self.state = init_state(1, self.device)
+
+    def decode_frame(self, fd) -> np.ndarray:
+        """Packed PCM words uint32 [2,576] like the reference's
+        ``id->out`` (pdmp3.c:129): left in the high half."""
+        out = np.zeros((2, 576), np.uint32)
+        for gr, batch in enumerate(frame_to_batches([fd], self.device)):
+            pcm, self.state = decode_granules(batch, self.state, self.exact,
+                                              self.bug_compat)
+            pcm = pcm[0].cpu().numpy().astype(np.uint16)   # [576,2]
+            out[gr] = (pcm[:, 0].astype(np.uint32) << 16) | pcm[:, 1]
+        return out

@@ -1,4 +1,7 @@
-"""Device ops of the port: the fused granule step and its constants."""
+"""Device ops of the port: the stage ops, the granule steps, the float64
+rounding points and their constants."""
+from .back_half import back_half_step, back_half_step_ref, split_granule_step
 from .fused_step import fused_granule_step, fused_granule_step_ref
 
-__all__ = ["fused_granule_step", "fused_granule_step_ref"]
+__all__ = ["back_half_step", "back_half_step_ref", "fused_granule_step",
+           "fused_granule_step_ref", "split_granule_step"]

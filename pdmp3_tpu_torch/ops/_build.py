@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-``nvcc`` compiles every ``pdmp3_tpu_torch/csrc/*.cu`` into one shared
+``nvcc`` compiles each ``pdmp3_tpu_torch/csrc/*.cu`` to an object, all
+sources at once in parallel processes, and links them into one shared
 library with a plain C interface, ``build/torch_kernels/
 libpdmp3_torch_kernels.so``, which ``ctypes`` loads.  The library is
-rebuilt at first use whenever a hash of the sources and flags changes
-(the hash is stored beside it), so a fresh checkout builds it on its
-first CUDA call.  Nothing here runs at import.
+rebuilt at first use whenever a hash of the sources (headers included)
+and flags changes (the hash is stored beside it), so a fresh checkout
+builds it on its first CUDA call.  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -28,9 +29,8 @@ LOG = os.path.join(BUILD_DIR, "build.log")
 # PyTorch versions round).  No --use_fast_math: it turns on
 # flush-to-zero, and the band-12 carry reads denormal float bits.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
-              "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-ftz=false",
+              "-prec-div=true", "-prec-sqrt=true", "-Xptxas", "-v"]
 
 
 def _sources() -> list[str]:
@@ -66,14 +66,31 @@ def ensure_built() -> str:
                 return LIB
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+            for s, o in zip(cus, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    results = [(cmd, p.communicate()[0], p.returncode)
+               for cmd, p in zip(cmds, procs)]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", tmp, *objs]
+    if all(rc == 0 for _, _, rc in results):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.stdout + proc.stderr, proc.returncode))
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     with open(LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           + proc.stdout + proc.stderr)
+        for cmd, out, _ in results:
+            f.write(" ".join(cmd) + "\n" + out)
+    bad = [(cmd, out, rc) for cmd, out, rc in results if rc != 0]
+    if bad:
+        cmd, out, rc = bad[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, LIB)
     with open(stamp, "w") as f:
         f.write(digest)
@@ -84,10 +101,19 @@ def ensure_built() -> str:
 def load() -> C.CDLL:
     """The built library with every entry point's ctypes signature."""
     lib = C.CDLL(ensure_built())
-    fn = lib.pdmp3_fused_granule
-    # 9 operand pointers, 15 table pointers, B, gr1, bug_compat, stream
-    fn.argtypes = [C.c_void_p] * 24 + [C.c_int] * 3 + [C.c_void_p]
-    fn.restype = C.c_int
+    ptr, i32 = C.c_void_p, C.c_int
+    sigs = {
+        # 9 operand pointers, the table array, B, gr1, bug_compat, exact
+        "pdmp3_fused_granule": [ptr] * 10 + [i32] * 4 + [ptr],
+        # 7 operand pointers, the table array, B, exact
+        "pdmp3_back_half": [ptr] * 8 + [i32] * 2 + [ptr],
+        # construction, base, out, n
+        "pdmp3_rounding_sweep": [i32, C.c_uint32, ptr, C.c_longlong, ptr],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = C.c_int
     lib.pdmp3_cuda_error_string.argtypes = [C.c_int]
     lib.pdmp3_cuda_error_string.restype = C.c_char_p
     return lib

@@ -1,5 +1,5 @@
-"""Constants of the fast MPEG-1 granule step: per-(layout, line) index
-maps and the small float tables.
+"""Constants of the MPEG-1 granule step (fast and exact): per-(layout,
+line) index maps and the small float tables.
 
 The JAX package expands every per-line lookup as a one-hot matrix
 product ([576, 9*K] constants), because its TPU gathers slowly.  A GPU
@@ -32,7 +32,8 @@ MAP_PRETAB = 4       # pretab value of long lines, 0 elsewhere
 MAP_SHORT = 5        # 1 on short-block lines
 MAP_BAND_START = 6   # first line of the line's band (intensity bound)
 MAP_IOK = 7          # 1 where the reference's intensity loops reach
-N_MAPS = 8
+MAP_SFB12 = 8        # 1 on short-block band-12 lines (exact band-12 gain)
+N_MAPS = 9
 
 # 2^(-d/4) and 2^(d/4) for d = 0..3, rounded to f32 (the fractional
 # factor of the exponent-bitcast gains)
@@ -41,6 +42,9 @@ QUARTER_DOWN4 = np.array([2.0 ** 0, 2.0 ** -0.25, 2.0 ** -0.5,
 QUARTER_UP4 = np.array([2.0 ** 0, 2.0 ** 0.25, 2.0 ** 0.5,
                         2.0 ** 0.75], np.float32)
 INV_SQRT2_F32 = np.float32(T.INV_SQRT2)
+# the reference's C_INV_SQRT_2 in double: the exact MS butterfly rounds
+# through float64 (pdmp3.c:1923-1925)
+INV_SQRT2_F64 = float(T.INV_SQRT2)
 POW43_MAX = 8206     # largest |ix| the table covers (pdmp3.c:2117)
 
 
@@ -83,6 +87,8 @@ def line_maps() -> np.ndarray:
     maps[MAP_SHORT] = lm["is_short"]
     maps[MAP_BAND_START] = sm["band_start"]
     maps[MAP_IOK] = sm["intensity_ok"]
+    # reorder-invariant: the permutation moves lines only within a band
+    maps[MAP_SFB12] = (lm["is_short"] == 1) & (lm["sfb"] == 12)
     maps.setflags(write=False)
     return maps
 
@@ -98,9 +104,11 @@ def host_consts() -> dict:
     [64,32] polyphase matrixing; synth_d [16,32] D window; inv [32,18]
     frequency-inversion sign; cs/ca [8] antialias; ratio_l/ratio_r [16]
     intensity ratios incl. the reference's out-of-bounds slots 8..15;
-    pow43 [8207] |x|^(4/3); quarter_down/quarter_up [4]; maps int16
-    (line_maps()); inv_sqrt2, two32 and k32767 f32 scalars (0-d, so
-    products with them stay in f32)."""
+    pow43 [8207] |x|^(4/3); quarter_down/quarter_up [4];
+    gain_quarter_true [640] the true 2^(-q/4) down to the f32 underflow
+    point (95 entries are subnormal; the exact band-12 gain reads it);
+    maps int16 (line_maps()); inv_sqrt2, two32 and k32767 f32 scalars
+    (0-d, so products with them stay in f32)."""
     cos12 = np.asarray(T.COS_N12, np.float32)
     c3 = np.zeros((18, 36), np.float32)
     for k in range(18):
@@ -121,6 +129,7 @@ def host_consts() -> dict:
         pow43=np.asarray(T.POW43[:POW43_MAX + 1], np.float32),
         quarter_down=QUARTER_DOWN4,
         quarter_up=QUARTER_UP4,
+        gain_quarter_true=np.asarray(T.GAIN_QUARTER_TRUE, np.float32),
         maps=line_maps(),
         inv_sqrt2=INV_SQRT2_F32,
         two32=np.float32(2.0 ** 32),

@@ -1,12 +1,13 @@
 """Multi-stream serving over the native frontend and the PyTorch backend.
 
 Counterpart of ``pdmp3_tpu/runtime/scheduler.py`` (``LoopFeeder``,
-``StreamDecoder``) for the fast MPEG-1 path.  N streams are pinned to
-slots; one native call parses a frame per slot into a packed int16 wire
-buffer, one upload moves it to the device, and two granule steps decode
-every slot in lockstep.  Starved, finished or malformed streams leave
-their slot inactive for the step: its state stays frozen and its PCM is
-silence, so one bad stream never perturbs its neighbours.
+``StreamDecoder``) for the MPEG-1 path, in fast or exact precision.  N
+streams are pinned to slots; one native call parses a frame per slot
+into a packed int16 wire buffer, one upload moves it to the device, and
+two granule steps decode every slot in lockstep.  Starved, finished or
+malformed streams leave their slot inactive for the step: its state
+stays frozen and its PCM is silence, so one bad stream never perturbs
+its neighbours.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from pdmp3_tpu.host import PROFILE_SPEC_INTENSITY, NativePDMP3, lib
 
 from ..models import decoder as M
-from ..ops.fused_step import M_NCH
+from ..ops.dsp import M_NCH
 
 
 class LoopFeeder:
@@ -47,10 +48,10 @@ class StreamDecoder:
     """N-slot batched decoder over the native frontend + PyTorch backend.
 
     device (required) selects where the DSP runs: CUDA launches the
-    hand-written granule kernel, the CPU runs its plain PyTorch version.
-    Options of
-    the JAX StreamDecoder that this package does not implement yet raise
-    NotImplementedError."""
+    hand-written granule kernel (K2 when exact, else K1), the CPU runs
+    its plain PyTorch version.  exact=True decodes bit-exact with the
+    reference decoder.  Options of the JAX StreamDecoder that this
+    package does not implement yet raise NotImplementedError."""
 
     def __init__(self, n_slots: int, exact: bool = False,
                  bug_compat: bool = True, parse_threads: int = 1,
@@ -58,7 +59,7 @@ class StreamDecoder:
                  float_pcm: bool = False, family: int = 0,
                  resample_to: int | None = None, *, device):
         for name, unsupported in (
-                ("exact=True", exact), ("family != 0", family != 0),
+                ("family != 0", family != 0),
                 ("float_pcm=True", float_pcm),
                 ("resample_to", resample_to is not None),
                 ("frames_per_step > 1", frames_per_step != 1)):
@@ -66,6 +67,7 @@ class StreamDecoder:
                 raise NotImplementedError(
                     f"{name}: not ported to the PyTorch backend yet")
         self.n = n_slots
+        self.exact = exact
         self.device = torch.device(device)
         # the native PROFILE_SPEC_INTENSITY flag selects spec intensity
         # stereo on the device too
@@ -150,7 +152,8 @@ class StreamDecoder:
         else:
             wire = host
         pcm, self.state = M.decode_frame_packed(wire, self.state, B=self.n,
-                                                bug_compat=self.bug_compat)
+                                                bug_compat=self.bug_compat,
+                                                exact=self.exact)
         # swap to the other wire buffer for the next parse; carry this
         # step's active/meta over so post-decode queries keep working.
         # The other buffer's upload (the previous step's) may still be

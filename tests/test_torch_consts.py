@@ -41,6 +41,9 @@ def test_index_maps_reexpand_to_jax_onehots(name, row, width):
 @pytest.mark.parametrize("name,row", [
     ("w_pre", K.MAP_PRETAB), ("w_short", K.MAP_SHORT),
     ("w_bs", K.MAP_BAND_START), ("w_iok", K.MAP_IOK),
+    # the exact kernel's band-12 selects: window per line (wire order)
+    # and the short band-12 line mask
+    ("w_winline", K.MAP_WIN), ("w_sfb12", K.MAP_SFB12),
 ])
 def test_value_maps_equal_jax_select_matrices(name, row):
     """Value maps ([576, 9] select matrices in JAX: entry = value)."""
@@ -75,6 +78,19 @@ def test_front_small_tables_equal_jax():
         np.float32(fc["inv_sqrt2"]).view(np.uint32)
     # the 16-wide ratios keep the reference's out-of-bounds slots 8..15
     assert h["ratio_l"].shape == (16,) and np.any(h["ratio_l"][8:] != 0)
+
+
+def test_exact_constants_equal_jax():
+    """The band-12 true gains (95 subnormal entries) and the f64 MS
+    constant are the JAX package's, bit for bit."""
+    h = K.host_consts()
+    np.testing.assert_array_equal(
+        h["gain_quarter_true"].view(np.uint32),
+        np.asarray(T.GAIN_QUARTER_TRUE, np.float32).view(np.uint32))
+    g = h["gain_quarter_true"]
+    assert ((g > 0) & (g < np.finfo(np.float32).tiny)).sum() == 95
+    assert isinstance(K.INV_SQRT2_F64, float)
+    assert K.INV_SQRT2_F64 == float(T.INV_SQRT2) == PSF._MS_C
 
 
 def test_pow43_table_within_2ulp_of_jax_fast_formula():

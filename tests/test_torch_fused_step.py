@@ -23,6 +23,7 @@ from pdmp3_tpu.frontend import Frontend
 from pdmp3_tpu.models import decoder as JM
 from pdmp3_tpu.ops import pallas_step as PSF
 from pdmp3_tpu_torch.models.decoder import DecoderState, init_state
+from pdmp3_tpu_torch.ops import dsp as D
 from pdmp3_tpu_torch.ops import fused_step as FS
 from test_jax_decoder import _band12_zero_bits_stream
 from test_pallas import _frames
@@ -36,17 +37,17 @@ def wire_from_batch(batch):
     scf_s, meta, active, gr1) with meta in PDMP3_META_* word order."""
     g = np.asarray
     B = g(batch.ix).shape[0]
-    meta = np.zeros((B, FS.META_WORDS), np.int32)
-    for k, name in ((FS.M_LAYOUT, "layout"), (FS.M_BT, "block_type"),
-                    (FS.M_WSF, "win_switch"), (FS.M_MIXED, "mixed"),
-                    (FS.M_GG, "global_gain"),
-                    (FS.M_SFS, "scalefac_scale"), (FS.M_PRE, "preflag"),
-                    (FS.M_C1, "count1")):
+    meta = np.zeros((B, D.META_WORDS), np.int32)
+    for k, name in ((D.M_LAYOUT, "layout"), (D.M_BT, "block_type"),
+                    (D.M_WSF, "win_switch"), (D.M_MIXED, "mixed"),
+                    (D.M_GG, "global_gain"),
+                    (D.M_SFS, "scalefac_scale"), (D.M_PRE, "preflag"),
+                    (D.M_C1, "count1")):
         meta[:, k:k + 2] = g(getattr(batch, name))
-    meta[:, FS.M_SBG:FS.M_SBG + 6] = g(batch.subblock_gain).reshape(B, 6)
-    meta[:, FS.M_MS] = g(batch.ms_flag)
-    meta[:, FS.M_IS] = g(batch.is_flag)
-    meta[:, FS.M_NCH] = g(batch.nch)
+    meta[:, D.M_SBG:D.M_SBG + 6] = g(batch.subblock_gain).reshape(B, 6)
+    meta[:, D.M_MS] = g(batch.ms_flag)
+    meta[:, D.M_IS] = g(batch.is_flag)
+    meta[:, D.M_NCH] = g(batch.nch)
     gr1 = np.unique(g(batch.gr1))
     assert gr1.size == 1
     t = torch.from_numpy

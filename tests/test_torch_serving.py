@@ -3,10 +3,11 @@ the CPU: against the JAX StreamDecoder(kernel="pallas") on the same feed
 schedule, against the native scalar decoder per slot, and across a
 checkpoint the JAX decoder saved.
 
-Tolerance: the fast contract, at most 1 LSB on fewer than 1% of samples
-(the port and JAX fast differ only in f32 summation order and the <= 2
-ulp pow43 table difference; the native decoder is the bit-exact scalar
-C++ reference).  The port's own checkpoint round trip is bitwise.
+Tolerance: fast mode, the fast contract, at most 1 LSB on fewer than 1%
+of samples (the port and JAX fast differ only in f32 summation order and
+the <= 2 ulp pow43 table difference; the native decoder is the
+bit-exact scalar C++ reference).  Exact mode, and the port's own
+checkpoint round trip, bitwise.
 """
 import subprocess
 import sys
@@ -60,16 +61,20 @@ def _slot_pcm(steps, slot):
     return np.concatenate([p[slot] for p, a in steps if a[slot]])
 
 
-def _check_vs_native(data, got, mono=False):
+def _check_vs_native(data, got, mono=False, exact=False):
     """A slot's PCM vs the native decoder over the aligned prefix (the
-    native decoder emits one channel for mono; the batch duplicates)."""
+    native decoder emits one channel for mono; the batch duplicates):
+    bitwise in exact mode, else the fast contract."""
     want = np.frombuffer(native_decode_file(data), "<i2")
     if mono:
         np.testing.assert_array_equal(got[:, 0], got[:, 1])
     a = got[:, 0] if mono else got.reshape(-1)
     n = min(len(a), len(want))
     assert n >= len(want) - 2 * 1152 * (1 if mono else 2)
-    assert_pcm_contract(a[:n], want[:n])
+    if exact:
+        np.testing.assert_array_equal(a[:n], want[:n])
+    else:
+        assert_pcm_contract(a[:n], want[:n])
 
 
 def test_port_serving_matches_jax_pallas_and_native(corpus):
@@ -162,8 +167,69 @@ def test_cuda_serving_with_device_behind_host(corpus):
         _check_vs_native(data, _slot_pcm(gsteps, s), s == MONO)
 
 
-@pytest.mark.parametrize("kw", [dict(exact=True), dict(family=1),
-                                dict(float_pcm=True),
+def test_exact_serving_matches_jax_pallas_and_native_bitwise(corpus):
+    tdec = StreamDecoder(N, exact=True, device="cpu")
+    jdec = JaxStreamDecoder(N, exact=True, kernel="pallas")
+    for s, data in enumerate(corpus):
+        assert tdec.feed(s, data) == 0
+        assert jdec.feed(s, data) == 0
+    tsteps, jsteps = _run([tdec, jdec])
+    assert len(tsteps) >= 5
+    for (pt, at), (pj, aj) in zip(tsteps, jsteps):
+        np.testing.assert_array_equal(at, aj)
+        np.testing.assert_array_equal(pt, pj)
+    for s, data in enumerate(corpus):
+        _check_vs_native(data, _slot_pcm(tsteps, s), s == MONO, exact=True)
+
+
+def test_jax_exact_checkpoint_restored_into_port_continues_bitwise(corpus):
+    jdec = JaxStreamDecoder(N, exact=True, kernel="pallas")
+    for s, data in enumerate(corpus):
+        jdec.feed(s, data)
+    head = _run([jdec], max_steps=2)[0]
+    ckpt = jdec.save_checkpoint()
+    tdec = StreamDecoder(N, exact=True, device="cpu")
+    tdec.restore_checkpoint(ckpt)
+    tail_t, tail_j = _run([tdec, jdec])
+    assert len(tail_t) >= 2
+    for (pt, _), (pj, _) in zip(tail_t, tail_j):
+        np.testing.assert_array_equal(pt, pj)
+    for s, data in enumerate(corpus):
+        _check_vs_native(data, _slot_pcm(head + tail_t, s), s == MONO,
+                         exact=True)
+
+
+@pytest.mark.cuda
+def test_cuda_exact_serving_with_device_behind_host(corpus):
+    """Exact serving (K2) on the card with the device held behind the
+    host, as test_cuda_serving_with_device_behind_host: every slot
+    bitwise equal to the CPU decoder and to the native one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cdec = StreamDecoder(N, exact=True, device="cpu")
+    gdec = StreamDecoder(N, exact=True, device="cuda")
+    for s, data in enumerate(corpus):
+        cdec.feed(s, data)
+        gdec.feed(s, data)
+    csteps = _run([cdec])[0]
+    gsteps = []
+    for _ in range(len(csteps) + 1):
+        if gdec.parse_step() == 0:
+            break
+        torch.cuda._sleep(SLEEP_CYCLES)
+        gsteps.append((gdec.decode_step(fetch=False), gdec.active.copy()))
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert len(gsteps) == len(csteps) >= 5
+    gsteps = [(p.cpu().numpy(), a) for p, a in gsteps]
+    for (pg, ag), (pc, ac) in zip(gsteps, csteps):
+        np.testing.assert_array_equal(ag, ac)
+        np.testing.assert_array_equal(pg, pc)
+    for s, data in enumerate(corpus):
+        _check_vs_native(data, _slot_pcm(gsteps, s), s == MONO, exact=True)
+
+
+@pytest.mark.parametrize("kw", [dict(family=1), dict(float_pcm=True),
                                 dict(resample_to=48000),
                                 dict(frames_per_step=2)])
 def test_unported_options_raise(kw):
@@ -172,17 +238,22 @@ def test_unported_options_raise(kw):
 
 
 def test_port_imports_no_jax():
-    """One CPU step through the port in a fresh interpreter leaves JAX
-    out of sys.modules."""
+    """One fast and one exact CPU step through the port, and an exact
+    decode_file through TorchDSP, in a fresh interpreter leave JAX out of
+    sys.modules."""
     code = (
         "import sys\n"
         "import pdmp3_tpu_torch as P\n"
+        "from pdmp3_tpu.api import decode_file\n"
         "from pdmp3_tpu.testing import mp3gen\n"
-        "d = P.StreamDecoder(1, device='cpu')\n"
-        "d.feed(0, mp3gen.make_stream(n_frames=3, seed=5))\n"
-        "assert d.parse_step() == 1\n"
-        "pcm = d.decode_step()\n"
-        "assert pcm.shape == (1, 1152, 2) and pcm.any()\n"
+        "s = mp3gen.make_stream(n_frames=3, seed=5)\n"
+        "for exact in (False, True):\n"
+        "    d = P.StreamDecoder(1, exact=exact, device='cpu')\n"
+        "    d.feed(0, s)\n"
+        "    assert d.parse_step() == 1\n"
+        "    pcm = d.decode_step()\n"
+        "    assert pcm.shape == (1, 1152, 2) and pcm.any()\n"
+        "assert decode_file(s, dsp=P.TorchDSP(device='cpu'))\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules\n"
         "                                        if 'jax' in m)\n"
         "print('ok')\n")
