@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-MPEG-1 Layer III decoding through ``pdmp3_tpu_torch`` at B = 8192
-stream slots, fast and exact, in nine phases; any failure exits
-non-zero.  The kernels are built here from ``pdmp3_tpu_torch/csrc``.
+Layer III decoding through ``pdmp3_tpu_torch`` at B = 8192 stream slots,
+fast and exact, MPEG-1 and the LSF families MPEG-2 and MPEG-2.5, in
+twelve phases; any failure exits non-zero.  The kernels are built here
+from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
+``pdmp3_tpu_torch/host/src``.
 
 1. the card's name and power limit, then a check that CUDA is visible;
 2. K1, the fast granule kernel, against its plain PyTorch version on the
@@ -26,20 +28,36 @@ non-zero.  The kernels are built here from ``pdmp3_tpu_torch/csrc``.
    one frame's post-antialias spectra, bitwise and timed; then the fused
    exact route (K2) against the split one (stage ops + K4 + the f64
    quantize), bitwise;
-8. the per-stream route: ``pdmp3_tpu.api.decode_file`` with
+8. the per-stream route: ``pdmp3_tpu_torch.api.decode_file`` with
    ``TorchDSP(device="cuda")`` (K4) on 6 generated streams, exact
    byte-equal to the native decoder and fast within 1 LSB;
 9. K6: the exact kernel's three float64 rounding points over all 2^32
-   f32 inputs on the card against their plain f64 versions, bitwise.
+   f32 inputs on the card against their plain f64 versions, bitwise;
+10. K3, the LSF granule kernel, fast and exact, against its plain version
+    on one natively parsed LSF step per family (MPEG-2, MPEG-2.5),
+    bitwise, both timed;
+11. the LSF serving pools: ``StreamDecoder(8192, family=f, exact=e,
+    device="cuda")`` for both families and precisions, fed by
+    ``LoopFeeder`` from 64 distinct 12-frame LSF streams each, 2 warm-up
+    and 32 timed steps, K3's launch count checked, and the watched slots
+    against the native decoder with PROFILE_LSF (exact bitwise, fast
+    within 1 LSB);
+12. the per-stream route on LSF: ``decode_file(s, lsf=True,
+    dsp=TorchDSP(...))`` (K4) on 6 LSF streams, exact byte-equal to the
+    native decoder and fast within 1 LSB.
 
     python3 chip_smoke.py --profile
 
-adds a tenth phase: ``torch.profiler`` over fast serving steps (device
-time by kernel and copy, and the device's busy share of the loop), then
-the serving loop at 1, 2, 4 and 8 parse threads.
+adds a thirteenth phase: ``torch.profiler`` over fast MPEG-1 serving
+steps (device time by kernel and copy, and the device's busy share of
+the loop), then the serving loop at 1, 2, 4 and 8 parse threads.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
+The line before the last is the kernels' JSON record, each kernel with
+its time, its plain version's, and its bound (the least time the card
+could take for the same work: the larger of this run's bytes over the
+memory rate and its operations over the peak rate of their type, NVIDIA's
+H100 SXM data sheet); the last line is ``{"ok": true, "device": {...}}``.
+Nothing here imports JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -63,6 +81,7 @@ TIMED_LAUNCHES = 25
 PROFILE_STEPS = 8
 PARSE_THREADS = (1, 2, 4, 8, 8, 4, 2, 1)   # two passes, mirrored
 SWEEP_STEPS = 16
+LSF_FAMILIES = (1, 2)
 INACTIVE = (5, 77, 4099, B - 1)
 # fast contract: at most 1 LSB, on fewer than 1% of samples
 MAX_LSB, MAX_FRAC = 1, 0.01
@@ -74,8 +93,15 @@ CSRC = "pdmp3_tpu_torch/csrc/"
 # TPU kernels replaced (file:line of each kernel body)
 REPLACES = {"fused_granule": "pdmp3_tpu/ops/pallas_step.py:771",
             "fused_granule_exact": "pdmp3_tpu/ops/pallas_step.py:771",
+            "fused_granule_lsf": "pdmp3_tpu/ops/pallas_step.py:771",
+            "fused_granule_lsf_exact": "pdmp3_tpu/ops/pallas_step.py:771",
             "back_half": "pdmp3_tpu/ops/pallas_step.py:463",
             "rounding_sweep": "tools/prove_on_tpu.py:88"}
+# the card's peak rates for the bounds (NVIDIA H100 SXM data sheet):
+# memory bytes/s, f32 and f64 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 # the subnormal band-12 bit patterns of phase 5's directed granule
 SUBNORMAL_BITS = (126, 321)
 # phase 8's streams: tests/test_jax_decoder.py CONFIGS (8 frames, seed 2)
@@ -88,6 +114,18 @@ API_CONFIGS = {
     "mixed_32k": dict(blocks="mixed", sfreq=2),
     "reservoir_stuffing": dict(blocks="short", use_reservoir=True,
                                stuffing=4),
+}
+# phase 12's streams: tests/test_lsf.py JAX_MATRIX (8 frames, seed 31,
+# bitrate index 11)
+LSF_API_CONFIGS = {
+    "m2-varied": dict(family=1, blocks="varied"),
+    "m2-js-resv": dict(family=1, blocks="varied", mode=1, mode_extension=3,
+                       stereo_extent_ch1=0.4, use_reservoir=True),
+    "m2-mixed-24k": dict(family=1, blocks="mixed", sfreq=1),
+    "m25-8k-is": dict(family=2, blocks="varied", sfreq=2, mode=1,
+                      mode_extension=1, stereo_extent_ch1=0.3),
+    "m25-short": dict(family=2, blocks="short"),
+    "m2-mono": dict(family=1, blocks="long", mode=3),
 }
 SWEEP_TIMED = 9      # chunk launches timed for K6's ms / plain_ms
 
@@ -104,6 +142,8 @@ def _counters() -> dict:
     from pdmp3_tpu_torch.ops import rounding as R
     return {"fused_granule": (FS, "LAUNCHES"),
             "fused_granule_exact": (FS, "LAUNCHES_EXACT"),
+            "fused_granule_lsf": (FS, "LAUNCHES_LSF"),
+            "fused_granule_lsf_exact": (FS, "LAUNCHES_LSF_EXACT"),
             "back_half": (BH, "LAUNCHES"),
             "rounding_sweep": (R, "LAUNCHES")}
 
@@ -127,7 +167,7 @@ def corpus() -> list[tuple[bytes, dict]]:
     mode, bitrate, sample rate, reservoir), with the joint-stereo
     streams carrying MS (mode_extension 2) or MS + intensity (3) so that
     both stereo paths run."""
-    from pdmp3_tpu.testing import mp3gen
+    from pdmp3_tpu_torch.testing import mp3gen
 
     out = []
     i = 0
@@ -145,6 +185,87 @@ def corpus() -> list[tuple[bytes, dict]]:
         except AssertionError:   # the encoder could not fit the budget
             continue
     return out
+
+
+def lsf_corpus(family: int) -> list[tuple[bytes, dict]]:
+    """64 distinct 12-frame streams of one LSF family in the mix of
+    tests/test_lsf.py's JAX_MATRIX: long, short, mixed and varied blocks;
+    MS, MS + intensity with a short ch1 extent (stereo_extent_ch1), mono
+    and plain stereo; sample rates 0-2 of the family (MPEG-2: 22.05 /
+    24 / 16 kHz, MPEG-2.5: 11.025 / 12 / 8 kHz); some with the bit
+    reservoir; 64 to 128 kbit/s."""
+    from pdmp3_tpu_torch.testing import mp3gen
+
+    out = []
+    i = 0
+    while len(out) < N_STREAMS:
+        spec = dict(n_frames=FRAMES_PER_STREAM, seed=8000 + 100 * family + i,
+                    family=family,
+                    blocks=["long", "varied", "short", "mixed"][i % 4],
+                    mode=[1, 1, 3, 0][(i // 4) % 4],
+                    bitrate_index=[8, 10, 11, 12][(i // 16) % 4],
+                    sfreq=i % 3, use_reservoir=i % 5 == 0)
+        if spec["mode"] == 1:
+            spec["mode_extension"] = 2 if (i // 4) % 4 == 0 else 3
+            if spec["mode_extension"] == 3:
+                spec["stereo_extent_ch1"] = 0.4
+        i += 1
+        try:
+            out.append((mp3gen.make_stream(**spec), spec))
+        except AssertionError:   # the encoder could not fit the budget
+            continue
+    return out
+
+
+def granule_bound(n_slots: int, n_active: int, lsf: bool = False) -> dict:
+    """The least time one fused granule step (K1, K2 or K3) could take
+    for n_slots slots, n_active of them active: the larger of its bytes
+    (every input read once, every output written once; idle slots read
+    their flag and write silent PCM only) over the memory rate, and its
+    f32 operations over the f32 rate.  Per active slot: ix 2,304 B,
+    scalefactors and meta 372 B (+128 B LSF sidecar), store 4,608 B and
+    v 7,680 B each read and written, prev_lines 12 B read and written;
+    PCM 2,304 B per slot.  Operations per active slot and channel: the
+    36-point IMDCT of 32 subbands (36 x 35 each), its window and
+    overlap-add, frequency inversion, the 18 x 64 matrixing dots of 32
+    terms (63 each), the 16-tap FIR of 576 samples (32 each), the
+    antialias butterflies (8 x 31 x 6), requantize (3 per line), stereo
+    (4 per line) and the x32767 quantize."""
+    per_active = (2304 + 2 * 22 * 2 + 2 * 39 * 2 + 32 * 4
+                  + (128 if lsf else 0) + 2 * (4608 + 7680 + 12))
+    nbytes = n_slots * (4 + 2304) + n_active * per_active
+    per_ch = (32 * 36 * 35 + 32 * 36 + 576 + 576 + 18 * 64 * 63
+              + 576 * 32 + 8 * 31 * 6 + 576 * 3 + 576 * 4 + 576)
+    ops = n_active * 2 * per_ch
+    return bound(nbytes, ops)
+
+
+def back_half_bound(n_slots: int, n_active: int) -> dict:
+    """K4's bound, as granule_bound: xa 4,608 B, bt_eff 256 B and the
+    active flag in, out 4,608 B and prev3 12 B per slot; store and v
+    read and written per active slot; the back half's operations."""
+    nbytes = (n_slots * (4608 + 256 + 4 + 4608 + 12)
+              + n_active * 2 * (4608 + 7680))
+    per_ch = (32 * 36 * 35 + 32 * 36 + 576 + 576 + 18 * 64 * 63
+              + 576 * 32 + 576)
+    return bound(nbytes, n_active * 2 * per_ch)
+
+
+def sweep_bound(n: int, constructions: int) -> dict:
+    """K6's bound for one chunk of n inputs per construction: 4 B written
+    per input (the inputs are built on the card), and at most 6 f64
+    operations per input (uq_f64's trunc, divide, floor, multiply,
+    subtract and add)."""
+    return bound(4 * n * constructions, 0, f64_ops=6 * n * constructions)
+
+
+def bound(nbytes: float, ops: float, f64_ops: float = 0.0) -> dict:
+    """{bound_ms, bound_by} from bytes and f32 / f64 operations at the
+    card's peak rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def median_ms(fn, n: int) -> float:
@@ -172,17 +293,26 @@ def pcm_error(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
     return int(d.max()), float((d != 0).float().mean())
 
 
-def parsed_frame(streams: list[bytes], dev) -> dict:
+def parsed_frame(streams: list[bytes], dev, family: int = 0) -> dict:
     """One natively parsed frame of wire for B slots on the card (the
-    INACTIVE slots idle) and a random starting state."""
+    INACTIVE slots idle) and a random starting state.  Sections keep a
+    leading granule axis (one granule for an LSF family, whose frame
+    also carries the is_pos sidecar)."""
     from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
-    from pdmp3_tpu_torch.models.decoder import DecoderState, wire_sections
+    from pdmp3_tpu_torch.models.decoder import (DecoderState, wire_sections,
+                                                wire_sections_lsf)
 
-    dec = StreamDecoder(B, device=dev)
+    dec = StreamDecoder(B, family=family, device=dev)
     LoopFeeder(dec, streams).step()
     check(dec.parse_step() == B, "not every slot parsed a frame")
-    w = wire_sections(torch.from_numpy(dec.wire.copy()).to(dev), B)
+    wire = torch.from_numpy(dec.wire.copy()).to(dev)
     del dec
+    if family:
+        w = wire_sections_lsf(wire, B)
+        w = {k: v if k in ("active", "is_pos") else v[None]
+             for k, v in w.items()}
+    else:
+        w = wire_sections(wire, B)
     active = w["active"].to(torch.int32)
     active[list(INACTIVE)] = 0
     rng = np.random.default_rng(0)
@@ -191,7 +321,7 @@ def parsed_frame(streams: list[bytes], dev) -> dict:
         for shape in ((B, 2, 32, 18), (B, 2, 15, 64), (B, 3))))
     return {"ix": w["ix"], "scf_l": w["scf_l"], "scf_s": w["scf_s"],
             "meta": w["meta"].to(torch.int32), "active": active,
-            "st0": st0}
+            "is_pos": w.get("is_pos"), "st0": st0}
 
 
 def granule_args(fr: dict, gr: int) -> tuple:
@@ -246,16 +376,20 @@ def compare_steps(fr: dict, step_k, step_r, phase: str, grs=(0, 1),
     return res
 
 
-def phase_kernel(fr: dict, exact: bool) -> dict:
-    """The fused kernel (K1, or K2 when exact) vs its plain version on
-    one natively parsed frame; both timed per granule step."""
+def phase_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
+    """The fused kernel (family 0: K1, or K2 when exact; LSF: K3) vs its
+    plain version on one natively parsed frame; both timed per granule
+    step."""
     from pdmp3_tpu_torch.ops import fused_step as FS
 
-    phase = "phase 5" if exact else "phase 2"
-    step_k = functools.partial(FS.fused_granule_step, exact=exact)
-    step_r = functools.partial(FS.fused_granule_step_ref, exact=exact)
-    res = compare_steps(fr, step_k, step_r, phase)
-    if exact:
+    phase = ("phase 10" if family else "phase 5" if exact else "phase 2")
+    lsf = dict(family=family, is_pos=fr["is_pos"]) if family else {}
+    step_k = functools.partial(FS.fused_granule_step, exact=exact, **lsf)
+    step_r = functools.partial(FS.fused_granule_step_ref, exact=exact,
+                               **lsf)
+    res = compare_steps(fr, step_k, step_r, phase,
+                        grs=(0,) if family else (0, 1))
+    if exact and not family:
         res["band12_subnormal"] = phase_band12_subnormal(fr, step_k,
                                                          step_r)
     # one granule step per timed call, each on its own state copy
@@ -263,6 +397,8 @@ def phase_kernel(fr: dict, exact: bool) -> dict:
     args = granule_args(fr, 0)
     res["kernel_ms"] = median_ms(lambda: step_k(*args, sk), TIMED_LAUNCHES)
     res["plain_ms"] = median_ms(lambda: step_r(*args, sr), TIMED_LAUNCHES)
+    res.update(granule_bound(B, int((fr["active"] != 0).sum()),
+                             lsf=family != 0))
     return res
 
 
@@ -331,6 +467,7 @@ def phase_back_half(fr: dict) -> dict:
             lambda: BH.back_half_step_ref(xa, sr, bt, fr["active"], exact),
             TIMED_LAUNCHES)
         res[mode] = r
+    res.update(back_half_bound(B, int((fr["active"] != 0).sum())))
     res["fused_vs_split"] = compare_steps(
         fr, functools.partial(FS.fused_granule_step, exact=True),
         functools.partial(BH.split_granule_step, exact=True),
@@ -338,45 +475,54 @@ def phase_back_half(fr: dict) -> dict:
     return res
 
 
-def phase_api(dev) -> dict:
-    """decode_file through TorchDSP on the card: exact byte-equal to the
-    native decoder, fast within the fast contract; K4 launched in both."""
-    from pdmp3_tpu.api import decode_file
-    from pdmp3_tpu.host import native_decode_file
-    from pdmp3_tpu.testing import mp3gen
+def phase_api(dev, lsf: bool = False) -> dict:
+    """decode_file through TorchDSP on the card (MPEG-1 streams, or with
+    lsf the LSF ones): exact byte-equal to the native decoder, fast
+    within the fast contract; K4 launched in both."""
     from pdmp3_tpu_torch import TorchDSP
+    from pdmp3_tpu_torch.api import decode_file
+    from pdmp3_tpu_torch.host import PROFILE_LSF, native_decode_file
+    from pdmp3_tpu_torch.testing import mp3gen
 
-    streams = {name: mp3gen.make_stream(n_frames=8, seed=2, **spec)
-               for name, spec in API_CONFIGS.items()}
+    phase = "phase 12" if lsf else "phase 8"
+    if lsf:
+        streams = {name: mp3gen.make_stream(n_frames=8, seed=31,
+                                            bitrate_index=11, **spec)
+                   for name, spec in LSF_API_CONFIGS.items()}
+    else:
+        streams = {name: mp3gen.make_stream(n_frames=8, seed=2, **spec)
+                   for name, spec in API_CONFIGS.items()}
+    profile = PROFILE_LSF if lsf else 0
     res = {"streams": len(streams)}
     reset_launch_counts()
     for exact in (True, False):
         mode = "exact" if exact else "fast"
-        n0 = launch_counts("phase 8", "back_half")
+        n0 = launch_counts(phase, "back_half")
         t0 = time.perf_counter()
         worst = []
         for name, data in streams.items():
-            got = decode_file(data, dsp=TorchDSP(exact=exact, device=dev))
-            want = native_decode_file(data)
+            got = decode_file(data, lsf=lsf,
+                              dsp=TorchDSP(exact=exact, device=dev))
+            want = native_decode_file(data, profile=profile)
             check(len(want) > 0 and len(got) == len(want),
-                  f"phase 8: {name} {mode}: {len(got)} vs {len(want)} B")
+                  f"{phase}: {name} {mode}: {len(got)} vs {len(want)} B")
             if exact:
-                check(got == want, f"phase 8: {name} exact differs from "
+                check(got == want, f"{phase}: {name} exact differs from "
                                    "the native decoder")
             lsb, frac = pcm_error(
                 torch.from_numpy(np.frombuffer(got, "<i2").copy()),
                 torch.from_numpy(np.frombuffer(want, "<i2").copy()))
             check(lsb <= MAX_LSB and frac < MAX_FRAC,
-                  f"phase 8: {name} {mode} {lsb} LSB on {frac:.4%}")
+                  f"{phase}: {name} {mode} {lsb} LSB on {frac:.4%}")
             worst.append((lsb, frac))
         res[f"{mode}_seconds"] = time.perf_counter() - t0
-        res[f"{mode}_k4_launches"] = launch_counts("phase 8",
+        res[f"{mode}_k4_launches"] = launch_counts(phase,
                                                    "back_half") - n0
         res[f"{mode}_max_lsb"] = max(w[0] for w in worst)
         res[f"{mode}_max_frac_differing"] = max(w[1] for w in worst)
         check(res[f"{mode}_k4_launches"] > 0,
-              f"phase 8: {mode} decode launched no K4")
-    res["k4_launches"] = launch_counts("phase 8", "back_half")
+              f"{phase}: {mode} decode launched no K4")
+    res["k4_launches"] = launch_counts(phase, "back_half")
     return res
 
 
@@ -408,15 +554,20 @@ def phase_sweep(dev) -> dict:
 
 
 def phase_main_path(streams: list[bytes], dev, watch: list[int],
-                    exact: bool = False) -> dict:
-    """StreamDecoder serving at B slots, fast (K1) or exact (K2); returns
-    timings, with an exact_ prefix when exact, and the PCM of the watched
-    slots."""
+                    exact: bool = False, family: int = 0,
+                    rates: list[int] | None = None) -> dict:
+    """StreamDecoder serving at B slots: MPEG-1 fast (K1) or exact (K2),
+    or an LSF pool of `family` (K3); returns timings, with an exact_
+    prefix when exact and lsf{family}_ for an LSF pool, and the PCM of
+    the watched slots.  rates: each source stream's sample rate (the
+    LSF realtime factor's basis)."""
     from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
 
-    path = f"main path (exact={exact})"
-    kernel = "fused_granule_exact" if exact else "fused_granule"
-    dec = StreamDecoder(B, exact=exact, device=dev)
+    path = f"main path (family={family}, exact={exact})"
+    kernel = ("fused_granule" + ("_lsf" if family else "")
+              + ("_exact" if exact else ""))
+    ngr = 1 if family else 2
+    dec = StreamDecoder(B, exact=exact, family=family, device=dev)
     feeder = LoopFeeder(dec, streams)
     sel = torch.tensor(watch, device=dev)
     kept, events, feed_s, parse_s = [], [], [], []
@@ -443,29 +594,40 @@ def phase_main_path(streams: list[bytes], dev, watch: list[int],
     torch.cuda.synchronize()
     loop_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
     launches = launch_counts(path, kernel)
-    check(launches == 2 * decoded,
+    check(launches == ngr * decoded,
           f"{path}: {launches} {kernel} launches for {decoded} frame steps")
 
     # the device half alone, replayed on the last uploaded wire
-    from pdmp3_tpu_torch.models.decoder import decode_frame_packed
+    from pdmp3_tpu_torch.models.decoder import (decode_frame_packed,
+                                                decode_frame_packed_lsf)
     wire = dec._wires_t[dec._cur ^ 1].to(dev)
     state = clone_state(dec.state)
-    replay_ms = median_ms(
-        lambda: decode_frame_packed(wire, state, B=B, exact=exact),
-        TIMED_STEPS)
+    if family:
+        replay_ms = median_ms(
+            lambda: decode_frame_packed_lsf(wire, state, B=B, family=family,
+                                            exact=exact), TIMED_STEPS)
+    else:
+        replay_ms = median_ms(
+            lambda: decode_frame_packed(wire, state, B=B, exact=exact),
+            TIMED_STEPS)
 
     step_ms = float(np.median([a.elapsed_time(b)
                                for a, b in events[WARMUP_STEPS:]]))
-    audio_s = B * 1152 / 44100.0
-    pcm = torch.cat(kept, 1).cpu().numpy()        # [watched, steps*1152, 2]
-    check(pcm.shape == (len(watch), decoded * 1152, 2)
-          and pcm.dtype == np.int16, f"main path: PCM {pcm.shape}")
-    check(bool(pcm.any(axis=(1, 2)).all()), "main path: a slot is silent")
-    pre = "exact_" if exact else ""
+    # audio seconds per step: B slots x the frame's samples over the
+    # slot-weighted mean sample rate (44.1 kHz for the MPEG-1 basis)
+    mean_rate = (float(np.mean([rates[s % len(rates)] for s in range(B)]))
+                 if family else 44100.0)
+    audio_s = B * 576 * ngr / mean_rate
+    pcm = torch.cat(kept, 1).cpu().numpy()   # [watched, steps*576*ngr, 2]
+    check(pcm.shape == (len(watch), decoded * 576 * ngr, 2)
+          and pcm.dtype == np.int16, f"{path}: PCM {pcm.shape}")
+    check(bool(pcm.any(axis=(1, 2)).all()), f"{path}: a slot is silent")
+    pre = ("exact_" if exact else "") + (f"lsf{family}_" if family else "")
     return {f"{pre}{k}" if k not in ("batch_slots", "steps", "_pcm")
             else k: v for k, v in {
         "batch_slots": B,
         "steps": TIMED_STEPS,
+        "mean_sample_rate": mean_rate,
         "step_ms": step_ms,
         "device_replay_step_ms": replay_ms,
         "loop_ms_per_step": loop_ms,
@@ -475,8 +637,8 @@ def phase_main_path(streams: list[bytes], dev, watch: list[int],
         * 1e3,
         "aggregate_realtime_factor_per_chip": audio_s / (step_ms / 1e3),
         "aggregate_realtime_factor_per_chip_e2e": audio_s / (loop_ms / 1e3),
-        "granules_per_sec": 2 * B / (step_ms / 1e3),
-        "granules_per_sec_e2e": 2 * B / (loop_ms / 1e3),
+        "granules_per_sec": ngr * B / (step_ms / 1e3),
+        "granules_per_sec_e2e": ngr * B / (loop_ms / 1e3),
         "kernel_launches": launches,
         "frame_steps": decoded,
         "_pcm": pcm,
@@ -563,15 +725,18 @@ def phase_profile(streams: list[bytes], dev) -> dict:
 def phase_correctness(pcm: np.ndarray, watch: list[int],
                       specs: list[tuple[bytes, dict]],
                       exact: bool = False) -> list[dict]:
-    """Each watched slot's PCM against the native scalar decoder over
-    the aligned prefix (the slot keeps decoding its looping stream):
-    bitwise when exact, else the fast contract."""
-    from pdmp3_tpu.host import native_decode_file
+    """Each watched slot's PCM against the native scalar decoder (with
+    PROFILE_LSF for LSF streams) over the aligned prefix (the slot keeps
+    decoding its looping stream): bitwise when exact, else the fast
+    contract."""
+    from pdmp3_tpu_torch.host import PROFILE_LSF, native_decode_file
 
     out = []
     for row, slot in enumerate(watch):
         data, spec = specs[slot % len(specs)]
-        want = np.frombuffer(native_decode_file(data), "<i2")
+        profile = PROFILE_LSF if spec.get("family") else 0
+        want = np.frombuffer(native_decode_file(data, profile=profile),
+                             "<i2")
         got = pcm[row]
         got = got[:, 0] if spec["mode"] == 3 else got.reshape(-1)
         check(len(want) > 0 and len(got) >= len(want),
@@ -608,9 +773,12 @@ def ptxas_summary(log: str) -> list[str]:
     out, name = [], "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
-                      r"I(L\w+?)E", ln)
+                      r"I((?:L[a-z]\d+E)+)E", ln)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            args = re.findall(r"L([a-z])(\d+)E", m.group(2))
+            name = m.group(1) + "<" + ",".join(
+                ("true" if v == "1" else "false") if t == "b" else v
+                for t, v in args) + ">"
         elif "spill stores" in ln:
             out.append(f"{name}: {ln.split(',', 1)[1].strip()}")
         elif "registers" in ln:
@@ -621,7 +789,7 @@ def ptxas_summary(log: str) -> list[str]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 10: torch.profiler over serving steps "
+                    help="add phase 13: torch.profiler over serving steps "
                          "and a parse-thread sweep")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -629,18 +797,22 @@ def main() -> int:
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
     from pdmp3_tpu_torch import device
+    from pdmp3_tpu_torch import tables as T
 
     dev = device.require_cuda()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    from pdmp3_tpu_torch.host import build as host_build
     from pdmp3_tpu_torch.ops import _build
+    host_build.ensure_built()
+    t1 = time.perf_counter()
     _build.ensure_built()
     with open(_build.LOG) as f:
         ptxas = ptxas_summary(f.read())
-    print(f"kernel build {time.perf_counter() - t0:.1f} s; "
-          + " | ".join(ptxas))
+    print(f"host library build {t1 - t0:.1f} s; kernel build "
+          f"{time.perf_counter() - t1:.1f} s; " + " | ".join(ptxas))
 
     t0 = time.perf_counter()
     specs = corpus()
@@ -677,28 +849,81 @@ def main() -> int:
 
     k6 = phase_sweep(dev)
     print("phase 9 K6 sweep:", json.dumps(k6))
-    if args.profile:
-        print("phase 10 profile:", json.dumps(phase_profile(streams, dev)))
-    check("jax" not in sys.modules, "JAX was imported")
 
-    def entry(name, src, launches, err, ms, plain_ms, **extra):
+    k3, lsf_serving = {}, {}
+    for family in LSF_FAMILIES:
+        t0 = time.perf_counter()
+        lspecs = lsf_corpus(family)
+        lstreams = [s for s, _ in lspecs]
+        print(f"LSF family {family} corpus: {len(lstreams)} streams x "
+              f"{FRAMES_PER_STREAM} frames in "
+              f"{time.perf_counter() - t0:.1f} s")
+        lfr = parsed_frame(lstreams, dev, family)
+        for exact in (False, True):
+            r = phase_kernel(lfr, exact, family)
+            k3[(family, exact)] = r
+            print(f"phase 10 K3 family {family} exact={exact} vs plain:",
+                  json.dumps(r))
+        del lfr
+        lwatch = watched_slots(lspecs)
+        rates = [int(T.SAMPLE_RATES_FAM[family][sp["sfreq"]])
+                 for _, sp in lspecs]
+        for exact in (False, True):
+            r = phase_main_path(lstreams, dev, lwatch, exact, family, rates)
+            slots = phase_correctness(r.pop("_pcm"), lwatch, lspecs, exact)
+            lsf_serving[(family, exact)] = r
+            print(f"phase 11 LSF family {family} exact={exact} serving:",
+                  json.dumps(r))
+            print(f"phase 11 vs native ({'bitwise' if exact else 'fast'}):",
+                  json.dumps(slots))
+    api_lsf = phase_api(dev, lsf=True)
+    print("phase 12 TorchDSP decode_file on LSF:", json.dumps(api_lsf))
+    if args.profile:
+        print("phase 13 profile:", json.dumps(phase_profile(streams, dev)))
+    check("jax" not in sys.modules, "JAX was imported")
+    check(not [m for m in sys.modules if m.split(".")[0] == "pdmp3_tpu"],
+          "the JAX package was imported")
+
+    def entry(name, src, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": CSRC + src,
                 "replaces": REPLACES[name], "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **extra}
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+                "library_ms": None, **extra}
+
+    def lsf_entry(exact):
+        name = "fused_granule_lsf" + ("_exact" if exact else "")
+        pre = "exact_" if exact else ""
+        by_family = {
+            f: lsf_serving[(f, exact)][f"{pre}lsf{f}_kernel_launches"]
+            for f in LSF_FAMILIES}
+        r1 = k3[(1, exact)]
+        return entry(name, "fused_granule.cu", sum(by_family.values()),
+                     max(k3[(f, exact)]["pcm_max_lsb"]
+                         for f in LSF_FAMILIES),
+                     r1["kernel_ms"], r1["plain_ms"], r1,
+                     launches_by_family=by_family,
+                     ms_by_family={f: k3[(f, exact)]["kernel_ms"]
+                                   for f in LSF_FAMILIES},
+                     plain_ms_by_family={f: k3[(f, exact)]["plain_ms"]
+                                         for f in LSF_FAMILIES})
     print(json.dumps({"kernels": [
         entry("fused_granule", "fused_granule.cu", m["kernel_launches"],
-              k1["pcm_max_lsb"], k1["kernel_ms"], k1["plain_ms"]),
+              k1["pcm_max_lsb"], k1["kernel_ms"], k1["plain_ms"], k1),
         entry("fused_granule_exact", "fused_granule.cu",
               me["exact_kernel_launches"], k2["pcm_max_lsb"],
-              k2["kernel_ms"], k2["plain_ms"]),
+              k2["kernel_ms"], k2["plain_ms"], k2),
+        lsf_entry(False),
+        lsf_entry(True),
         entry("back_half", "back_half.cu", api["k4_launches"],
               max(k4["exact"]["max_abs_err"], k4["fast"]["max_abs_err"]),
-              k4["exact"]["kernel_ms"], k4["exact"]["plain_ms"],
+              k4["exact"]["kernel_ms"], k4["exact"]["plain_ms"], k4,
               ms_fast=k4["fast"]["kernel_ms"],
               plain_ms_fast=k4["fast"]["plain_ms"]),
         entry("rounding_sweep", "rounding_sweep.cu", k6["launches"],
               k6["max_abs_err"], sum(k6["kernel_ms"].values()),
               sum(k6["plain_ms"].values()),
+              sweep_bound(k6["chunk_inputs"], len(k6["kernel_ms"])),
               sweep_seconds=k6["seconds"]),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,30 @@
-// Fused MPEG-1 Layer III granule step for NVIDIA Hopper (sm_90a), in two
-// precisions: K1 (fast) and K2 (exact, bit-exact with the reference).
+// Fused Layer III granule step for NVIDIA Hopper (sm_90a), in two
+// precisions and two family kinds: K1 (MPEG-1, fast), K2 (MPEG-1, exact,
+// bit-exact with the reference) and K3 (the LSF families MPEG-2 and
+// MPEG-2.5, fast and exact).
 //
 // Replaces the TPU kernel pdmp3_tpu/ops/pallas_step.py:_kernel_full
-// (family 0: _fused_granule + _back_ch_sb) in fast mode (K1) and exact
-// mode (K2), together with the glue of decode_granules_pallas's fast and
-// fused exact branches: the band-12 scalefactor substitution, in exact
-// mode the band-12 true gains, the L|R int16 pack with mono duplication,
-// and the gated prev_lines update.  Plain PyTorch twin:
+// (_fused_granule + _back_ch_sb) for family 0 in fast mode (K1) and exact
+// mode (K2), and for families 1 and 2 in both modes (K3, LSF stereo
+// :954-1004), together with the glue of decode_granules_pallas's fast and
+// fused exact branches: for MPEG-1 the band-12 scalefactor substitution
+// and, in exact mode, the band-12 true gains; for LSF the intensity
+// sidecar and iscale; the L|R int16 pack with mono duplication, and the
+// gated prev_lines update.  Plain PyTorch twin:
 // pdmp3_tpu_torch/ops/fused_step.py:fused_granule_step_ref.
+//
+// The family kind is a second template axis of the step's body,
+// granule_step<kExact, kLsf>, as the TPU kernel keeps its MPEG-1 signature
+// free of LSF operands: K1 and K2 are its kLsf = false instances behind
+// the MPEG-1 kernel's unchanged signature and carry no LSF code; K3 is
+// the kLsf = true instance behind fused_granule_lsf_kernel, which adds
+// the LSF operands.  K3 differs in three places only: it reads the slot's
+// 64-entry intensity sidecar into shared memory, its requantize has no
+// sentinel-63 and no band-12 code (LSF gains stay true through q = 124,
+// and every LSF step is a granule-0 step), and its stereo is the LSF one
+// (full-spectrum MS; intensity positions from the sidecar, gains k0/k1 by
+// iscale, panning the raw pre-MS ch0 line).  The family's band maps arrive
+// through the table pointers.
 //
 // One thread block decodes one slot, both channels (stereo couples them),
 // with 576 threads: one per spectral line for requantize and stereo, one
@@ -35,10 +52,11 @@
 // read from the frozen 8207-entry table (the correctly rounded value).
 // Denormals are kept (no -ftz): the band-12 carry reads the float BITS of
 // three output lines, and 95 of the exact band-12 gains are subnormal.
-// Exact mode adds, per line: the sentinel-63 zero gain (q >= 100), the
-// band-12 true gain on granule 1's ch1, and the three float64 rounding
-// points of rounding.cuh (MS, the unsigned quirk, quantize): a few f64
-// operations per line, where the H100 runs f64 at half its f32 rate.
+// Exact mode adds, per line: for MPEG-1 the sentinel-63 zero gain
+// (q >= 100) and the band-12 true gain on granule 1's ch1, and the float64
+// rounding points of rounding.cuh (MS, the unsigned quirk, quantize): a
+// few f64 operations per line, where the H100 runs f64 at half its f32
+// rate.  K3 moves the same bytes plus a 128 B sidecar per slot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,11 +73,12 @@ __device__ __forceinline__ float pow2i(int n) {
 }
 
 // requantized line i of channel ch (pdmp3.c:1829-1905, 2117-2152):
-// (2^(-q/4) * 2^((gg-210-8*sbg)/4)) * sign(x)|x|^(4/3).  Exact mode gives
-// the host's sentinel-63 scalefactors (q >= 100) zero gain, and, when
-// g12 is not null (granule 1), ch1's short band-12 lines the true gain
-// g12[window] of the band-12 bit-pattern scalefactors
-template <bool kExact>
+// (2^(-q/4) * 2^((gg-210-8*sbg)/4)) * sign(x)|x|^(4/3).  Exact MPEG-1
+// gives the host's sentinel-63 scalefactors (q >= 100) zero gain, and,
+// when g12 is not null (granule 1), ch1's short band-12 lines the true
+// gain g12[window] of the band-12 bit-pattern scalefactors; LSF has
+// neither
+template <bool kExact, bool kLsf>
 __device__ float requantize(const Tables& t, const int* meta,
                             const int* scfl, const int* scfs,
                             const float* g12, int lay, int ch, int i,
@@ -80,7 +99,7 @@ __device__ float requantize(const Tables& t, const int* meta,
   }
   // >> floors negative values and & 3 keeps d in 0..3 (two's complement)
   float tmp1 = __ldg(t.quarter_down + (q & 3)) * pow2i(-(q >> 2));
-  if constexpr (kExact) {
+  if constexpr (kExact && !kLsf) {
     if (q >= 100) tmp1 = 0.0f;
     if (g12 != nullptr && ch == 1 && line_map(t, MAP_SFB12, lay, i) == 1)
       tmp1 = g12[line_map(t, MAP_WIN, lay, i)];
@@ -89,19 +108,47 @@ __device__ float requantize(const Tables& t, const int* meta,
   return (tmp1 * tmp2) * tmp3;
 }
 
-// two resident blocks per SM: ptxas then fits K1 and K2 in 56 registers
-// with no spills (73 unbounded, one block per SM); three spill.  Both
-// ran fastest at 2 of 1, 2 and 3 blocks (PERF.md, "Launch bounds")
-template <bool kExact>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_granule_kernel(const int16_t* __restrict__ ix,
-                     const int16_t* __restrict__ scf_l,
-                     const int16_t* __restrict__ scf_s,
-                     const int32_t* __restrict__ meta,
-                     const int32_t* __restrict__ active, int gr1,
-                     int bug_compat, float* __restrict__ store,
-                     float* __restrict__ v, float* __restrict__ prev,
-                     uint32_t* __restrict__ pcm, Tables t) {
+// K3's operands beyond the MPEG-1 kernel's: the [B][64] intensity sidecar
+// ([0..21] long positions, [22..60] short flat, 63 = illegal) and the
+// gain pairs k0/k1 [2][64] by [iscale != 0][position]
+struct LsfOperands {
+  const int16_t* is_pos;
+  const float* k0;
+  const float* k1;
+};
+
+// the LSF intensity of line i (13818-3 §2.4.3.2; pallas_step.py:976-1004),
+// after the full-spectrum MS: on eligible bands at or above ch1's count1
+// whose sidecar position is legal, both channels pan the RAW (pre-MS) ch0
+// line by the gain pair of the slot's iscale row
+__device__ __forceinline__ void lsf_intensity(const Tables& t,
+                                              const LsfOperands& lsf,
+                                              const int* meta,
+                                              const int* ipos, int lay0,
+                                              int i, int c1r, float l_raw,
+                                              float& l, float& r) {
+  // short positions are read window-major, as for MPEG-1
+  const int pos = line_map(t, MAP_SHORT, lay0, i) == 1
+                      ? ipos[22 + line_map(t, MAP_SFB_S_PLAIN, lay0, i)]
+                      : ipos[line_map(t, MAP_SFB_L, lay0, i)];
+  if (line_map(t, MAP_IOK, lay0, i) == 1 &&
+      line_map(t, MAP_BAND_START, lay0, i) >= c1r && pos != kLsfIsIllegal) {
+    const int k = (meta[M_ISCALE] != 0) * 64 + clampi(pos, 0, 63);
+    l = __ldg(lsf.k0 + k) * l_raw;
+    r = __ldg(lsf.k1 + k) * l_raw;
+  }
+}
+
+// One granule step of the block's slot, both channels: the body of K1, K2
+// (kLsf = false) and K3 (kLsf = true); every thread of the block calls it
+template <bool kExact, bool kLsf>
+__device__ __forceinline__ void granule_step(
+    const int16_t* __restrict__ ix, const int16_t* __restrict__ scf_l,
+    const int16_t* __restrict__ scf_s, const int32_t* __restrict__ meta,
+    const int32_t* __restrict__ active, int gr1, int bug_compat,
+    float* __restrict__ store, float* __restrict__ v,
+    float* __restrict__ prev, uint32_t* __restrict__ pcm, const Tables& t,
+    const LsfOperands& lsf) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   uint32_t* out = pcm + (size_t)b * kLines;  // one L|R<<16 word per sample
@@ -120,12 +167,16 @@ fused_granule_kernel(const int16_t* __restrict__ ix,
   __shared__ float s_xt[32 * 18];            // x_time of one channel [sb][i]
   __shared__ float s_blk[33 * kBlkStride];   // FIFO of one channel, oldest first
   __shared__ int16_t s_left[kLines];         // channel 0 PCM
+  __shared__ int s_ipos[kLsf ? 64 : 1];      // LSF intensity sidecar
 
   if (tid < kMetaWords) s_meta[tid] = meta[b * kMetaWords + tid];
   if (tid < 2 * 22) s_scfl[tid] = scf_l[b * 2 * 22 + tid];
   if (tid < 2 * 39) s_scfs[tid] = scf_s[b * 2 * 39 + tid];
+  if constexpr (kLsf) {
+    if (tid < 64) s_ipos[tid] = lsf.is_pos[b * 64 + tid];
+  }
   __syncthreads();
-  if (gr1 && tid < 3) {
+  if (!kLsf && gr1 && tid < 3) {
     // band-12 OOB read (docs/DESIGN.md §6): granule 1's ch1 short band-12
     // scalefactors alias the float BITS of granule 0's first three ch0
     // output lines, as uint32
@@ -146,15 +197,16 @@ fused_granule_kernel(const int16_t* __restrict__ ix,
     const int lay0 = clampi(s_meta[M_LAYOUT], 0, kLayouts - 1);
     const int lay1 = clampi(s_meta[M_LAYOUT + 1], 0, kLayouts - 1);
     const int16_t* sx = ix + (size_t)b * 2 * kLines;
-    const float* g12 = (kExact && gr1) ? s_g12 : nullptr;
-    float l = requantize<kExact>(t, s_meta, s_scfl, s_scfs, g12, lay0, 0,
-                                 i, sx[i]);
-    float r = requantize<kExact>(t, s_meta, s_scfl, s_scfs, g12, lay1, 1,
-                                 i, sx[kLines + i]);
-    // MS below min(count1) (pdmp3.c:1920)
+    const float* g12 = (kExact && !kLsf && gr1) ? s_g12 : nullptr;
+    float l = requantize<kExact, kLsf>(t, s_meta, s_scfl, s_scfs, g12, lay0,
+                                       0, i, sx[i]);
+    float r = requantize<kExact, kLsf>(t, s_meta, s_scfl, s_scfs, g12, lay1,
+                                       1, i, sx[kLines + i]);
+    const float l_raw = l;
+    // MS below min(count1) (pdmp3.c:1920); LSF: over the full spectrum
     const int c0 = clampi(s_meta[M_C1], 0, kLines);
     const int c1r = clampi(s_meta[M_C1 + 1], 0, kLines);
-    if (s_meta[M_MS] != 0 && i < min(c0, c1r)) {
+    if (s_meta[M_MS] != 0 && (kLsf || i < min(c0, c1r))) {
       float mid, side;
       if constexpr (kExact) {
         mid = ms_f64(l + r);
@@ -167,9 +219,12 @@ fused_granule_kernel(const int16_t* __restrict__ ix,
       l = mid;
       r = side;
     }
-    // intensity: ch0's layout and scalefactors give the positions (a
-    // reference quirk; the spec uses the right channel's)
-    if (s_meta[M_IS] != 0) {
+    if constexpr (kLsf) {
+      if (s_meta[M_IS] != 0)
+        lsf_intensity(t, lsf, s_meta, s_ipos, lay0, i, c1r, l_raw, l, r);
+    } else if (s_meta[M_IS] != 0) {
+      // intensity: ch0's layout and scalefactors give the positions (a
+      // reference quirk; the spec uses the right channel's)
       const bool short0 = line_map(t, MAP_SHORT, lay0, i) == 1;
       const int is_pos =
           short0 ? s_scfs[line_map(t, MAP_SFB_S_PLAIN, lay0, i)]
@@ -245,30 +300,72 @@ fused_granule_kernel(const int16_t* __restrict__ ix,
   }
 }
 
+// two resident blocks per SM: ptxas then fits K1 and K2 in 56 registers
+// with no spills (73 unbounded, one block per SM); three spill.  Both
+// ran fastest at 2 of 1, 2 and 3 blocks (PERF.md, "Launch bounds"); K3
+// starts from the same bound
+template <bool kExact>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_granule_kernel(const int16_t* __restrict__ ix,
+                     const int16_t* __restrict__ scf_l,
+                     const int16_t* __restrict__ scf_s,
+                     const int32_t* __restrict__ meta,
+                     const int32_t* __restrict__ active, int gr1,
+                     int bug_compat, float* __restrict__ store,
+                     float* __restrict__ v, float* __restrict__ prev,
+                     uint32_t* __restrict__ pcm, Tables t) {
+  granule_step<kExact, false>(ix, scf_l, scf_s, meta, active, gr1,
+                              bug_compat, store, v, prev, pcm, t,
+                              LsfOperands{});
+}
+
+template <bool kExact>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_granule_lsf_kernel(const int16_t* __restrict__ ix,
+                         const int16_t* __restrict__ scf_l,
+                         const int16_t* __restrict__ scf_s,
+                         const int32_t* __restrict__ meta,
+                         const int32_t* __restrict__ active, int gr1,
+                         int bug_compat, float* __restrict__ store,
+                         float* __restrict__ v, float* __restrict__ prev,
+                         uint32_t* __restrict__ pcm, Tables t,
+                         LsfOperands lsf) {
+  granule_step<kExact, true>(ix, scf_l, scf_s, meta, active, gr1,
+                             bug_compat, store, v, prev, pcm, t, lsf);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch one granule step for B slots on `stream`, K2 when exact else K1;
-// tables: the device pointers of fused_step.TABLES.  Returns
-// cudaGetLastError() (0 when the launch was accepted).
+// Launch one granule step for B slots on `stream`: for MPEG-1 (lsf = 0)
+// K2 when exact else K1; for the LSF families (lsf = 1, is_pos the [B][64]
+// sidecar, gr1 = 0) K3 in the precision `exact` selects.  tables: the
+// device pointers of fused_step.TABLES (maps of the step's family; the
+// LSF gains k0/k1 last).  Returns cudaGetLastError() (0 when the launch
+// was accepted).
 int pdmp3_fused_granule(const int16_t* ix, const int16_t* scf_l,
                         const int16_t* scf_s, const int32_t* meta,
-                        const int32_t* active, float* store, float* v,
-                        float* prev, int16_t* pcm,
+                        const int32_t* active, const int16_t* is_pos,
+                        float* store, float* v, float* prev, int16_t* pcm,
                         const void* const* tables, int B, int gr1,
-                        int bug_compat, int exact, void* stream) {
+                        int bug_compat, int exact, int lsf, void* stream) {
   const Tables t = make_tables(tables);
   auto* out = reinterpret_cast<uint32_t*>(pcm);
   auto* s = (cudaStream_t)stream;
-  if (exact)
-    fused_granule_kernel<true><<<B, kThreads, 0, s>>>(
-        ix, scf_l, scf_s, meta, active, gr1, bug_compat, store, v, prev,
-        out, t);
-  else
-    fused_granule_kernel<false><<<B, kThreads, 0, s>>>(
-        ix, scf_l, scf_s, meta, active, gr1, bug_compat, store, v, prev,
-        out, t);
+  if (lsf) {
+    const LsfOperands ops{is_pos, static_cast<const float*>(tables[kTables]),
+                          static_cast<const float*>(tables[kTables + 1])};
+    const auto kernel = exact ? fused_granule_lsf_kernel<true>
+                              : fused_granule_lsf_kernel<false>;
+    kernel<<<B, kThreads, 0, s>>>(ix, scf_l, scf_s, meta, active, gr1,
+                                  bug_compat, store, v, prev, out, t, ops);
+  } else {
+    const auto kernel = exact ? fused_granule_kernel<true>
+                              : fused_granule_kernel<false>;
+    kernel<<<B, kThreads, 0, s>>>(ix, scf_l, scf_s, meta, active, gr1,
+                                  bug_compat, store, v, prev, out, t);
+  }
   return (int)cudaGetLastError();
 }
 

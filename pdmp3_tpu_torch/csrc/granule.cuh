@@ -1,9 +1,10 @@
-// Device code shared by the granule kernels (fused_granule.cu: K1 fast and
-// K2 exact; back_half.cu: K4): the wire's constants, the table operands,
-// the IMDCT / polyphase dot products in both summation orders, and the
-// back half of one channel.  Each summation order and rounding point
-// here mirrors the plain PyTorch stage ops (pdmp3_tpu_torch/ops/dsp.py),
-// so every kernel is held to its plain version bit for bit.
+// Device code shared by the granule kernels (fused_granule.cu: K1 fast,
+// K2 exact and K3, the LSF step; back_half.cu: K4): the wire's constants,
+// the table operands, the IMDCT / polyphase dot products in both summation
+// orders, and the back half of one channel.  Each summation order and
+// rounding point here mirrors the plain PyTorch stage ops
+// (pdmp3_tpu_torch/ops/dsp.py), so every kernel is held to its plain
+// version bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,7 +26,8 @@ constexpr int kBlkStride = 65;  // FIFO row stride: the matrixing writes a
 // meta words of the wire (PDMP3_META_*, pdmp3_tpu/host/include/pdmp3.h)
 constexpr int M_LAYOUT = 0, M_BT = 2, M_WSF = 4, M_MIXED = 6, M_GG = 8,
               M_SFS = 10, M_PRE = 12, M_C1 = 14, M_SBG = 16, M_MS = 22,
-              M_IS = 23, M_NCH = 24;
+              M_IS = 23, M_NCH = 24, M_ISCALE = 27;
+constexpr int kLsfIsIllegal = 63;  // LSF sidecar: no intensity position
 // rows of the line maps (pdmp3_tpu_torch/ops/consts.py MAP_*)
 constexpr int MAP_SFB_L = 0, MAP_SFB_S = 1, MAP_SFB_S_PLAIN = 2,
               MAP_WIN = 3, MAP_PRETAB = 4, MAP_SHORT = 5,
@@ -48,9 +50,11 @@ struct Tables {
   const float* inv_sqrt2;          // [1] f32(1/sqrt(2))
   const float* gain_quarter_true;  // [640] true 2^(-q/4), subnormals kept
   const int16_t* maps;             // [9][9][576] per-(layout, line) maps
+                                   // of the step's family
 };
+constexpr int kTables = 16;        // pointers of Tables, in that order
 
-// the table pointers in the order of fused_step.TABLES
+// the first kTables table pointers in the order of fused_step.TABLES
 inline Tables make_tables(const void* const* p) {
   Tables t;
   t.pow43 = static_cast<const float*>(p[0]);

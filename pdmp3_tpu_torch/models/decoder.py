@@ -1,16 +1,20 @@
 """The batched, stateful Layer III granule decoder.
 
-Counterpart of ``pdmp3_tpu/models/decoder.py`` for MPEG-1 (family 0), in
-fast and exact precision.  Two routes:
+Counterpart of ``pdmp3_tpu/models/decoder.py`` for MPEG-1 (family 0) and
+the LSF families (1 MPEG-2, 2 MPEG-2.5), in fast and exact precision.
+Two routes:
 
-- serving: one frame step decodes one frame per slot as two granule
-  steps (``ops.fused_step.fused_granule_step``: K1 fast, K2 exact on
-  CUDA) from the native frontend's packed int16 wire
-  (``decode_frame_packed``);
-- per stream: ``TorchDSP`` plugs into the streaming API
-  (``pdmp3_tpu.api``) and decodes parsed ``FrameData`` through
-  ``frame_to_batches`` and ``decode_granules``, the split route (stage-op
-  front half, then the back-half kernel K4 on CUDA).
+- serving: one frame step decodes one frame per slot from the native
+  frontend's packed int16 wire with the fused granule step
+  (``ops.fused_step.fused_granule_step``): an MPEG-1 frame as two
+  granule steps (K1 fast, K2 exact on CUDA; ``decode_frame_packed``),
+  an LSF frame as one (K3 on CUDA; ``decode_frame_packed_lsf``, whose
+  wire has no granule axis and one more section, the intensity
+  sidecar);
+- per stream: ``TorchDSP`` plugs into the port's streaming API
+  (``pdmp3_tpu_torch.api``) and decodes parsed ``FrameData`` of either
+  kind through ``frame_to_batches`` and ``decode_granules``, the split
+  route (stage-op front half, then the back-half kernel K4 on CUDA).
 
 Both thread the per-slot recurrent ``DecoderState`` and give the same
 bits.
@@ -26,8 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pdmp3_tpu import tables as T
-
+from .. import tables as T
 from ..ops import dsp as D
 from ..ops.back_half import split_granule_step
 from ..ops.dsp import META_WORDS
@@ -36,9 +39,9 @@ from ..ops.fused_step import fused_granule_step
 
 @dataclass
 class GranuleBatch:
-    """One granule step's wire tensors for B slots.
+    """One granule step's wire tensors for B slots of one family.
 
-    ix is line-ordered: the host applies the short-block reorder
+    ix is line-ordered: the host applies the family's short-block reorder
     (pdmp3.c:1786-1823) while it packs the wire, so the device never
     permutes spectra."""
     ix: torch.Tensor          # int16 [B,2,576]
@@ -47,6 +50,10 @@ class GranuleBatch:
     meta: torch.Tensor        # int32 [B,32] PDMP3_META_* words
     active: torch.Tensor      # int32 [B]: 0 = idle slot (state frozen)
     gr1: int                  # 1 = every slot decodes granule 1
+    family: int = 0           # 0 MPEG-1, 1 MPEG-2, 2 MPEG-2.5
+    # LSF only: ch1's intensity positions ([0..21] long, [22..60] short
+    # flat, 63 = illegal); iscale rides meta word 27
+    is_pos: torch.Tensor | None = None   # int16 [B,64]
 
 
 @dataclass
@@ -109,24 +116,37 @@ def decode_granules(batch: GranuleBatch, state: DecoderState,
     updated in place); the same bits as the fused step."""
     return split_granule_step(batch.ix, batch.scf_l, batch.scf_s,
                               batch.meta, batch.active, batch.gr1, state,
-                              bug_compat, exact)
+                              bug_compat, exact, batch.family, batch.is_pos)
 
 
 def frame_to_batches(fds, device="cpu") -> list[GranuleBatch]:
-    """One parsed MPEG-1 frame per slot (``pdmp3_tpu.frontend.FrameData``)
-    as the two granule steps' wire-form batches on ``device``: ix
-    reordered to line order as the native wire packs it, meta words in
-    the PDMP3_META_* layout of the int16 wire (sample rate / 25), every
-    slot active.  Family 0 only."""
-    if any(fd.header.family != 0 or fd.sb_samples is not None
-           for fd in fds):
+    """One parsed Layer III frame per slot
+    (``pdmp3_tpu_torch.frontend.FrameData``), all of one family, as the
+    frame's granule steps' wire-form batches on ``device`` (two for
+    MPEG-1, one for LSF): ix reordered to line order as the native wire
+    packs it, meta words in the PDMP3_META_* layout of the int16 wire
+    (sample rate / 25; family and iscale for LSF), LSF frames' intensity
+    sidecar from ``fd.is_eff_l``/``is_eff_s`` (illegal = 63 where the
+    frame has none), every slot active."""
+    if any(fd.sb_samples is not None for fd in fds):
         raise NotImplementedError(
-            "only MPEG-1 Layer III frames are ported to the PyTorch "
-            "backend yet")
-    perm = T.layout_maps(0)["reorder"]
+            "Layer I/II frames are not ported to the PyTorch backend yet")
+    family = fds[0].header.family
+    if any(fd.header.family != family for fd in fds):
+        raise ValueError("mixed-family batch: route streams to "
+                         "per-family pools")
+    perm = T.layout_maps(family)["reorder"]
     B = len(fds)
+    ip = None
+    if family:
+        ip = np.full((B, 64), T.LSF_IS_ILLEGAL, np.int16)
+        ip[:, 61:] = 0   # pad words, zero as the native packer writes them
+        for b, fd in enumerate(fds):
+            if fd.is_eff_l is not None:
+                ip[b, :22] = fd.is_eff_l
+                ip[b, 22:61] = np.asarray(fd.is_eff_s).reshape(39)
     out = []
-    for gr in range(2):
+    for gr in range(fds[0].header.ngr):
         ix = np.zeros((B, 2, 576), np.int16)
         scf_l = np.zeros((B, 2, 22), np.int16)
         scf_s = np.zeros((B, 2, 39), np.int16)
@@ -138,6 +158,8 @@ def frame_to_batches(fds, device="cpu") -> list[GranuleBatch]:
             m[D.M_IS] = int(h.mode == 1 and bool(h.mode_extension & 1))
             m[D.M_NCH] = h.nch
             m[D.M_SAMPLE_RATE] = h.sample_rate // 25
+            m[D.M_FAMILY] = family
+            m[D.M_ISCALE] = fd.intensity_scale
             for ch in range(h.nch):
                 lay = T.layout_id(h.sampling_frequency,
                                   int(s.win_switch_flag[gr][ch]),
@@ -162,7 +184,8 @@ def frame_to_batches(fds, device="cpu") -> list[GranuleBatch]:
             return torch.from_numpy(a).to(device)
         out.append(GranuleBatch(
             ix=t(ix), scf_l=t(scf_l), scf_s=t(scf_s), meta=t(meta),
-            active=t(np.ones(B, np.int32)), gr1=gr))
+            active=t(np.ones(B, np.int32)), gr1=gr, family=family,
+            is_pos=None if ip is None else t(ip)))
     return out
 
 
@@ -183,41 +206,44 @@ def decode_frame_soa(ix2, scf_l2, scf_s2, meta2, active, state,
     return torch.cat(pcms, 1), state
 
 
+def _packed_layout(sections) -> dict:
+    """Element offsets (int16 units) of the sections [(name, length)]
+    packed in order, each starting 4-byte aligned: name -> (offset,
+    length), plus 'total'."""
+    off, pos = {}, 0
+    for name, n in sections:
+        off[name] = (pos, n)
+        pos += (n + 1) & ~1
+    off["total"] = pos
+    return off
+
+
+def _section_views(buf, off: dict, shapes: dict) -> dict:
+    """Views of a packed wire buffer by section, in the given shapes."""
+    if buf.dtype != torch.int16 or tuple(buf.shape) != (off["total"],):
+        raise ValueError(f"wire must be int16 [{off['total']}], got "
+                         f"{buf.dtype} {tuple(buf.shape)}")
+    return {name: buf[off[name][0]:off[name][0] + off[name][1]].view(shape)
+            for name, shape in shapes.items()}
+
+
 def soa_layout(B: int, F: int = 1) -> dict:
     """Element offsets (int16 units) of the packed single-buffer wire
     covering F frames per slot (the native pdmp3_parse_step_wire16
-    layout): name -> (offset, length), plus 'total'.  Each section
-    starts 4-byte aligned."""
-    off = {}
-    pos = 0
-
-    def sec(name, nelems):
-        nonlocal pos
-        off[name] = (pos, nelems)
-        pos += (nelems + 1) & ~1
-
-    sec("ix", F * 2 * B * 2 * 576)
-    sec("scf_l", F * 2 * B * 2 * 22)
-    sec("scf_s", F * 2 * B * 2 * 39)
-    sec("meta", F * 2 * B * META_WORDS)
-    sec("active", F * B)
-    off["total"] = pos
-    return off
+    layout): name -> (offset, length), plus 'total'."""
+    return _packed_layout([
+        ("ix", F * 2 * B * 2 * 576), ("scf_l", F * 2 * B * 2 * 22),
+        ("scf_s", F * 2 * B * 2 * 39), ("meta", F * 2 * B * META_WORDS),
+        ("active", F * B)])
 
 
 def wire_sections(buf, B: int) -> dict:
     """Views of the packed one-frame wire (int16 [soa_layout(B)['total']])
     by section: ix [2,B,2,576], scf_l [2,B,2,22], scf_s [2,B,2,39],
     meta [2,B,32], active [B] (leading axis: granule)."""
-    off = soa_layout(B)
-    if buf.dtype != torch.int16 or tuple(buf.shape) != (off["total"],):
-        raise ValueError(f"wire must be int16 [{off['total']}], got "
-                         f"{buf.dtype} {tuple(buf.shape)}")
-    shapes = dict(ix=(2, B, 2, 576), scf_l=(2, B, 2, 22),
-                  scf_s=(2, B, 2, 39), meta=(2, B, META_WORDS),
-                  active=(B,))
-    return {name: buf[off[name][0]:off[name][0] + off[name][1]].view(shape)
-            for name, shape in shapes.items()}
+    return _section_views(buf, soa_layout(B), dict(
+        ix=(2, B, 2, 576), scf_l=(2, B, 2, 22), scf_s=(2, B, 2, 39),
+        meta=(2, B, META_WORDS), active=(B,)))
 
 
 def decode_frame_packed(buf, state, B: int, bug_compat: bool = True,
@@ -229,12 +255,66 @@ def decode_frame_packed(buf, state, B: int, bug_compat: bool = True,
                             w["active"], state, bug_compat, exact)
 
 
+# ---------------------------------------------------------------------------
+# LSF pool wire (MPEG-2/2.5, 13818-3): one granule per frame, so the wire
+# drops the granule axis and adds the intensity-sidecar section; the
+# layout of the native packer pdmp3_parse_step_wire16_lsf (host/api.cc).
+# ---------------------------------------------------------------------------
+
+def soa_layout_lsf(B: int, F: int = 1) -> dict:
+    """Element offsets (int16 units) of the packed LSF wire covering F
+    one-granule frames per slot: name -> (offset, length), plus 'total'.
+    Sections ix, scf_l, scf_s, meta, is_pos [F,B,64] ([0..21] long,
+    [22..60] short flat, illegal = 63), active."""
+    return _packed_layout([
+        ("ix", F * B * 2 * 576), ("scf_l", F * B * 2 * 22),
+        ("scf_s", F * B * 2 * 39), ("meta", F * B * META_WORDS),
+        ("is_pos", F * B * 64), ("active", F * B)])
+
+
+def wire_sections_lsf(buf, B: int) -> dict:
+    """Views of the packed one-frame LSF wire (int16
+    [soa_layout_lsf(B)['total']]) by section: ix [B,2,576], scf_l
+    [B,2,22], scf_s [B,2,39], meta [B,32], is_pos [B,64], active [B]."""
+    return _section_views(buf, soa_layout_lsf(B), dict(
+        ix=(B, 2, 576), scf_l=(B, 2, 22), scf_s=(B, 2, 39),
+        meta=(B, META_WORDS), is_pos=(B, 64), active=(B,)))
+
+
+def decode_frame_lsf_soa(ix, scf_l, scf_s, meta, is_pos, active, state,
+                         family: int, bug_compat: bool = True,
+                         exact: bool = False):
+    """Decode one LSF frame per slot (ONE granule step, a granule-0
+    step) from the wire's section tensors: ix int16 [B,2,576], scf_l
+    int16 [B,2,22], scf_s int16 [B,2,39], meta [B,32], is_pos int16
+    [B,64], active [B]; family 1 or 2.  Returns (pcm int16 [B,576,2],
+    state updated in place)."""
+    if family not in (1, 2):
+        raise ValueError(f"LSF family must be 1 or 2, got {family!r}")
+    b = _batch_from_meta(ix, scf_l, scf_s, meta, active, 0)
+    return fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta, b.active,
+                              0, state, bug_compat, exact, family, is_pos)
+
+
+def decode_frame_packed_lsf(buf, state, B: int, family: int,
+                            bug_compat: bool = True, exact: bool = False):
+    """decode_frame_lsf_soa over the packed one-frame LSF wire, on the
+    decode device.  Returns (pcm int16 [B,576,2], state updated in
+    place)."""
+    w = wire_sections_lsf(buf, B)
+    return decode_frame_lsf_soa(w["ix"], w["scf_l"], w["scf_s"], w["meta"],
+                                w["is_pos"], w["active"], state, family,
+                                bug_compat, exact)
+
+
 class TorchDSP:
     """Single-stream DSP adapter with the OracleDSP interface, so the
-    streaming API (``pdmp3_tpu.api.PDMP3`` / ``decode_file``) can decode
-    on the port's backend: ``decode_file(data, dsp=TorchDSP(device=...))``.
-    Counterpart of the JAX package's JaxDSP; MPEG-1 Layer III only
-    (Layer I/II and LSF frames raise NotImplementedError)."""
+    port's streaming API (``pdmp3_tpu_torch.api.PDMP3`` / ``decode_file``)
+    can decode on the port's backend:
+    ``decode_file(data, dsp=TorchDSP(device=...))``, with ``lsf=True``
+    for MPEG-2/2.5 streams.  Counterpart of the JAX package's JaxDSP for
+    Layer III frames of every family (Layer I/II frames raise
+    NotImplementedError)."""
 
     def __init__(self, exact: bool = True, bug_compat: bool = True, *,
                  device):
@@ -248,7 +328,8 @@ class TorchDSP:
 
     def decode_frame(self, fd) -> np.ndarray:
         """Packed PCM words uint32 [2,576] like the reference's
-        ``id->out`` (pdmp3.c:129): left in the high half."""
+        ``id->out`` (pdmp3.c:129): left in the high half.  LSF frames
+        fill row 0 only (one granule per frame), like OracleDSP."""
         out = np.zeros((2, 576), np.uint32)
         for gr, batch in enumerate(frame_to_batches([fd], self.device)):
             pcm, self.state = decode_granules(batch, self.state, self.exact,

@@ -103,8 +103,9 @@ def load() -> C.CDLL:
     lib = C.CDLL(ensure_built())
     ptr, i32 = C.c_void_p, C.c_int
     sigs = {
-        # 9 operand pointers, the table array, B, gr1, bug_compat, exact
-        "pdmp3_fused_granule": [ptr] * 10 + [i32] * 4 + [ptr],
+        # 10 operand pointers, the table array, B, gr1, bug_compat,
+        # exact, lsf
+        "pdmp3_fused_granule": [ptr] * 11 + [i32] * 5 + [ptr],
         # 7 operand pointers, the table array, B, exact
         "pdmp3_back_half": [ptr] * 8 + [i32] * 2 + [ptr],
         # construction, base, out, n

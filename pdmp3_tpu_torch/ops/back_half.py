@@ -97,14 +97,16 @@ def back_half_step_ref(xa, state, bt_eff, active, exact: bool):
 
 
 def split_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
-                       bug_compat: bool = True, exact: bool = False):
-    """One granule step on the split route: the same contract and the
-    same bits as fused_step.fused_granule_step, with the back half as
-    its own kernel (K4) on CUDA tensors."""
-    _check(ix, scf_l, scf_s, meta, active, gr1, state)
+                       bug_compat: bool = True, exact: bool = False,
+                       family: int = 0, is_pos=None):
+    """One granule step on the split route: the same contract (the LSF
+    families included) and the same bits as
+    fused_step.fused_granule_step, with the back half as its own kernel
+    (K4) on CUDA tensors."""
+    _check(ix, scf_l, scf_s, meta, active, gr1, state, family, is_pos)
     f = D.fields(meta)
     xa = D.front_half(ix, scf_l, scf_s, meta, gr1, state.prev_lines,
-                      exact, bug_compat)
+                      exact, bug_compat, family, is_pos)
     bt_eff = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
     out, prev3 = back_half_step(xa, state, bt_eff, active, exact)
     pcm = D.pack(qz_f64(out) if exact else out, f.nch, active)

@@ -1,5 +1,6 @@
-"""Constants of the MPEG-1 granule step (fast and exact): per-(layout,
-line) index maps and the small float tables.
+"""Constants of the Layer III granule step (fast and exact): per-(layout,
+line) index maps and the small float tables, per family (0 MPEG-1,
+1 MPEG-2, 2 MPEG-2.5).
 
 The JAX package expands every per-line lookup as a one-hot matrix
 product ([576, 9*K] constants), because its TPU gathers slowly.  A GPU
@@ -9,8 +10,12 @@ the short-block reorder exactly where the JAX package composes its
 matrices (ops/dsp.py ``_compose_reorder``), and read by a plain index.
 Both the plain PyTorch step and the CUDA kernel read these same arrays.
 
-Family 0 (MPEG-1) only.  Every array is derived from ``pdmp3_tpu.tables``
-(which imports no JAX) so there is one source of truth for the numbers.
+Only the index maps depend on the family: each family has its own band
+edges and, for the LSF families, its mixed-block switch at long band 6
+instead of 8 (``T.SWITCH_SFB_L``), all read from ``T.layout_maps(family)``
+and ``T.stereo_maps(family)``.  Every array is derived from the port's
+copy of the table module (``pdmp3_tpu_torch.tables``, byte-identical data
+to the JAX package's), so there is one source of truth for the numbers.
 """
 from __future__ import annotations
 
@@ -19,9 +24,8 @@ import functools
 import numpy as np
 import torch
 
-from pdmp3_tpu import tables as T
-
 from .. import device as _device  # noqa: F401  (numeric guards)
+from .. import tables as T
 
 # rows of line_maps(): what each per-(layout, line) map holds
 MAP_SFB_L = 0        # long scalefactor band, clipped to 0..21
@@ -48,18 +52,19 @@ INV_SQRT2_F64 = float(T.INV_SQRT2)
 POW43_MAX = 8206     # largest |ix| the table covers (pdmp3.c:2117)
 
 
-def compose_reorder(src: np.ndarray) -> np.ndarray:
+def compose_reorder(src: np.ndarray, family: int = 0) -> np.ndarray:
     """out[l, i] = src[l, perm_l[i]]: a per-(layout, line) map read in
-    the wire's line order (the host applies the short-block reorder
-    while it packs ix)."""
+    the wire's line order (the host applies the family's short-block
+    reorder while it packs ix)."""
     return np.take_along_axis(np.asarray(src),
-                              T.layout_maps(0)["reorder"], axis=1)
+                              T.layout_maps(family)["reorder"], axis=1)
 
 
-@functools.lru_cache(maxsize=1)
-def pretab_line_map() -> np.ndarray:
-    """pretab value per (layout, line) for long regions (pdmp3.c:2123)."""
-    m = T.layout_maps(0)
+@functools.lru_cache(maxsize=None)
+def pretab_line_map(family: int = 0) -> np.ndarray:
+    """pretab value per (layout, line) for long regions (pdmp3.c:2123;
+    13818-3 keeps the same pretab for LSF)."""
+    m = T.layout_maps(family)
     pretab22 = np.concatenate([T.PRETAB, [0]]).astype(np.int32)
     out = np.zeros((T.N_LAYOUTS, 576), np.int32)
     for lay in range(T.N_LAYOUTS):
@@ -69,21 +74,22 @@ def pretab_line_map() -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=1)
-def line_maps() -> np.ndarray:
+@functools.lru_cache(maxsize=None)
+def line_maps(family: int = 0) -> np.ndarray:
     """int16 [N_MAPS, 9, 576]: every per-(layout, line) index map of the
-    step, rows named by the MAP_* constants."""
-    lm, sm = T.layout_maps(0), T.stereo_maps(0)
+    family's step, rows named by the MAP_* constants."""
+    lm, sm = T.layout_maps(family), T.stereo_maps(family)
     slot_s = np.minimum(lm["sfb"], 12) * 3 + lm["win"]
     maps = np.zeros((N_MAPS, T.N_LAYOUTS, 576), np.int16)
-    maps[MAP_SFB_L] = np.clip(compose_reorder(lm["sfb"]), 0, 21)
-    maps[MAP_SFB_S] = compose_reorder(slot_s)
+    maps[MAP_SFB_L] = np.clip(compose_reorder(lm["sfb"], family), 0, 21)
+    maps[MAP_SFB_S] = compose_reorder(slot_s, family)
     # intensity reads short is_pos window-major even after the reorder
     # (the reference walks window-major spans of the reordered array,
-    # pdmp3.c:2190-2220), hence the uncomposed map
+    # pdmp3.c:2190-2220; LSF keeps the convention), hence the uncomposed
+    # map
     maps[MAP_SFB_S_PLAIN] = slot_s
-    maps[MAP_WIN] = compose_reorder(lm["win"])
-    maps[MAP_PRETAB] = pretab_line_map()
+    maps[MAP_WIN] = compose_reorder(lm["win"], family)
+    maps[MAP_PRETAB] = pretab_line_map(family)
     maps[MAP_SHORT] = lm["is_short"]
     maps[MAP_BAND_START] = sm["band_start"]
     maps[MAP_IOK] = sm["intensity_ok"]
@@ -93,9 +99,10 @@ def line_maps() -> np.ndarray:
     return maps
 
 
-@functools.lru_cache(maxsize=1)
-def host_consts() -> dict:
-    """Every constant of the step as numpy arrays (float32 unless noted).
+@functools.lru_cache(maxsize=None)
+def host_consts(family: int = 0) -> dict:
+    """Every constant of the family's step as numpy arrays (float32
+    unless noted).
 
     cos36 [18,36] long IMDCT basis (m, p); c3 [18,36] the three
     interleaved 12-point IMDCTs folded into one basis, c3[k, w*12+p] =
@@ -107,13 +114,17 @@ def host_consts() -> dict:
     pow43 [8207] |x|^(4/3); quarter_down/quarter_up [4];
     gain_quarter_true [640] the true 2^(-q/4) down to the f32 underflow
     point (95 entries are subnormal; the exact band-12 gain reads it);
-    maps int16 (line_maps()); inv_sqrt2, two32 and k32767 f32 scalars
-    (0-d, so products with them stay in f32)."""
+    k0/k1 [2,64] the LSF intensity gain pairs by [iscale != 0, is_pos]
+    (T.lsf_intensity_tables(), bit-identical to the JAX kernel's closed
+    form); maps int16 (line_maps(family), the only family-dependent
+    entry); inv_sqrt2, two32 and k32767 f32 scalars (0-d, so products
+    with them stay in f32)."""
     cos12 = np.asarray(T.COS_N12, np.float32)
     c3 = np.zeros((18, 36), np.float32)
     for k in range(18):
         c3[k, (k % 3) * 12:(k % 3 + 1) * 12] = cos12[k // 3]
     ratio_l, ratio_r = T.intensity_ratio_tables()
+    k0, k1 = T.lsf_intensity_tables()
     out = dict(
         cos36=np.asarray(T.COS_N36, np.float32),
         c3=c3,
@@ -130,7 +141,9 @@ def host_consts() -> dict:
         quarter_down=QUARTER_DOWN4,
         quarter_up=QUARTER_UP4,
         gain_quarter_true=np.asarray(T.GAIN_QUARTER_TRUE, np.float32),
-        maps=line_maps(),
+        k0=np.asarray(k0, np.float32),
+        k1=np.asarray(k1, np.float32),
+        maps=line_maps(family),
         inv_sqrt2=INV_SQRT2_F32,
         two32=np.float32(2.0 ** 32),
         k32767=np.float32(32767.0),
@@ -139,8 +152,8 @@ def host_consts() -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def device_consts(device: str) -> dict:
-    """host_consts() as contiguous tensors on ``device`` (cached per
-    device; read-only by convention)."""
+def device_consts(device: str, family: int = 0) -> dict:
+    """host_consts(family) as contiguous tensors on ``device`` (cached
+    per device and family; read-only by convention)."""
     return {k: torch.from_numpy(v.copy()).to(device)
-            for k, v in host_consts().items()}
+            for k, v in host_consts(family).items()}

@@ -1,20 +1,22 @@
-"""Batched MPEG-1 Layer III DSP stages as plain PyTorch ops, in exact and
-fast form.
+"""Batched Layer III DSP stages as plain PyTorch ops, in exact and fast
+form, for MPEG-1 (family 0) and the LSF families (1 MPEG-2, 2 MPEG-2.5).
 
-Counterpart of ``pdmp3_tpu/ops/dsp.py`` for family 0 (MPEG-1) on the
-wire's line order (the host applies the short-block reorder while it
-packs ix).  Every stage takes tensors with leading axes ``[B, 2(ch)]``
-and handles the per-granule variety (block types, mixed blocks, stereo
-modes, count1 extents) with masks and index-map gathers
-(``consts.line_maps``), where the JAX package expands one-hot matrix
-products because its TPU gathers slowly.
+Counterpart of ``pdmp3_tpu/ops/dsp.py`` on the wire's line order (the
+host applies the family's short-block reorder while it packs ix).  Every
+stage takes tensors with leading axes ``[B, 2(ch)]`` and handles the
+per-granule variety (block types, mixed blocks, stereo modes, count1
+extents) with masks and index-map gathers (``consts.line_maps``), where
+the JAX package expands one-hot matrix products because its TPU gathers
+slowly.
 
 Both forms read |x|^(4/3) from the frozen table ``T.POW43`` (the
 correctly rounded value, which the JAX package's exact closed form is
 proven to equal).  They differ where the reference's arithmetic does:
 
-- exact: the sentinel-63 zero gain (q >= 100) and the band-12 gain from
-  the ``prev_lines`` float bits read through ``GAIN_QUARTER_TRUE``; the
+- exact: for family 0 the sentinel-63 zero gain (q >= 100) and the
+  band-12 gain from the ``prev_lines`` float bits read through
+  ``GAIN_QUARTER_TRUE`` (LSF has neither: its gains stay true through
+  q = 124); the
   three float64 rounding points of ``ops/rounding.py``; the IMDCT and
   the polyphase matrixing summed sequentially from the first product, in
   the order ``pallas_step._back_ch_sb(exact=True)`` uses (the short IMDCT
@@ -33,6 +35,7 @@ from types import SimpleNamespace
 
 import torch
 
+from .. import tables as T
 from .consts import (MAP_BAND_START, MAP_IOK, MAP_PRETAB, MAP_SFB12,
                      MAP_SFB_L, MAP_SFB_S, MAP_SFB_S_PLAIN, MAP_SHORT,
                      MAP_WIN, POW43_MAX, device_consts)
@@ -44,13 +47,15 @@ M_LAYOUT, M_BT, M_WSF, M_MIXED = 0, 2, 4, 6
 M_GG, M_SFS, M_PRE, M_C1 = 8, 10, 12, 14
 M_SBG, M_MS, M_IS, M_NCH = 16, 22, 23, 24
 M_SAMPLE_RATE = 25   # the int16 wire carries the rate / 25
+M_FAMILY, M_ISCALE = 26, 27   # LSF wire only (pdmp3_parse_step_wire16_lsf)
 
 _F32 = torch.float32
 
 
 def fields(meta: torch.Tensor) -> SimpleNamespace:
     """The side-info fields of int32 meta [B,32] as views: [B,2] per
-    channel, subblock_gain [B,2,3], [B] per slot."""
+    channel, subblock_gain [B,2,3], [B] per slot (family and iscale are
+    written by the LSF packer only)."""
     B = meta.shape[0]
 
     def ch(k):
@@ -60,12 +65,15 @@ def fields(meta: torch.Tensor) -> SimpleNamespace:
         mixed=ch(M_MIXED), global_gain=ch(M_GG), scalefac_scale=ch(M_SFS),
         preflag=ch(M_PRE), count1=ch(M_C1),
         subblock_gain=meta[:, M_SBG:M_SBG + 6].reshape(B, 2, 3),
-        ms_flag=meta[:, M_MS], is_flag=meta[:, M_IS], nch=meta[:, M_NCH])
+        ms_flag=meta[:, M_MS], is_flag=meta[:, M_IS], nch=meta[:, M_NCH],
+        family=meta[:, M_FAMILY], iscale=meta[:, M_ISCALE])
 
 
-def _maps(dev, row: int, layout: torch.Tensor) -> torch.Tensor:
-    """line_maps()[row] selected per element of layout: [..., 576]."""
-    return device_consts(str(dev))["maps"][row].long()[
+def _maps(dev, row: int, layout: torch.Tensor, family: int = 0
+          ) -> torch.Tensor:
+    """line_maps(family)[row] selected per element of layout:
+    [..., 576]."""
+    return device_consts(str(dev), family)["maps"][row].long()[
         layout.clamp(0, 8).long()]
 
 
@@ -88,7 +96,7 @@ def band12_scalefactors(prev_lines: torch.Tensor) -> torch.Tensor:
 
 def requantize(ix, scf_l, scf_s, layout, global_gain, scalefac_scale,
                preflag, subblock_gain, exact: bool, gr1: int = 0,
-               prev_lines=None):
+               prev_lines=None, family: int = 0):
     """Huffman integers to spectral floats (pdmp3.c:1829-1905, 2117-2152):
     (2^(-q/4) * 2^((gg-210-8*sbg)/4)) * sign(x)|x|^(4/3), in that
     association.
@@ -100,28 +108,31 @@ def requantize(ix, scf_l, scf_s, layout, global_gain, scalefac_scale,
     band12_scalefactors() of prev_lines; in exact form those lines take
     the true gain GAIN_QUARTER_TRUE[q] (+0.0 for q >= 640), which is
     subnormal for q in 504..599.  Exact form also gives the host's
-    sentinel-63 scalefactors (q >= 100) zero gain.  Returns f32
-    [B,2,576]."""
+    sentinel-63 scalefactors (q >= 100) zero gain.  family 1/2 (LSF)
+    reads its own band maps and has neither quirk: 5-bit intensity-
+    channel scalefactors reach q = 124 with their true gains, and every
+    LSF step is a granule-0 step.  Returns f32 [B,2,576]."""
     dev = ix.device
-    c = device_consts(str(dev))
+    c = device_consts(str(dev), family)
     B = ix.shape[0]
     one = torch.ones((), dtype=_F32, device=dev)
     ixi = ix.to(torch.int32)
     mag = ixi.abs().clamp(max=POW43_MAX).long()
     tmp3 = torch.where(ixi < 0, -one, one) * c["pow43"][mag]
     scfs = scf_s.reshape(B, 2, 39).to(torch.int32)
-    band12 = bool(gr1) and prev_lines is not None
+    band12 = bool(gr1) and prev_lines is not None and family == 0
     if band12:
         scf12 = band12_scalefactors(prev_lines)
         scfs = scfs.clone()
         scfs[:, 1, 36:39] = scf12
-    short = _maps(dev, MAP_SHORT, layout) == 1           # [B,2,576]
+    short = _maps(dev, MAP_SHORT, layout, family) == 1   # [B,2,576]
     scf_l_line = torch.gather(scf_l.to(torch.int32), 2,
-                              _maps(dev, MAP_SFB_L, layout))
-    pre = _maps(dev, MAP_PRETAB, layout) * preflag[..., None]
-    scf_s_line = torch.gather(scfs, 2, _maps(dev, MAP_SFB_S, layout))
+                              _maps(dev, MAP_SFB_L, layout, family))
+    pre = _maps(dev, MAP_PRETAB, layout, family) * preflag[..., None]
+    scf_s_line = torch.gather(scfs, 2,
+                              _maps(dev, MAP_SFB_S, layout, family))
     sbg_line = torch.gather(subblock_gain.to(torch.int32), 2,
-                            _maps(dev, MAP_WIN, layout))
+                            _maps(dev, MAP_WIN, layout, family))
     gg = global_gain[..., None].to(torch.int32)
     qpu = torch.bitwise_left_shift(torch.full_like(gg, 2),
                                    scalefac_scale[..., None])
@@ -135,7 +146,7 @@ def requantize(ix, scf_l, scf_s, layout, global_gain, scalefac_scale,
         return c["quarter_up"][(e & 3).long()] * _pow2i(e >> 2)
 
     tmp1_long, tmp1_short = down(q_long), down(q_short)
-    if exact:
+    if exact and family == 0:
         zero = torch.zeros((), dtype=_F32, device=dev)
         tmp1_long = torch.where(q_long >= 100, zero, tmp1_long)
         tmp1_short = torch.where(q_short >= 100, zero, tmp1_short)
@@ -155,25 +166,37 @@ def requantize(ix, scf_l, scf_s, layout, global_gain, scalefac_scale,
 
 
 def stereo(x, layout, scf_l, scf_s, count1, ms_flag, is_flag,
-           exact: bool, bug_compat: bool = True):
-    """Mid/side and intensity stereo, family 0 (pdmp3.c:1911-1972,
-    2154-2220).  MS butterflies the lines below min(count1); intensity
+           exact: bool, bug_compat: bool = True, family: int = 0,
+           is_pos=None, iscale=None):
+    """Mid/side and intensity stereo (pdmp3.c:1911-1972, 2154-2220).
+
+    Family 0: MS butterflies the lines below min(count1); intensity
     follows ch0's layout and scalefactors (a reference quirk: the spec
     puts the positions in the right channel's scalefactors), with the
     16-wide ratios of the reference's out-of-bounds reads.  bug_compat
     keeps the short-block unsigned-assign quirk (pdmp3.c:2212-2213).
 
+    Family 1/2 (LSF, 13818-3 §2.4.3.2; dsp.py:654-720 of the JAX
+    package): MS butterflies the full spectrum; intensity positions come
+    from ch1's sidecar is_pos int [B,64] ([0..21] long, [22..60] short
+    flat window-major, T.LSF_IS_ILLEGAL = no position) along ch0's layout,
+    and pan the RAW (pre-MS) ch0 line by the gain pair k0/k1 of the
+    slot's iscale [B] row.  bug_compat has no LSF meaning.
+
     x f32 [B,2,576]; layout/count1 [B,2]; scf_l [B,2,22]; scf_s [B,2,39]
     (or [B,2,13,3]); ms_flag/is_flag [B].  Returns f32 [B,2,576]."""
     dev = x.device
-    c = device_consts(str(dev))
+    c = device_consts(str(dev), family)
     B = x.shape[0]
     l, r = x[:, 0], x[:, 1]
     c0 = count1[:, 0].clamp(0, 576)
     c1r = count1[:, 1].clamp(0, 576)
     line = torch.arange(576, device=dev)
-    ms_mask = (ms_flag[:, None] != 0) & \
-        (line[None] < torch.minimum(c0, c1r)[:, None])
+    if family:
+        ms_mask = (ms_flag[:, None] != 0).expand(B, 576)
+    else:
+        ms_mask = (ms_flag[:, None] != 0) & \
+            (line[None] < torch.minimum(c0, c1r)[:, None])
     if exact:
         mid, side = ms_f64(l + r), ms_f64(l - r)
     else:
@@ -181,6 +204,9 @@ def stereo(x, layout, scf_l, scf_s, count1, ms_flag, is_flag,
     l2 = torch.where(ms_mask, mid, l)
     r2 = torch.where(ms_mask, side, r)
     lay0 = layout[:, 0]
+    if family:
+        return _lsf_intensity(l, l2, r2, lay0, c1r, is_flag, is_pos,
+                              iscale, family)
     short0 = _maps(dev, MAP_SHORT, lay0) == 1            # [B,576]
     scfs0 = scf_s.reshape(B, 2, 39)[:, 0].to(torch.int64)
     scfl0 = scf_l[:, 0].to(torch.int64)
@@ -204,6 +230,30 @@ def stereo(x, layout, scf_l, scf_s, count1, ms_flag, is_flag,
         int_r = torch.where(short0, u, int_r)
     return torch.stack([torch.where(imask, int_l, l2),
                         torch.where(imask, int_r, r2)], 1)
+
+
+def _lsf_intensity(l_raw, l2, r2, lay0, c1r, is_flag, is_pos, iscale,
+                   family: int):
+    """LSF intensity over the post-MS pair (l2, r2): lines of eligible
+    bands at or above ch1's count1 whose position is legal become
+    (k0 * l_raw, k1 * l_raw)."""
+    dev = l2.device
+    c = device_consts(str(dev), family)
+    ip = is_pos.to(torch.int64)                          # [B,64]
+    short0 = _maps(dev, MAP_SHORT, lay0, family) == 1    # [B,576]
+    pos = torch.where(
+        short0, torch.gather(ip, 1, 22 + _maps(dev, MAP_SFB_S_PLAIN, lay0,
+                                               family)),
+        torch.gather(ip, 1, _maps(dev, MAP_SFB_L, lay0, family)))
+    imask = ((is_flag[:, None] != 0)
+             & (_maps(dev, MAP_IOK, lay0, family) == 1)
+             & (_maps(dev, MAP_BAND_START, lay0, family) >= c1r[:, None])
+             & (pos != T.LSF_IS_ILLEGAL))
+    row = (iscale != 0).long()[:, None]                  # [B,1]
+    p = pos.clamp(0, 63)
+    k0, k1 = c["k0"][row, p], c["k1"][row, p]
+    return torch.stack([torch.where(imask, k0 * l_raw, l2),
+                        torch.where(imask, k1 * l_raw, r2)], 1)
 
 
 def antialias(x, win_switch, block_type, mixed):
@@ -330,13 +380,16 @@ def pack(q, nch, active):
 
 
 def front_half(ix, scf_l, scf_s, meta, gr1: int, prev_lines,
-               exact: bool, bug_compat: bool = True):
+               exact: bool, bug_compat: bool = True, family: int = 0,
+               is_pos=None):
     """requantize -> stereo -> antialias for one granule step from the
-    wire's operands (meta int32 [B,32]).  Returns xa f32 [B,2,32,18]."""
+    wire's operands (meta int32 [B,32]; for LSF families also the
+    sidecar is_pos [B,64], iscale from meta).  Returns xa f32
+    [B,2,32,18]."""
     f = fields(meta)
     x = requantize(ix, scf_l, scf_s, f.layout, f.global_gain,
                    f.scalefac_scale, f.preflag, f.subblock_gain, exact,
-                   gr1, prev_lines)
+                   gr1, prev_lines, family)
     x = stereo(x, f.layout, scf_l, scf_s, f.count1, f.ms_flag, f.is_flag,
-               exact, bug_compat)
+               exact, bug_compat, family, is_pos, f.iscale)
     return antialias(x, f.win_switch, f.block_type, f.mixed)

@@ -1,11 +1,13 @@
-"""One MPEG-1 Layer III granule step: requantize, stereo, antialias,
-hybrid synthesis, frequency inversion, polyphase synthesis and quantize,
-for B independent stream slots at once, in fast or exact precision.
+"""One Layer III granule step: requantize, stereo, antialias, hybrid
+synthesis, frequency inversion, polyphase synthesis and quantize, for B
+independent stream slots of one family at once, in fast or exact
+precision.
 
-Counterpart of ``pdmp3_tpu/ops/pallas_step.py``: the family-0 fast and
-fused exact branches of ``decode_granules_pallas`` (the operand glue,
-the band-12 scalefactor substitution and, in exact mode, the band-12
-true gains; the L|R pack and the ``prev_lines`` gating) together with
+Counterpart of ``pdmp3_tpu/ops/pallas_step.py``: the fast and fused
+exact branches of ``decode_granules_pallas`` (the operand glue; for
+family 0 the band-12 scalefactor substitution and, in exact mode, the
+band-12 true gains; for the LSF families 1 and 2 the intensity sidecar
+and iscale; the L|R pack and the ``prev_lines`` gating) together with
 the TPU kernel they launch, ``_kernel_full``.
 
 ``fused_granule_step`` has two implementations with one contract:
@@ -14,7 +16,8 @@ the TPU kernel they launch, ``_kernel_full``.
   ``ops/dsp.py`` composed; the reference the tests hold the kernels
   against, and the path for CPU tensors;
 - the hand-written CUDA kernels of ``csrc/fused_granule.cu``, launched
-  for CUDA tensors: K1 in fast mode, K2 in exact mode.  There is no
+  for CUDA tensors: for family 0 K1 in fast mode and K2 in exact mode,
+  for the LSF families K3 (its fast and exact instances).  There is no
   fallback between them: a CUDA tensor either runs a kernel or raises.
 
 Both read |x|^(4/3) from the frozen 8207-entry table ``T.POW43`` (the
@@ -38,24 +41,27 @@ import torch
 from . import dsp as D
 from .consts import device_consts
 
-# Launches of the CUDA kernels since the last reset, K1 (fast) and K2
-# (exact) apart (a run sets them to 0, drives the path, and reads them
+# Launches of the CUDA kernels since the last reset, each instance
+# apart: K1 (fast) and K2 (exact) for family 0, K3 fast and exact for the
+# LSF families (a run sets them to 0, drives the path, and reads them
 # back to prove the path used the kernel).
 LAUNCHES = 0
 LAUNCHES_EXACT = 0
+LAUNCHES_LSF = 0
+LAUNCHES_LSF_EXACT = 0
 
 _F32 = torch.float32
 
 # the kernels' table operands, in the order of csrc/granule.cuh Tables
 TABLES = ("pow43", "cos36", "c3", "imdct_win", "win2", "nwin", "synth_d",
           "cs", "ca", "ratio_l", "ratio_r", "quarter_down", "quarter_up",
-          "inv_sqrt2", "gain_quarter_true", "maps")
+          "inv_sqrt2", "gain_quarter_true", "maps", "k0", "k1")
 
 
-def table_ptrs(device) -> C.Array:
-    """Device pointers of the kernels' tables (device_consts), as the
-    pointer array the C entry points take."""
-    c = device_consts(str(device))
+def table_ptrs(device, family: int = 0) -> C.Array:
+    """Device pointers of the kernels' tables (device_consts of the
+    family), as the pointer array the C entry points take."""
+    c = device_consts(str(device), family)
     return (C.c_void_p * len(TABLES))(*[c[k].data_ptr() for k in TABLES])
 
 
@@ -80,7 +86,8 @@ def check_operands(device, *want) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check(ix, scf_l, scf_s, meta, active, gr1, state) -> int:
+def _check(ix, scf_l, scf_s, meta, active, gr1, state, family=0,
+           is_pos=None) -> int:
     """Validate the step's operands; returns B."""
     B = ix.shape[0]
     check_operands(ix.device, ("ix", ix, (B, 2, 576), torch.int16),
@@ -89,14 +96,21 @@ def _check(ix, scf_l, scf_s, meta, active, gr1, state) -> int:
                    ("meta", meta, (B, D.META_WORDS), torch.int32),
                    ("active", active, (B,), torch.int32))
     check_state(state, B, ix.device)
-    if gr1 not in (0, 1):
-        raise ValueError(f"gr1 must be 0 or 1, got {gr1!r}")
+    if family not in (0, 1, 2):
+        raise ValueError(f"family must be 0, 1 or 2, got {family!r}")
+    if gr1 not in (0, 1) or (family and gr1):
+        raise ValueError(f"gr1 must be 0 or 1 (0 for LSF), got {gr1!r}")
+    if family:
+        if is_pos is None:
+            raise ValueError("LSF steps need the is_pos sidecar")
+        check_operands(ix.device, ("is_pos", is_pos, (B, 64), torch.int16))
     return B
 
 
 def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
-                       bug_compat: bool = True, exact: bool = False):
-    """One granule step for B slots.
+                       bug_compat: bool = True, exact: bool = False,
+                       family: int = 0, is_pos=None):
+    """One granule step for B slots of one family.
 
     ix int16 [B,2,576] line-ordered spectra (the wire's short-block
     reorder already applied); scf_l int16 [B,2,22]; scf_s int16 [B,2,39];
@@ -105,16 +119,22 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
     granule 1 of its frame; state has store f32 [B,2,32,18], v_blocks f32
     [B,2,15,64] and prev_lines f32 [B,3], updated in place.
     bug_compat keeps the reference's short-block intensity quirk
-    (pdmp3.c:2212-2213); exact selects bit-exact precision.
+    (pdmp3.c:2212-2213); exact selects bit-exact precision.  family 1/2
+    (MPEG-2 / MPEG-2.5 LSF) selects the family's band maps and the LSF
+    stereo; it needs is_pos int16 [B,64], ch1's intensity positions
+    ([0..21] long, [22..60] short flat, 63 = illegal), and iscale in
+    meta word 27; every LSF step is a granule-0 step (gr1 = 0), which
+    latches prev_lines as the JAX package does.
 
     Returns (pcm int16 [B,576,2] interleaved L/R with mono duplicated,
     state).  CPU tensors take the plain PyTorch version; CUDA tensors
-    launch the kernel (K2 when exact, else K1)."""
-    global LAUNCHES, LAUNCHES_EXACT
-    B = _check(ix, scf_l, scf_s, meta, active, gr1, state)
+    launch the kernel (family 0: K2 when exact, else K1; LSF: K3)."""
+    global LAUNCHES, LAUNCHES_EXACT, LAUNCHES_LSF, LAUNCHES_LSF_EXACT
+    B = _check(ix, scf_l, scf_s, meta, active, gr1, state, family, is_pos)
     if ix.device.type == "cpu":
         return fused_granule_step_ref(ix, scf_l, scf_s, meta, active, gr1,
-                                      state, bug_compat, exact)
+                                      state, bug_compat, exact, family,
+                                      is_pos)
     if ix.device.type != "cuda":
         raise ValueError(f"no fused granule step for {ix.device}")
     from . import _build
@@ -123,17 +143,22 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
     pcm = torch.empty((B, 576, 2), dtype=torch.int16, device=ix.device)
     if B == 0:
         return pcm, state
-    ptr = [t.data_ptr() for t in (
-        ix, scf_l, scf_s, meta, active, state.store, state.v_blocks,
-        state.prev_lines, pcm)]
+    ptr = [None if t is None else t.data_ptr() for t in (
+        ix, scf_l, scf_s, meta, active, is_pos if family else None,
+        state.store, state.v_blocks, state.prev_lines, pcm)]
     stream = torch.cuda.current_stream(ix.device).cuda_stream
-    rc = lib.pdmp3_fused_granule(*ptr, table_ptrs(ix.device), B, int(gr1),
-                                 int(bool(bug_compat)), int(bool(exact)),
+    rc = lib.pdmp3_fused_granule(*ptr, table_ptrs(ix.device, family), B,
+                                 int(gr1), int(bool(bug_compat)),
+                                 int(bool(exact)), int(family != 0),
                                  C.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("fused_granule launch failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())
-    if exact:
+    if family and exact:
+        LAUNCHES_LSF_EXACT += 1
+    elif family:
+        LAUNCHES_LSF += 1
+    elif exact:
         LAUNCHES_EXACT += 1
     else:
         LAUNCHES += 1
@@ -142,7 +167,8 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
 
 def fused_granule_step_ref(ix, scf_l, scf_s, meta, active, gr1: int,
                            state, bug_compat: bool = True,
-                           exact: bool = False):
+                           exact: bool = False, family: int = 0,
+                           is_pos=None):
     """Plain batched PyTorch version of fused_granule_step (same
     arguments, same in-place state update): the stage ops of ops/dsp.py
     composed.  Every operation rounds in the order the kernels use, the
@@ -150,7 +176,7 @@ def fused_granule_step_ref(ix, scf_l, scf_s, meta, active, gr1: int,
     for bit on the card."""
     f = D.fields(meta)
     xa = D.front_half(ix, scf_l, scf_s, meta, gr1, state.prev_lines,
-                      exact, bug_compat)
+                      exact, bug_compat, family, is_pos)
     bt_eff = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
     x_time, new_store = D.hybrid_synthesis(xa, state.store, bt_eff, exact)
     x_time = D.freq_invert(x_time)

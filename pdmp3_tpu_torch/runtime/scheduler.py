@@ -1,13 +1,14 @@
 """Multi-stream serving over the native frontend and the PyTorch backend.
 
 Counterpart of ``pdmp3_tpu/runtime/scheduler.py`` (``LoopFeeder``,
-``StreamDecoder``) for the MPEG-1 path, in fast or exact precision.  N
-streams are pinned to slots; one native call parses a frame per slot
-into a packed int16 wire buffer, one upload moves it to the device, and
-two granule steps decode every slot in lockstep.  Starved, finished or
-malformed streams leave their slot inactive for the step: its state
-stays frozen and its PCM is silence, so one bad stream never perturbs
-its neighbours.
+``StreamDecoder``) for MPEG-1 pools and the per-family LSF pools
+(MPEG-2, MPEG-2.5), in fast or exact precision.  N streams are pinned to
+slots; one native call parses a frame per slot into a packed int16 wire
+buffer, one upload moves it to the device, and the frame's granule
+steps (two for MPEG-1, one for LSF) decode every slot in lockstep.
+Starved, finished or malformed streams leave their slot inactive for
+the step: its state stays frozen and its PCM is silence, so one bad
+stream never perturbs its neighbours.
 """
 from __future__ import annotations
 
@@ -16,8 +17,7 @@ import ctypes as C
 import numpy as np
 import torch
 
-from pdmp3_tpu.host import PROFILE_SPEC_INTENSITY, NativePDMP3, lib
-
+from ..host import PROFILE_LSF, PROFILE_SPEC_INTENSITY, NativePDMP3, lib
 from ..models import decoder as M
 from ..ops.dsp import M_NCH
 
@@ -48,9 +48,12 @@ class StreamDecoder:
     """N-slot batched decoder over the native frontend + PyTorch backend.
 
     device (required) selects where the DSP runs: CUDA launches the
-    hand-written granule kernel (K2 when exact, else K1), the CPU runs
-    its plain PyTorch version.  exact=True decodes bit-exact with the
-    reference decoder.  Options of the JAX StreamDecoder that this
+    hand-written granule kernel (MPEG-1: K2 when exact, else K1; LSF:
+    K3), the CPU runs its plain PyTorch version.  exact=True decodes
+    bit-exact with the reference decoder.  family 1 / 2 makes an MPEG-2 /
+    MPEG-2.5 LSF pool: the handles get PROFILE_LSF, the wire carries one
+    granule per frame plus the intensity sidecar, and decode_step
+    returns [B, 576, 2].  Options of the JAX StreamDecoder that this
     package does not implement yet raise NotImplementedError."""
 
     def __init__(self, n_slots: int, exact: bool = False,
@@ -58,8 +61,9 @@ class StreamDecoder:
                  frames_per_step: int = 1, profile: int = 0,
                  float_pcm: bool = False, family: int = 0,
                  resample_to: int | None = None, *, device):
+        if family not in (0, 1, 2):
+            raise ValueError(f"family must be 0, 1 or 2, got {family!r}")
         for name, unsupported in (
-                ("family != 0", family != 0),
                 ("float_pcm=True", float_pcm),
                 ("resample_to", resample_to is not None),
                 ("frames_per_step > 1", frames_per_step != 1)):
@@ -68,6 +72,9 @@ class StreamDecoder:
                     f"{name}: not ported to the PyTorch backend yet")
         self.n = n_slots
         self.exact = exact
+        self.family = family
+        if family:
+            profile |= PROFILE_LSF
         self.device = torch.device(device)
         # the native PROFILE_SPEC_INTENSITY flag selects spec intensity
         # stereo on the device too
@@ -80,7 +87,7 @@ class StreamDecoder:
                 h.set_profile(profile)
             h.open_feed()
         self.state = M.init_state(n_slots, self.device)
-        self._lay = M.soa_layout(n_slots)
+        self._lay = (M.soa_layout_lsf if family else M.soa_layout)(n_slots)
         # double-buffered wire: the upload of step t may still be in
         # flight while the host parses step t+1 into the other buffer.
         # On CUDA both buffers are pinned (the non_blocking upload is a
@@ -92,10 +99,15 @@ class StreamDecoder:
         self._uploaded = [None, None]
         self._cur = 0
         self._bind_views()
-        self._fn = lib().pdmp3_parse_step_wire16
-        self._fn.argtypes = [C.c_void_p, C.c_size_t, C.c_int, C.c_size_t,
-                             C.c_void_p, C.c_void_p, C.c_void_p, C.c_void_p,
-                             C.c_void_p]
+        # the wire's sections, in the packer's argument order
+        self._sections = ["ix", "scf_l", "scf_s", "meta", "active"]
+        if family:
+            self._sections.insert(4, "is_pos")
+            self._fn = lib().pdmp3_parse_step_wire16_lsf
+        else:
+            self._fn = lib().pdmp3_parse_step_wire16
+        self._fn.argtypes = ([C.c_void_p, C.c_size_t, C.c_int, C.c_size_t]
+                             + [C.c_void_p] * len(self._sections))
         self._handle_arr = (C.c_void_p * self.n)(
             *[h._h for h in self.handles])
 
@@ -103,7 +115,8 @@ class StreamDecoder:
         """numpy views of the current wire buffer, by section."""
         host = self._wires_t[self._cur]
         self.wire = host.numpy()
-        for name, t in M.wire_sections(host, self.n).items():
+        sections = M.wire_sections_lsf if self.family else M.wire_sections
+        for name, t in sections(host, self.n).items():
             setattr(self, name, t.numpy())
 
     def _reclaim(self):
@@ -128,19 +141,17 @@ class StreamDecoder:
         slots."""
         self._reclaim()
         return self._fn(self._handle_arr, self.n, self.parse_threads, 1,
-                        self.ix.ctypes.data_as(C.c_void_p),
-                        self.scf_l.ctypes.data_as(C.c_void_p),
-                        self.scf_s.ctypes.data_as(C.c_void_p),
-                        self.meta.ctypes.data_as(C.c_void_p),
-                        self.active.ctypes.data_as(C.c_void_p))
+                        *[getattr(self, name).ctypes.data_as(C.c_void_p)
+                          for name in self._sections])
 
     # ---- device side ----
 
     def decode_step(self, fetch: bool = True):
-        """Decode the parsed frame (two granule steps).  Returns
-        interleaved PCM int16 [B, 1152, 2], zeros for inactive slots, as
-        numpy, or as a device tensor with fetch=False (no host sync);
-        None when no slot was active."""
+        """Decode the parsed frame (two granule steps; one for LSF
+        pools).  Returns interleaved PCM int16 [B, 1152, 2] ([B, 576, 2]
+        for LSF pools), zeros for inactive slots, as numpy, or as a
+        device tensor with fetch=False (no host sync); None when no slot
+        was active."""
         if not self.active.any():
             return None
         host = self._wires_t[self._cur]
@@ -151,9 +162,14 @@ class StreamDecoder:
             self._uploaded[self._cur] = ev
         else:
             wire = host
-        pcm, self.state = M.decode_frame_packed(wire, self.state, B=self.n,
-                                                bug_compat=self.bug_compat,
-                                                exact=self.exact)
+        if self.family:
+            pcm, self.state = M.decode_frame_packed_lsf(
+                wire, self.state, B=self.n, family=self.family,
+                bug_compat=self.bug_compat, exact=self.exact)
+        else:
+            pcm, self.state = M.decode_frame_packed(
+                wire, self.state, B=self.n, bug_compat=self.bug_compat,
+                exact=self.exact)
         # swap to the other wire buffer for the next parse; carry this
         # step's active/meta over so post-decode queries keep working.
         # The other buffer's upload (the previous step's) may still be
@@ -167,7 +183,8 @@ class StreamDecoder:
         return pcm.cpu().numpy() if fetch else pcm
 
     def nch(self, slot: int) -> int:
-        return max(int(self.meta[0, slot, M_NCH]), 1)
+        meta = self.meta if self.family else self.meta[0]
+        return max(int(meta[slot, M_NCH]), 1)
 
     # ---- checkpoint/resume: host state blobs + device recurrent state,
     # in the canonical layout the JAX package also writes ----

@@ -110,9 +110,18 @@ def test_frame_to_batches_equals_native_wire():
 
 
 def test_frame_to_batches_rejects_other_families():
-    fd = copy.deepcopy(_frames_of(_stream("long"))[0])
-    fd.header.family = 1
+    """LSF frames are ported (tests/test_torch_lsf.py), but one batch
+    holds one family: a batch mixing MPEG-1 and LSF frames raises
+    ValueError; Layer I/II frames are not ported and raise
+    NotImplementedError."""
+    fd = _frames_of(_stream("long"))[0]
+    lsf = copy.deepcopy(fd)
+    lsf.header.family = 1
+    with pytest.raises(ValueError):
+        TM.frame_to_batches([fd, lsf])
+    l12 = copy.deepcopy(fd)
+    l12.sb_samples = np.zeros((2, 12, 32), np.float32)
     with pytest.raises(NotImplementedError):
-        TM.frame_to_batches([fd])
+        TM.frame_to_batches([l12])
     with pytest.raises(NotImplementedError):
-        TorchDSP(device="cpu").decode_frame(fd)
+        TorchDSP(device="cpu").decode_frame(l12)

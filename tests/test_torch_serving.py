@@ -229,7 +229,8 @@ def test_cuda_exact_serving_with_device_behind_host(corpus):
         _check_vs_native(data, _slot_pcm(gsteps, s), s == MONO, exact=True)
 
 
-@pytest.mark.parametrize("kw", [dict(family=1), dict(float_pcm=True),
+@pytest.mark.parametrize("kw", [dict(family=1, frames_per_step=2),
+                                dict(float_pcm=True),
                                 dict(resample_to=48000),
                                 dict(frames_per_step=2)])
 def test_unported_options_raise(kw):
@@ -239,13 +240,14 @@ def test_unported_options_raise(kw):
 
 def test_port_imports_no_jax():
     """One fast and one exact CPU step through the port, and an exact
-    decode_file through TorchDSP, in a fresh interpreter leave JAX out of
+    decode_file through TorchDSP on the port's own streaming API, in a
+    fresh interpreter leave JAX and the JAX package out of
     sys.modules."""
     code = (
         "import sys\n"
         "import pdmp3_tpu_torch as P\n"
-        "from pdmp3_tpu.api import decode_file\n"
-        "from pdmp3_tpu.testing import mp3gen\n"
+        "from pdmp3_tpu_torch.api import decode_file\n"
+        "from pdmp3_tpu_torch.testing import mp3gen\n"
         "s = mp3gen.make_stream(n_frames=3, seed=5)\n"
         "for exact in (False, True):\n"
         "    d = P.StreamDecoder(1, exact=exact, device='cpu')\n"
@@ -256,6 +258,8 @@ def test_port_imports_no_jax():
         "assert decode_file(s, dsp=P.TorchDSP(device='cpu'))\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules\n"
         "                                        if 'jax' in m)\n"
+        "assert not [m for m in sys.modules if m == 'pdmp3_tpu'\n"
+        "            or m.startswith('pdmp3_tpu.')]\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
