@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Layer III decoding through ``pdmp3_tpu_torch`` at B = 8192 stream slots,
-fast and exact, MPEG-1 and the LSF families MPEG-2 and MPEG-2.5, in
-twelve phases; any failure exits non-zero.  The kernels are built here
+fast and exact, MPEG-1 and the LSF families MPEG-2 and MPEG-2.5, one
+granule per launch and one frame per launch, dense and sparse wire, in
+fifteen phases; any failure exits non-zero.  The kernels are built here
 from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
 ``pdmp3_tpu_torch/host/src``.
 
@@ -44,13 +45,26 @@ from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
     within 1 LSB);
 12. the per-stream route on LSF: ``decode_file(s, lsf=True,
     dsp=TorchDSP(...))`` (K4) on 6 LSF streams, exact byte-equal to the
-    native decoder and fast within 1 LSB.
+    native decoder and fast within 1 LSB;
+14. K5, the frame kernel, against its plain version (the plain granule
+    step chained): phase 2's MPEG-1 frame (parities (0, 1), slots idle
+    in both granules or in the second only), a directed band-12 fixture
+    whose carry holds small subnormal bit patterns, and each LSF
+    family's frame taken twice (parities (0, 0)); bitwise, timed, and
+    timed against two K1 launches interleaved in the same run;
+15. frame-fused serving: phase 3 with ``models.decoder._FRAME_FUSED``
+    set, K5 once per frame step and no K1, its watched slots byte-equal
+    to phase 3's; the device replay of both routes interleaved;
+16. ``SparseStreamDecoder(8192, frames_per_step=2)``, frame-fused, with
+    the pipelined PCM drain (``decode_step_pipelined`` /
+    ``drain_pending``): the watched slots byte-equal to phase 3's, and
+    the sparse wire's bytes per step beside the dense wire's.
 
     python3 chip_smoke.py --profile
 
-adds a thirteenth phase: ``torch.profiler`` over fast MPEG-1 serving
-steps (device time by kernel and copy, and the device's busy share of
-the loop), then the serving loop at 1, 2, 4 and 8 parse threads.
+adds phase 13: ``torch.profiler`` over fast MPEG-1 serving steps
+(device time by kernel and copy, and the device's busy share of the
+loop), then the serving loop at 1, 2, 4 and 8 parse threads.
 
 The line before the last is the kernels' JSON record, each kernel with
 its time, its plain version's, and its bound (the least time the card
@@ -96,6 +110,7 @@ REPLACES = {"fused_granule": "pdmp3_tpu/ops/pallas_step.py:771",
             "fused_granule_lsf": "pdmp3_tpu/ops/pallas_step.py:771",
             "fused_granule_lsf_exact": "pdmp3_tpu/ops/pallas_step.py:771",
             "back_half": "pdmp3_tpu/ops/pallas_step.py:463",
+            "frame_fused": "pdmp3_tpu/ops/pallas_step.py:1067",
             "rounding_sweep": "tools/prove_on_tpu.py:88"}
 # the card's peak rates for the bounds (NVIDIA H100 SXM data sheet):
 # memory bytes/s, f32 and f64 operations/s outside the tensor cores
@@ -128,6 +143,14 @@ LSF_API_CONFIGS = {
     "m2-mono": dict(family=1, blocks="long", mode=3),
 }
 SWEEP_TIMED = 9      # chunk launches timed for K6's ms / plain_ms
+# phase 14: a slot idle only in the frame's second granule, and the small
+# subnormal bit patterns of the directed band-12 carry
+IDLE_SECOND = 9
+CARRY_BITS = (1, 40)
+# phase 16: frames per step, and steps (with the warm-up) covering phase
+# 3's frames
+SPARSE_F = 2
+SPARSE_STEPS = (WARMUP_STEPS + TIMED_STEPS) // SPARSE_F
 
 
 def check(cond: bool, msg: str) -> None:
@@ -138,6 +161,7 @@ def check(cond: bool, msg: str) -> None:
 def _counters() -> dict:
     """kernel name -> (module, attribute) of its wrapper's launch count."""
     from pdmp3_tpu_torch.ops import back_half as BH
+    from pdmp3_tpu_torch.ops import frame_step as FR
     from pdmp3_tpu_torch.ops import fused_step as FS
     from pdmp3_tpu_torch.ops import rounding as R
     return {"fused_granule": (FS, "LAUNCHES"),
@@ -145,7 +169,9 @@ def _counters() -> dict:
             "fused_granule_lsf": (FS, "LAUNCHES_LSF"),
             "fused_granule_lsf_exact": (FS, "LAUNCHES_LSF_EXACT"),
             "back_half": (BH, "LAUNCHES"),
-            "rounding_sweep": (R, "LAUNCHES")}
+            "rounding_sweep": (R, "LAUNCHES"),
+            "frame_fused": (FR, "LAUNCHES_FRAME"),
+            "frame_fused_lsf": (FR, "LAUNCHES_FRAME_LSF")}
 
 
 def reset_launch_counts() -> None:
@@ -231,13 +257,37 @@ def granule_bound(n_slots: int, n_active: int, lsf: bool = False) -> dict:
     terms (63 each), the 16-tap FIR of 576 samples (32 each), the
     antialias butterflies (8 x 31 x 6), requantize (3 per line), stereo
     (4 per line) and the x32767 quantize."""
-    per_active = (2304 + 2 * 22 * 2 + 2 * 39 * 2 + 32 * 4
-                  + (128 if lsf else 0) + 2 * (4608 + 7680 + 12))
+    per_active = granule_wire_bytes(lsf) + STATE_BYTES
     nbytes = n_slots * (4 + 2304) + n_active * per_active
-    per_ch = (32 * 36 * 35 + 32 * 36 + 576 + 576 + 18 * 64 * 63
-              + 576 * 32 + 8 * 31 * 6 + 576 * 3 + 576 * 4 + 576)
-    ops = n_active * 2 * per_ch
-    return bound(nbytes, ops)
+    return bound(nbytes, n_active * 2 * GRANULE_OPS_PER_CH)
+
+
+# store, v and prev_lines of one slot, read and written
+STATE_BYTES = 2 * (4608 + 7680 + 12)
+# f32 operations of one granule step per active slot and channel
+GRANULE_OPS_PER_CH = (32 * 36 * 35 + 32 * 36 + 576 + 576 + 18 * 64 * 63
+                      + 576 * 32 + 8 * 31 * 6 + 576 * 3 + 576 * 4 + 576)
+
+
+def granule_wire_bytes(lsf: bool = False) -> int:
+    """Wire bytes one active slot reads per granule: ix, scalefactors
+    and meta, and the LSF sidecar."""
+    return 2304 + 2 * 22 * 2 + 2 * 39 * 2 + 32 * 4 + (128 if lsf else 0)
+
+
+def frame_bound(active: torch.Tensor, lsf: bool = False) -> dict:
+    """K5's bound for one launch over ng granules (active int32 [ng,
+    B]), as granule_bound, but store, v and prev_lines cross the granules
+    on chip: a slot active in any granule reads and writes them once per
+    launch.  Per granule and slot the active flag and the PCM; per active
+    granule-slot the wire and the operations.  For ng = 2 and every slot
+    active, 34.6 KB per slot where two granule steps move 59.2 KB."""
+    ng, n_slots = active.shape
+    granules = int((active != 0).sum())
+    slots = int((active != 0).any(0).sum())
+    nbytes = (ng * n_slots * (4 + 2304) + granules * granule_wire_bytes(lsf)
+              + slots * STATE_BYTES)
+    return bound(nbytes, granules * 2 * GRANULE_OPS_PER_CH)
 
 
 def back_half_bound(n_slots: int, n_active: int) -> dict:
@@ -308,9 +358,8 @@ def parsed_frame(streams: list[bytes], dev, family: int = 0) -> dict:
     wire = torch.from_numpy(dec.wire.copy()).to(dev)
     del dec
     if family:
-        w = wire_sections_lsf(wire, B)
-        w = {k: v if k in ("active", "is_pos") else v[None]
-             for k, v in w.items()}
+        w = wire_sections_lsf(wire, B)   # [1, B, ...]: one frame
+        w["is_pos"] = w["is_pos"][0]
     else:
         w = wire_sections(wire, B)
     active = w["active"].to(torch.int32)
@@ -345,6 +394,13 @@ def compare_steps(fr: dict, step_k, step_r, phase: str, grs=(0, 1),
 
     pk, sk = run(step_k, clone_state(st0))
     pr, sr = run(step_r, clone_state(st0))
+    return bitwise_report(pk, sk, pr, sr, st0, phase)
+
+
+def bitwise_report(pk, sk, pr, sr, st0, phase: str) -> dict:
+    """A kernel's PCM and state (pk, sk) against its plain version's (pr,
+    sr), both run from st0: require them bitwise equal, the INACTIVE
+    slots silent and frozen, and slot 0 audible."""
     torch.cuda.synchronize()
     lsb, frac = pcm_error(pk, pr)
     res = {"tolerance": "bitwise (PCM, store, v, prev_lines); reported: "
@@ -426,6 +482,113 @@ def phase_band12_subnormal(fr: dict, step_k, step_r) -> dict:
     res["slots_with_subnormal_band12_gain"] = int(hit.sum())
     check(res["slots_with_subnormal_band12_gain"] > 0,
           "phase 5: no slot reached a subnormal band-12 gain")
+    return res
+
+
+def frame_operands(fr: dict, family: int = 0) -> tuple:
+    """K5's operands and parities from a parsed frame: MPEG-1's two
+    granules as the wire holds them (parities (0, 1)), an LSF frame's one
+    granule taken twice (parities (0, 0)); active [2, B] with the
+    INACTIVE slots idle in both granules and IDLE_SECOND in the second."""
+    if family:
+        ops = [torch.cat([fr[k], fr[k]]) for k in ("ix", "scf_l", "scf_s",
+                                                    "meta")]
+        lsf = dict(family=family, is_pos=torch.stack([fr["is_pos"]] * 2))
+        parities = (0, 0)
+    else:
+        ops = [fr[k] for k in ("ix", "scf_l", "scf_s")] + [
+            fr["meta"].contiguous()]
+        lsf, parities = {}, (0, 1)
+    active = torch.stack([fr["active"]] * 2)
+    active[1, IDLE_SECOND] = 0
+    return ops + [active], parities, lsf
+
+
+def compare_frame(ops, parities, lsf, st0, phase: str) -> dict:
+    """K5 against frame_step_ref from st0: bitwise, idle slots frozen; the
+    slot idle in the second granule silent there only."""
+    from pdmp3_tpu_torch.ops import frame_step as FR
+
+    pk, sk = FR.frame_step(*ops, parities, clone_state(st0), **lsf)
+    pr, sr = FR.frame_step_ref(*ops, parities, clone_state(st0), **lsf)
+    res = bitwise_report(pk, sk, pr, sr, st0, phase)
+    check(bool(pk[IDLE_SECOND, :576].any())
+          and not bool(pk[IDLE_SECOND, 576:].any()),
+          f"{phase}: slot {IDLE_SECOND} idle in granule 1 only")
+    return res
+
+
+def phase_frame_kernel(fr: dict, family: int = 0) -> dict:
+    """Phase 14: K5 vs its plain version on one parsed frame, bitwise
+    (MPEG-1 also on the directed band-12 fixture), both timed per launch;
+    for MPEG-1 also two K1 launches on the same granules, interleaved
+    with K5's in one loop."""
+    from pdmp3_tpu_torch.ops import frame_step as FR
+    from pdmp3_tpu_torch.ops import fused_step as FS
+
+    phase = f"phase 14 family {family}"
+    ops, parities, lsf = frame_operands(fr, family)
+    res = compare_frame(ops, parities, lsf, fr["st0"], phase)
+    if not family:
+        res["band12_carry"] = phase_band12_carry(ops, fr["st0"])
+    sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
+    res["kernel_ms"] = median_ms(
+        lambda: FR.frame_step(*ops, parities, sk, **lsf), TIMED_LAUNCHES)
+    res["plain_ms"] = median_ms(
+        lambda: FR.frame_step_ref(*ops, parities, sr, **lsf),
+        TIMED_LAUNCHES // 5)
+    res.update(frame_bound(ops[4], lsf=family != 0))
+    if family:
+        return res
+    s5, s1 = clone_state(fr["st0"]), clone_state(fr["st0"])
+
+    def two_k1():
+        for g in (0, 1):
+            FS.fused_granule_step(*(o[g] for o in ops), g, s1)
+    k5, k1 = [], []
+    for _ in range(TIMED_LAUNCHES):
+        k5.append(median_ms(lambda: FR.frame_step(*ops, parities, s5), 1))
+        k1.append(median_ms(two_k1, 1))
+    res["ab_interleaved"] = {
+        "launches_each": TIMED_LAUNCHES,
+        "k5_ms": float(np.median(k5)), "two_k1_ms": float(np.median(k1)),
+        "k5_over_two_k1": float(np.median(k5) / np.median(k1)),
+        "two_k1_bound_ms": 2 * granule_bound(
+            B, int((ops[4][0] != 0).sum()))["bound_ms"]}
+    return res
+
+
+def phase_band12_carry(ops: list, st0) -> dict:
+    """The directed band-12 fixture: granule 0's ch0 lines of subbands 0
+    and 1 zeroed, so its x_time[0:3] of (ch0, subband 0) is the starting
+    store, seeded with the small subnormal bit patterns CARRY_BITS; every
+    ch1 line of granule 1 coded.  K5 latches the carry in granule 0 and
+    reads it as ch1's band-12 scalefactors in granule 1 (small enough to
+    give audible gains on short blocks): bitwise vs the plain chain, and
+    prev_lines after the frame holds the seeded bits."""
+    from pdmp3_tpu_torch.ops import dsp as D
+
+    lo, hi = CARRY_BITS
+    dev = ops[0].device
+    bits = (lo + torch.arange(B * 3, device=dev) % (hi - lo)).to(torch.int32)
+    st = clone_state(st0)
+    st.store[:, 0, 0, 0:3] = bits.view(torch.float32).reshape(B, 3)
+    ix = ops[0].clone()
+    ix[0, :, :, 0:36] = 0
+    ix[1, :, 1] = (torch.arange(576, device=dev) % 7 - 3).to(torch.int16)
+    fops = [ix] + ops[1:]
+    res = compare_frame(fops, (0, 1), {}, st, "phase 14 band-12 carry")
+    from pdmp3_tpu_torch.ops import frame_step as FR
+    _, sk = FR.frame_step(*fops, (0, 1), clone_state(st))
+    both = (ops[4] != 0).all(0)
+    latched = sk.prev_lines.view(torch.int32)[both]
+    check(torch.equal(latched, bits.reshape(B, 3)[both]),
+          "phase 14: the latched carry is not the seeded bits")
+    f = D.fields(ops[3][1])
+    hit = (f.layout[:, 1] % 3 != 0) & both
+    res["slots_reading_subnormal_carry_on_short_ch1"] = int(hit.sum())
+    check(res["slots_reading_subnormal_carry_on_short_ch1"] > 0,
+          "phase 14: no short ch1 granule read the carry")
     return res
 
 
@@ -553,20 +716,39 @@ def phase_sweep(dev) -> dict:
     return res
 
 
+def frame_fused_route(on: bool) -> None:
+    """Set the frame-fused opt-in (models.decoder._FRAME_FUSED)."""
+    from pdmp3_tpu_torch.models import decoder as M
+    M._FRAME_FUSED = on
+
+
 def phase_main_path(streams: list[bytes], dev, watch: list[int],
                     exact: bool = False, family: int = 0,
-                    rates: list[int] | None = None) -> dict:
+                    rates: list[int] | None = None,
+                    frame_fused: bool = False) -> dict:
     """StreamDecoder serving at B slots: MPEG-1 fast (K1) or exact (K2),
-    or an LSF pool of `family` (K3); returns timings, with an exact_
-    prefix when exact and lsf{family}_ for an LSF pool, and the PCM of
-    the watched slots.  rates: each source stream's sample rate (the
-    LSF realtime factor's basis)."""
+    or an LSF pool of `family` (K3), or with frame_fused MPEG-1 fast with
+    the frame-fused opt-in set (K5); returns timings, with an exact_
+    prefix when exact, lsf{family}_ for an LSF pool and ff_ when frame
+    fused, and the PCM of the watched slots.  rates: each source
+    stream's sample rate (the LSF realtime factor's basis)."""
+    frame_fused_route(frame_fused)
+    try:
+        return _main_path(streams, dev, watch, exact, family, rates,
+                          frame_fused)
+    finally:
+        frame_fused_route(False)
+
+
+def _main_path(streams, dev, watch, exact, family, rates, frame_fused):
     from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
 
-    path = f"main path (family={family}, exact={exact})"
-    kernel = ("fused_granule" + ("_lsf" if family else "")
-              + ("_exact" if exact else ""))
+    path = (f"main path (family={family}, exact={exact}, "
+            f"frame_fused={frame_fused})")
+    kernel = ("frame_fused" if frame_fused else "fused_granule"
+              + ("_lsf" if family else "") + ("_exact" if exact else ""))
     ngr = 1 if family else 2
+    per_frame = 1 if frame_fused else ngr
     dec = StreamDecoder(B, exact=exact, family=family, device=dev)
     feeder = LoopFeeder(dec, streams)
     sel = torch.tensor(watch, device=dev)
@@ -594,7 +776,7 @@ def phase_main_path(streams: list[bytes], dev, watch: list[int],
     torch.cuda.synchronize()
     loop_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
     launches = launch_counts(path, kernel)
-    check(launches == ngr * decoded,
+    check(launches == per_frame * decoded,
           f"{path}: {launches} {kernel} launches for {decoded} frame steps")
 
     # the device half alone, replayed on the last uploaded wire
@@ -622,7 +804,8 @@ def phase_main_path(streams: list[bytes], dev, watch: list[int],
     check(pcm.shape == (len(watch), decoded * 576 * ngr, 2)
           and pcm.dtype == np.int16, f"{path}: PCM {pcm.shape}")
     check(bool(pcm.any(axis=(1, 2)).all()), f"{path}: a slot is silent")
-    pre = ("exact_" if exact else "") + (f"lsf{family}_" if family else "")
+    pre = (("exact_" if exact else "") + (f"lsf{family}_" if family else "")
+           + ("ff_" if frame_fused else ""))
     return {f"{pre}{k}" if k not in ("batch_slots", "steps", "_pcm")
             else k: v for k, v in {
         "batch_slots": B,
@@ -643,6 +826,88 @@ def phase_main_path(streams: list[bytes], dev, watch: list[int],
         "frame_steps": decoded,
         "_pcm": pcm,
     }.items()}
+
+
+def replay_ab(streams: list[bytes], dev) -> dict:
+    """Phase 15's device A/B: one parsed frame of wire replayed through
+    decode_frame_packed on the per-granule route (two K1) and the
+    frame-fused one (K5), alternating call by call."""
+    from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
+    from pdmp3_tpu_torch.models.decoder import decode_frame_packed
+
+    dec = StreamDecoder(B, device=dev)
+    LoopFeeder(dec, streams).step()
+    check(dec.parse_step() == B, "phase 15: not every slot parsed a frame")
+    wire = torch.from_numpy(dec.wire.copy()).to(dev)
+    state = clone_state(dec.state)
+    del dec
+    times = {False: [], True: []}
+    try:
+        for _ in range(TIMED_STEPS):
+            for ff in (False, True):
+                frame_fused_route(ff)
+                times[ff].append(median_ms(
+                    lambda: decode_frame_packed(wire, state, B=B), 1))
+    finally:
+        frame_fused_route(False)
+    per, ff = float(np.median(times[False])), float(np.median(times[True]))
+    return {"calls_each": TIMED_STEPS, "per_granule_replay_ms": per,
+            "frame_fused_replay_ms": ff, "frame_fused_over_per_granule":
+            ff / per}
+
+
+def phase_sparse(streams: list[bytes], dev, watch: list[int],
+                 dense_pcm: np.ndarray) -> dict:
+    """Phase 16: SparseStreamDecoder with SPARSE_F frames per step on the
+    frame-fused route, drained by decode_step_pipelined (each call
+    returns the previous step's PCM; drain_pending the last), over
+    SPARSE_STEPS steps: the frames of phase 3.  K5 launches once per
+    frame; the watched slots' PCM is byte-equal to phase 3's."""
+    from pdmp3_tpu_torch import LoopFeeder, SparseStreamDecoder
+    from pdmp3_tpu_torch.models.decoder import soa_layout
+
+    path = "phase 16 sparse frame-fused pipelined"
+    dec = SparseStreamDecoder(B, frames_per_step=SPARSE_F, device=dev)
+    feeder = LoopFeeder(dec, streams)
+    kept, wire_bytes, loop_s = [], [], []
+    frame_fused_route(True)
+    reset_launch_counts()
+    try:
+        for step in range(SPARSE_STEPS):
+            t0 = time.perf_counter()
+            feeder.step()
+            check(dec.parse_step() == B * SPARSE_F,
+                  f"{path}: step {step} left a slot-frame idle")
+            wire_bytes.append(dec.wire_bytes())
+            out = dec.decode_step_pipelined()
+            if out is not None:
+                kept.append(out[watch])
+            loop_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        kept.append(dec.drain_pending()[watch])
+        drain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        frame_fused_route(False)
+    check(dec.drain_pending() is None, f"{path}: a second drain")
+    launches = launch_counts(path, "frame_fused")
+    check(launches == SPARSE_F * SPARSE_STEPS,
+          f"{path}: {launches} K5 launches for {SPARSE_STEPS} steps")
+    pcm = np.concatenate(kept, 1)
+    check(pcm.shape == dense_pcm.shape, f"{path}: PCM {pcm.shape} vs "
+                                        f"{dense_pcm.shape}")
+    check(np.array_equal(pcm, dense_pcm),
+          f"{path}: watched PCM differs from the dense route's")
+    dense = 2 * soa_layout(B, SPARSE_F)["total"]
+    timed = loop_s[WARMUP_STEPS:]
+    return {"batch_slots": B, "frames_per_step": SPARSE_F,
+            "steps": SPARSE_STEPS, "k5_launches": launches,
+            "loop_ms_per_step": float(np.median(timed)) * 1e3,
+            "loop_ms_per_frame": float(np.median(timed)) * 1e3 / SPARSE_F,
+            "final_drain_ms": drain_ms,
+            "sparse_wire_bytes_per_step": float(np.mean(wire_bytes)),
+            "dense_wire_bytes_per_step": dense,
+            "sparse_over_dense_wire": float(np.mean(wire_bytes)) / dense,
+            "watched_byte_equal_to_phase_3": True}
 
 
 def phase_profile(streams: list[bytes], dev) -> dict:
@@ -842,6 +1107,8 @@ def main() -> int:
 
     k4 = phase_back_half(fr)
     print("phase 7 K4 vs plain, fused vs split:", json.dumps(k4))
+    k5 = {0: phase_frame_kernel(fr)}
+    print("phase 14 K5 MPEG-1 vs plain, vs two K1:", json.dumps(k5[0]))
     del fr
 
     api = phase_api(dev)
@@ -864,6 +1131,9 @@ def main() -> int:
             k3[(family, exact)] = r
             print(f"phase 10 K3 family {family} exact={exact} vs plain:",
                   json.dumps(r))
+        k5[family] = phase_frame_kernel(lfr, family)
+        print(f"phase 14 K5 family {family} vs plain:",
+              json.dumps(k5[family]))
         del lfr
         lwatch = watched_slots(lspecs)
         rates = [int(T.SAMPLE_RATES_FAM[family][sp["sfreq"]])
@@ -878,6 +1148,16 @@ def main() -> int:
                   json.dumps(slots))
     api_lsf = phase_api(dev, lsf=True)
     print("phase 12 TorchDSP decode_file on LSF:", json.dumps(api_lsf))
+    mf = phase_main_path(streams, dev, watch, frame_fused=True)
+    check(np.array_equal(mf.pop("_pcm"), m["_pcm"]),
+          "phase 15: frame-fused PCM differs from phase 3's")
+    mf["ff_over_per_granule_step_ms"] = mf["ff_step_ms"] / m["step_ms"]
+    mf["ff_over_per_granule_loop_ms"] = (mf["ff_loop_ms_per_step"]
+                                         / m["loop_ms_per_step"])
+    mf["replay_ab_interleaved"] = replay_ab(streams, dev)
+    print("phase 15 frame-fused serving:", json.dumps(mf))
+    sp = phase_sparse(streams, dev, watch, m["_pcm"])
+    print("phase 16 sparse frame-fused pipelined serving:", json.dumps(sp))
     if args.profile:
         print("phase 13 profile:", json.dumps(phase_profile(streams, dev)))
     check("jax" not in sys.modules, "JAX was imported")
@@ -925,6 +1205,16 @@ def main() -> int:
               sum(k6["plain_ms"].values()),
               sweep_bound(k6["chunk_inputs"], len(k6["kernel_ms"])),
               sweep_seconds=k6["seconds"]),
+        entry("frame_fused", "frame_fused.cu",
+              mf["ff_kernel_launches"] + sp["k5_launches"],
+              max(r["pcm_max_lsb"] for r in k5.values()),
+              k5[0]["kernel_ms"], k5[0]["plain_ms"], k5[0],
+              ng=2, launches_by_family={0: mf["ff_kernel_launches"]
+                                        + sp["k5_launches"], 1: 0, 2: 0},
+              ms_by_family={f: r["kernel_ms"] for f, r in k5.items()},
+              plain_ms_by_family={f: r["plain_ms"] for f, r in k5.items()},
+              two_k1_ms=k5[0]["ab_interleaved"]["two_k1_ms"],
+              k5_over_two_k1=k5[0]["ab_interleaved"]["k5_over_two_k1"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,10 @@ port's streaming API (``pdmp3_tpu_torch.api.decode_file``).  It imports
 neither JAX nor the JAX package.
 """
 from .models.decoder import TorchDSP, decode_granules, init_state
+from .ops.frame_step import frame_step
 from .ops.fused_step import fused_granule_step
-from .runtime.scheduler import LoopFeeder, StreamDecoder
+from .runtime.scheduler import LoopFeeder, SparseStreamDecoder, StreamDecoder
 
-__all__ = ["LoopFeeder", "StreamDecoder", "TorchDSP", "decode_granules",
-           "fused_granule_step", "init_state"]
+__all__ = ["LoopFeeder", "SparseStreamDecoder", "StreamDecoder", "TorchDSP",
+           "decode_granules", "frame_step", "fused_granule_step",
+           "init_state"]

@@ -4,13 +4,16 @@ Counterpart of ``pdmp3_tpu/models/decoder.py`` for MPEG-1 (family 0) and
 the LSF families (1 MPEG-2, 2 MPEG-2.5), in fast and exact precision.
 Two routes:
 
-- serving: one frame step decodes one frame per slot from the native
-  frontend's packed int16 wire with the fused granule step
+- serving: one step decodes F frames per slot from the native
+  frontend's packed int16 wire, dense (``decode_frame_packed``,
+  ``decode_frame_packed_lsf``) or sparse (``decode_frame_sparse``,
+  ``decode_frame_lsf_sparse``: count1-bounded 128-line blocks that the
+  device re-densifies), with the fused granule step
   (``ops.fused_step.fused_granule_step``): an MPEG-1 frame as two
-  granule steps (K1 fast, K2 exact on CUDA; ``decode_frame_packed``),
-  an LSF frame as one (K3 on CUDA; ``decode_frame_packed_lsf``, whose
-  wire has no granule axis and one more section, the intensity
-  sidecar);
+  granule steps (K1 fast, K2 exact on CUDA), or, fast and with
+  ``_FRAME_FUSED`` set, as one frame step (``ops.frame_step``, K5 on
+  CUDA); an LSF frame as one granule step (K3 on CUDA), whose wire has
+  no granule axis and one more section, the intensity sidecar;
 - per stream: ``TorchDSP`` plugs into the port's streaming API
   (``pdmp3_tpu_torch.api``) and decodes parsed ``FrameData`` of either
   kind through ``frame_to_batches`` and ``decode_granules``, the split
@@ -25,6 +28,7 @@ slot contiguously, and checkpoints need no conversion.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,7 +38,12 @@ from .. import tables as T
 from ..ops import dsp as D
 from ..ops.back_half import split_granule_step
 from ..ops.dsp import META_WORDS
+from ..ops.frame_step import frame_step
 from ..ops.fused_step import fused_granule_step
+
+# The frame-fused opt-in, the JAX package's own: read once at import from
+# PDMP3_FRAME_FUSED; set the module attribute to change it in a process.
+_FRAME_FUSED = os.environ.get("PDMP3_FRAME_FUSED") == "1"
 
 
 @dataclass
@@ -193,8 +202,16 @@ def decode_frame_soa(ix2, scf_l2, scf_s2, meta2, active, state,
                      bug_compat: bool = True, exact: bool = False):
     """Decode one frame per slot (two granule steps) from the wire's
     section tensors: ix2 int16 [2,B,2,576], scf_l2 int16 [2,B,2,22],
-    scf_s2 int16 [2,B,2,39], meta2 [2,B,32], active [B].
+    scf_s2 int16 [2,B,2,39], meta2 [2,B,32], active [B].  Fast frames
+    run as one frame step (K5 on CUDA) when ``_FRAME_FUSED`` is set,
+    every other frame as two granule steps (K1 / K2 on CUDA).
     Returns (pcm int16 [B,1152,2], state updated in place)."""
+    if _FRAME_FUSED and not exact:
+        act = active.to(torch.int32)
+        return frame_step(ix2, scf_l2, scf_s2,
+                          meta2.to(torch.int32).contiguous(),
+                          torch.stack([act, act]), (0, 1), state,
+                          bug_compat)
     pcms = []
     for gr in range(2):
         b = _batch_from_meta(ix2[gr], scf_l2[gr], scf_s2[gr], meta2[gr],
@@ -227,6 +244,16 @@ def _section_views(buf, off: dict, shapes: dict) -> dict:
             for name, shape in shapes.items()}
 
 
+def _active_shape(B: int, F: int) -> tuple:
+    # [B] for the one-frame wire, [F,B] for F frames (the JAX package's
+    # convention for the active section)
+    return (B,) if F == 1 else (F, B)
+
+
+def _join(pcms: list):
+    return pcms[0] if len(pcms) == 1 else torch.cat(pcms, 1)
+
+
 def soa_layout(B: int, F: int = 1) -> dict:
     """Element offsets (int16 units) of the packed single-buffer wire
     covering F frames per slot (the native pdmp3_parse_step_wire16
@@ -237,22 +264,37 @@ def soa_layout(B: int, F: int = 1) -> dict:
         ("active", F * B)])
 
 
-def wire_sections(buf, B: int) -> dict:
-    """Views of the packed one-frame wire (int16 [soa_layout(B)['total']])
-    by section: ix [2,B,2,576], scf_l [2,B,2,22], scf_s [2,B,2,39],
-    meta [2,B,32], active [B] (leading axis: granule)."""
-    return _section_views(buf, soa_layout(B), dict(
-        ix=(2, B, 2, 576), scf_l=(2, B, 2, 22), scf_s=(2, B, 2, 39),
-        meta=(2, B, META_WORDS), active=(B,)))
+def wire_sections(buf, B: int, F: int = 1) -> dict:
+    """Views of the packed F-frame wire (int16 [soa_layout(B, F)
+    ['total']]) by section: ix [F*2,B,2,576], scf_l [F*2,B,2,22], scf_s
+    [F*2,B,2,39], meta [F*2,B,32] (leading axis: frame-major granule),
+    active [B] for F = 1, else [F,B]."""
+    return _section_views(buf, soa_layout(B, F), dict(
+        ix=(F * 2, B, 2, 576), scf_l=(F * 2, B, 2, 22),
+        scf_s=(F * 2, B, 2, 39), meta=(F * 2, B, META_WORDS),
+        active=_active_shape(B, F)))
 
 
-def decode_frame_packed(buf, state, B: int, bug_compat: bool = True,
-                        exact: bool = False):
-    """decode_frame_soa over the packed one-frame wire, on the decode
-    device.  Returns (pcm int16 [B,1152,2], state updated in place)."""
-    w = wire_sections(buf, B)
-    return decode_frame_soa(w["ix"], w["scf_l"], w["scf_s"], w["meta"],
-                            w["active"], state, bug_compat, exact)
+def _decode_frames(w: dict, state, F: int, bug_compat: bool, exact: bool):
+    """decode_frame_soa over the F frames of MPEG-1 wire sections."""
+    active = w["active"].view(F, -1)
+    pcms = []
+    for f in range(F):
+        g = slice(2 * f, 2 * f + 2)
+        pcm, state = decode_frame_soa(w["ix"][g], w["scf_l"][g],
+                                      w["scf_s"][g], w["meta"][g],
+                                      active[f], state, bug_compat, exact)
+        pcms.append(pcm)
+    return _join(pcms), state
+
+
+def decode_frame_packed(buf, state, B: int, F: int = 1,
+                        bug_compat: bool = True, exact: bool = False):
+    """decode_frame_soa over the packed F-frame wire, on the decode
+    device.  Returns (pcm int16 [B, F*1152, 2], state updated in
+    place)."""
+    return _decode_frames(wire_sections(buf, B, F), state, F, bug_compat,
+                          exact)
 
 
 # ---------------------------------------------------------------------------
@@ -272,38 +314,164 @@ def soa_layout_lsf(B: int, F: int = 1) -> dict:
         ("is_pos", F * B * 64), ("active", F * B)])
 
 
-def wire_sections_lsf(buf, B: int) -> dict:
-    """Views of the packed one-frame LSF wire (int16
-    [soa_layout_lsf(B)['total']]) by section: ix [B,2,576], scf_l
-    [B,2,22], scf_s [B,2,39], meta [B,32], is_pos [B,64], active [B]."""
-    return _section_views(buf, soa_layout_lsf(B), dict(
-        ix=(B, 2, 576), scf_l=(B, 2, 22), scf_s=(B, 2, 39),
-        meta=(B, META_WORDS), is_pos=(B, 64), active=(B,)))
+def wire_sections_lsf(buf, B: int, F: int = 1) -> dict:
+    """Views of the packed F-frame LSF wire (int16
+    [soa_layout_lsf(B, F)['total']]) by section: ix [F,B,2,576], scf_l
+    [F,B,2,22], scf_s [F,B,2,39], meta [F,B,32], is_pos [F,B,64], active
+    [B] for F = 1, else [F,B]."""
+    return _section_views(buf, soa_layout_lsf(B, F), dict(
+        ix=(F, B, 2, 576), scf_l=(F, B, 2, 22), scf_s=(F, B, 2, 39),
+        meta=(F, B, META_WORDS), is_pos=(F, B, 64),
+        active=_active_shape(B, F)))
 
 
 def decode_frame_lsf_soa(ix, scf_l, scf_s, meta, is_pos, active, state,
                          family: int, bug_compat: bool = True,
                          exact: bool = False):
-    """Decode one LSF frame per slot (ONE granule step, a granule-0
-    step) from the wire's section tensors: ix int16 [B,2,576], scf_l
-    int16 [B,2,22], scf_s int16 [B,2,39], meta [B,32], is_pos int16
-    [B,64], active [B]; family 1 or 2.  Returns (pcm int16 [B,576,2],
-    state updated in place)."""
+    """Decode F LSF frames per slot, ONE granule step (a granule-0 step)
+    each, from the wire's section tensors: ix int16 [F,B,2,576], scf_l
+    int16 [F,B,2,22], scf_s int16 [F,B,2,39], meta [F,B,32], is_pos int16
+    [F,B,64], active [F,B]; family 1 or 2.  Returns (pcm int16
+    [B, F*576, 2], state updated in place)."""
     if family not in (1, 2):
         raise ValueError(f"LSF family must be 1 or 2, got {family!r}")
-    b = _batch_from_meta(ix, scf_l, scf_s, meta, active, 0)
-    return fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta, b.active,
-                              0, state, bug_compat, exact, family, is_pos)
+    pcms = []
+    for f in range(ix.shape[0]):
+        b = _batch_from_meta(ix[f], scf_l[f], scf_s[f], meta[f], active[f],
+                             0)
+        pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
+                                        b.active, 0, state, bug_compat,
+                                        exact, family, is_pos[f])
+        pcms.append(pcm)
+    return _join(pcms), state
 
 
-def decode_frame_packed_lsf(buf, state, B: int, family: int,
+def decode_frame_packed_lsf(buf, state, B: int, family: int, F: int = 1,
                             bug_compat: bool = True, exact: bool = False):
-    """decode_frame_lsf_soa over the packed one-frame LSF wire, on the
-    decode device.  Returns (pcm int16 [B,576,2], state updated in
+    """decode_frame_lsf_soa over the packed F-frame LSF wire, on the
+    decode device.  Returns (pcm int16 [B, F*576, 2], state updated in
     place)."""
-    w = wire_sections_lsf(buf, B)
+    w = wire_sections_lsf(buf, B, F)
     return decode_frame_lsf_soa(w["ix"], w["scf_l"], w["scf_s"], w["meta"],
-                                w["is_pos"], w["active"], state, family,
+                                w["is_pos"], w["active"].view(F, B), state,
+                                family, bug_compat, exact)
+
+
+# ---------------------------------------------------------------------------
+# Sparse count1-bounded wire: every granule's lines are zero from count1 up
+# (rzero, pdmp3.c:2108-2111), so the host ships only the 128-line blocks
+# that cover each channel's nonzero prefix, plus a block table; the device
+# re-densifies them with one gather.  The flat block region sits last, so
+# the upload is the prefix that the step's blocks fill (the native packers
+# pdmp3_parse_step_wire16_sparse and ..._lsf_sparse, host/api.cc).
+# ---------------------------------------------------------------------------
+
+SPARSE_BLOCK = 128          # lines per block
+_BLK_WORDS = 4              # {start_lo, start_hi, n_blocks, pad}
+_MAX_BLOCKS_PER_CH = 5      # ceil(576 / 128)
+
+
+def sparse_worst_blocks(B: int, F: int = 1) -> int:
+    """Blocks of an F-frame MPEG-1 step whose every channel is full."""
+    return F * 2 * B * 2 * _MAX_BLOCKS_PER_CH
+
+
+def _sparse_layout(fixed, cap_blocks: int) -> dict:
+    off = _packed_layout([*fixed, ("ix_flat", cap_blocks * SPARSE_BLOCK)])
+    off["fixed"] = off["ix_flat"][0]
+    off["cap_blocks"] = cap_blocks
+    return off
+
+
+def sparse_layout(B: int, F: int = 1, cap_blocks: int | None = None) -> dict:
+    """Element offsets (int16 units) of the sparse MPEG-1 wire: the fixed
+    sections blk [F*2,B,2,4], scf_l, scf_s, meta, active, then the flat
+    spectra ix_flat [cap_blocks,128] (default: the worst case), so
+    buf[:fixed + cap*128] carries a step whose blocks fit cap."""
+    if cap_blocks is None:
+        cap_blocks = sparse_worst_blocks(B, F)
+    return _sparse_layout([
+        ("blk", F * 2 * B * 2 * _BLK_WORDS), ("scf_l", F * 2 * B * 2 * 22),
+        ("scf_s", F * 2 * B * 2 * 39), ("meta", F * 2 * B * META_WORDS),
+        ("active", F * B)], cap_blocks)
+
+
+def sparse_layout_lsf(B: int, F: int = 1,
+                      cap_blocks: int | None = None) -> dict:
+    """The sparse LSF wire: one granule per frame, blk [F,B,2,4], the
+    intensity sidecar, the flat spectra last (cf. sparse_layout)."""
+    if cap_blocks is None:
+        cap_blocks = F * B * 2 * _MAX_BLOCKS_PER_CH
+    return _sparse_layout([
+        ("blk", F * B * 2 * _BLK_WORDS), ("scf_l", F * B * 2 * 22),
+        ("scf_s", F * B * 2 * 39), ("meta", F * B * META_WORDS),
+        ("is_pos", F * B * 64), ("active", F * B)], cap_blocks)
+
+
+def sparse_sections(buf, B: int, F: int = 1,
+                    cap_blocks: int | None = None) -> dict:
+    """Views of the sparse MPEG-1 wire (int16 [sparse_layout(B, F,
+    cap_blocks)['total']]) by section: blk [F*2,B,2,4] and the others as
+    wire_sections, ix_flat [cap_blocks,128]."""
+    off = sparse_layout(B, F, cap_blocks)
+    return _section_views(buf, off, dict(
+        blk=(F * 2, B, 2, _BLK_WORDS), scf_l=(F * 2, B, 2, 22),
+        scf_s=(F * 2, B, 2, 39), meta=(F * 2, B, META_WORDS),
+        active=_active_shape(B, F),
+        ix_flat=(off["cap_blocks"], SPARSE_BLOCK)))
+
+
+def sparse_sections_lsf(buf, B: int, F: int = 1,
+                        cap_blocks: int | None = None) -> dict:
+    """Views of the sparse LSF wire by section: blk [F,B,2,4] and the
+    others as wire_sections_lsf, ix_flat [cap_blocks,128]."""
+    off = sparse_layout_lsf(B, F, cap_blocks)
+    return _section_views(buf, off, dict(
+        blk=(F, B, 2, _BLK_WORDS), scf_l=(F, B, 2, 22),
+        scf_s=(F, B, 2, 39), meta=(F, B, META_WORDS), is_pos=(F, B, 64),
+        active=_active_shape(B, F),
+        ix_flat=(off["cap_blocks"], SPARSE_BLOCK)))
+
+
+def densify(blk, ix_flat):
+    """The dense spectra int16 [..., 576] of a sparse wire: per entry of
+    the block table blk [..., 4] ({start_lo, start_hi, n_blocks, pad}),
+    n_blocks 128-line rows of ix_flat from row start, zeros beyond them
+    (exactly the rzero lines the dense wire carries)."""
+    blk = blk.to(torch.int32)
+    start = (blk[..., 1] << 16) | (blk[..., 0] & 0xFFFF)
+    iota = torch.arange(_MAX_BLOCKS_PER_CH, dtype=torch.int32,
+                        device=blk.device)
+    mask = iota < blk[..., 2, None]
+    rows = torch.where(mask, start[..., None] + iota, 0).clamp_(
+        0, ix_flat.shape[0] - 1)
+    vals = ix_flat[rows.long()].masked_fill_(~mask[..., None], 0)
+    return vals.flatten(-2)[..., :576].contiguous()
+
+
+def decode_frame_sparse(buf, state, B: int, F: int = 1,
+                        cap_blocks: int | None = None,
+                        bug_compat: bool = True, exact: bool = False):
+    """decode_frame_soa over the sparse MPEG-1 wire (buf: int16
+    [sparse_layout(B, F, cap_blocks)['total']]): the same PCM and state,
+    bit for bit, as the dense wire.  Returns (pcm int16 [B, F*1152, 2],
+    state updated in place)."""
+    w = sparse_sections(buf, B, F, cap_blocks)
+    w["ix"] = densify(w["blk"], w["ix_flat"])
+    return _decode_frames(w, state, F, bug_compat, exact)
+
+
+def decode_frame_lsf_sparse(buf, state, B: int, family: int, F: int = 1,
+                            cap_blocks: int | None = None,
+                            bug_compat: bool = True, exact: bool = False):
+    """decode_frame_lsf_soa over the sparse LSF wire (buf: int16
+    [sparse_layout_lsf(B, F, cap_blocks)['total']]), bit for bit the
+    dense LSF wire's result.  Returns (pcm int16 [B, F*576, 2], state
+    updated in place)."""
+    w = sparse_sections_lsf(buf, B, F, cap_blocks)
+    return decode_frame_lsf_soa(densify(w["blk"], w["ix_flat"]), w["scf_l"],
+                                w["scf_s"], w["meta"], w["is_pos"],
+                                w["active"].view(F, B), state, family,
                                 bug_compat, exact)
 
 

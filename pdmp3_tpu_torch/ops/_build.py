@@ -106,6 +106,9 @@ def load() -> C.CDLL:
         # 10 operand pointers, the table array, B, gr1, bug_compat,
         # exact, lsf
         "pdmp3_fused_granule": [ptr] * 11 + [i32] * 5 + [ptr],
+        # 10 operand pointers, the table array, B, ng, parities,
+        # bug_compat, lsf
+        "pdmp3_frame_fused": [ptr] * 11 + [i32] * 5 + [ptr],
         # 7 operand pointers, the table array, B, exact
         "pdmp3_back_half": [ptr] * 8 + [i32] * 2 + [ptr],
         # construction, base, out, n

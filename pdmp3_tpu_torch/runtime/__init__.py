@@ -1,4 +1,4 @@
 """Serving runtime: stream scheduler over the native wire."""
-from .scheduler import LoopFeeder, StreamDecoder
+from .scheduler import LoopFeeder, SparseStreamDecoder, StreamDecoder
 
-__all__ = ["LoopFeeder", "StreamDecoder"]
+__all__ = ["LoopFeeder", "SparseStreamDecoder", "StreamDecoder"]

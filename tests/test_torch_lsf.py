@@ -439,6 +439,7 @@ def test_lsf_frame_to_batches_equals_native_wire():
         feeder.step()
         assert dec.parse_step() == B
         w = TM.wire_sections_lsf(torch.from_numpy(dec.wire.copy()), B)
+        w = {k: v if k == "active" else v[0] for k, v in w.items()}
         (b,) = TM.frame_to_batches([fds[t] for fds in per])
         assert b.gr1 == 0 and b.family == 1
         assert torch.equal(b.ix, w["ix"])

@@ -229,10 +229,8 @@ def test_cuda_exact_serving_with_device_behind_host(corpus):
         _check_vs_native(data, _slot_pcm(gsteps, s), s == MONO, exact=True)
 
 
-@pytest.mark.parametrize("kw", [dict(family=1, frames_per_step=2),
-                                dict(float_pcm=True),
-                                dict(resample_to=48000),
-                                dict(frames_per_step=2)])
+@pytest.mark.parametrize("kw", [dict(float_pcm=True),
+                                dict(resample_to=48000)])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         StreamDecoder(2, device="cpu", **kw)
