@@ -13,7 +13,10 @@ from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
 1. the card's name and power limit, then a check that CUDA is visible;
 2. K1, the fast granule kernel, against its plain PyTorch version on the
    same CUDA tensors: one frame (two granule steps) of natively parsed
-   wire, a few idle slots, a random starting state; both timed;
+   wire, a few idle slots, a random starting state, at B and at the
+   ragged B = 2 x grid + 3 (grid: K1's persistent grid, SM count x
+   resident blocks); both timed; K1's launch geometry (grid, blocks per
+   SM, shared memory, registers, local bytes) printed;
 3. the fast main path: ``StreamDecoder(8192, device="cuda")`` fed by
    ``LoopFeeder`` from 64 distinct generated streams, 2 warm-up and 32
    timed frame steps of feed -> parse_step -> decode_step, with K1's
@@ -21,8 +24,9 @@ from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
 4. the PCM of slots covering long, short, mixed, MS, intensity, mono,
    32 and 48 kHz streams against the native scalar C++ decoder;
 5. K2, the exact granule kernel, against its plain version as in phase
-   2, and on a directed granule whose band-12 carry holds subnormal bit
-   patterns (denormal band-12 gains); bitwise, both timed;
+   2 (B and the ragged B), and on a directed granule whose band-12 carry
+   holds subnormal bit patterns (denormal band-12 gains); bitwise, both
+   timed;
 6. the exact main path: phase 3 with ``exact=True`` (K2), and its
    watched slots bitwise equal to the native decoder;
 7. K4, the back-half kernel, against its plain version in both modes on
@@ -51,7 +55,8 @@ from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
     in both granules or in the second only), a directed band-12 fixture
     whose carry holds small subnormal bit patterns, and each LSF
     family's frame taken twice (parities (0, 0)); bitwise, timed, and
-    timed against two K1 launches interleaved in the same run;
+    timed against two K1 launches interleaved in the same run, and K5 at
+    ng = 1 (granule 0 alone) against one K1 launch, interleaved;
 15. frame-fused serving: phase 3 with ``models.decoder._FRAME_FUSED``
     set, K5 once per frame step and no K1, its watched slots byte-equal
     to phase 3's; the device replay of both routes interleaved;
@@ -78,7 +83,6 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import re
 import subprocess
 import sys
 import time
@@ -400,7 +404,8 @@ def compare_steps(fr: dict, step_k, step_r, phase: str, grs=(0, 1),
 def bitwise_report(pk, sk, pr, sr, st0, phase: str) -> dict:
     """A kernel's PCM and state (pk, sk) against its plain version's (pr,
     sr), both run from st0: require them bitwise equal, the INACTIVE
-    slots silent and frozen, and slot 0 audible."""
+    slots (those below the batch's size) silent and frozen, and slot 0
+    audible."""
     torch.cuda.synchronize()
     lsb, frac = pcm_error(pk, pr)
     res = {"tolerance": "bitwise (PCM, store, v, prev_lines); reported: "
@@ -422,7 +427,7 @@ def bitwise_report(pk, sk, pr, sr, st0, phase: str) -> dict:
         check(res[f"{name}_bitwise_equal"],
               f"{phase}: {name} not bitwise equal to the plain version "
               f"({json.dumps(res)})")
-    for s in INACTIVE:
+    for s in (s for s in INACTIVE if s < pk.shape[0]):
         check(not bool(pk[s].any()), f"{phase}: idle slot {s} has PCM")
         for name in ("store", "v_blocks", "prev_lines"):
             check(torch.equal(getattr(sk, name)[s].view(torch.int32),
@@ -432,10 +437,22 @@ def bitwise_report(pk, sk, pr, sr, st0, phase: str) -> dict:
     return res
 
 
+def ragged_frame(fr: dict, n: int) -> dict:
+    """The first n slots of a parsed MPEG-1 frame, state copied."""
+    from pdmp3_tpu_torch.models.decoder import DecoderState
+
+    st = fr["st0"]
+    return dict({k: fr[k][:, :n] for k in ("ix", "scf_l", "scf_s", "meta")},
+                active=fr["active"][:n], is_pos=None, st0=DecoderState(
+                    st.store[:n].clone(), st.v_blocks[:n].clone(),
+                    st.prev_lines[:n].clone()))
+
+
 def phase_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
     """The fused kernel (family 0: K1, or K2 when exact; LSF: K3) vs its
-    plain version on one natively parsed frame; both timed per granule
-    step."""
+    plain version on one natively parsed frame (for K1 and K2 also on its
+    first 2 x grid + 3 slots, a ragged B, with their launch geometry);
+    both timed per granule step."""
     from pdmp3_tpu_torch.ops import fused_step as FS
 
     phase = ("phase 10" if family else "phase 5" if exact else "phase 2")
@@ -445,6 +462,12 @@ def phase_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
                                **lsf)
     res = compare_steps(fr, step_k, step_r, phase,
                         grs=(0,) if family else (0, 1))
+    if not family:
+        launch = FS.granule_launch_info(fr["ix"].device, exact)
+        n = 2 * launch["grid"] + 3
+        res["launch"] = launch
+        res["ragged"] = dict(batch_slots=n, **compare_steps(
+            ragged_frame(fr, n), step_k, step_r, f"{phase} ragged B={n}"))
     if exact and not family:
         res["band12_subnormal"] = phase_band12_subnormal(fr, step_k,
                                                          step_r)
@@ -555,6 +578,19 @@ def phase_frame_kernel(fr: dict, family: int = 0) -> dict:
         "k5_over_two_k1": float(np.median(k5) / np.median(k1)),
         "two_k1_bound_ms": 2 * granule_bound(
             B, int((ops[4][0] != 0).sum()))["bound_ms"]}
+    # K5 at ng = 1: granule 0 alone, one block per slot (K1's former
+    # design) with the state staged in shared memory
+    ops1 = [o[0:1] for o in ops]
+    s5, s1 = clone_state(fr["st0"]), clone_state(fr["st0"])
+    k5, k1 = [], []
+    for _ in range(TIMED_LAUNCHES):
+        k5.append(median_ms(lambda: FR.frame_step(*ops1, (0,), s5), 1))
+        k1.append(median_ms(
+            lambda: FS.fused_granule_step(*(o[0] for o in ops), 0, s1), 1))
+    res["ng1_ab_interleaved"] = {
+        "launches_each": TIMED_LAUNCHES,
+        "k5_ng1_ms": float(np.median(k5)), "k1_ms": float(np.median(k1)),
+        "k1_over_k5_ng1": float(np.median(k1) / np.median(k5))}
     return res
 
 
@@ -1032,23 +1068,16 @@ def watched_slots(specs: list[tuple[bytes, dict]]) -> list[int]:
     return slots
 
 
-def ptxas_summary(log: str) -> list[str]:
-    """Registers, shared memory and spills of each kernel from nvcc's
-    -Xptxas -v report."""
-    out, name = [], "?"
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
-                      r"I((?:L[a-z]\d+E)+)E", ln)
-        if m:
-            args = re.findall(r"L([a-z])(\d+)E", m.group(2))
-            name = m.group(1) + "<" + ",".join(
-                ("true" if v == "1" else "false") if t == "b" else v
-                for t, v in args) + ">"
-        elif "spill stores" in ln:
-            out.append(f"{name}: {ln.split(',', 1)[1].strip()}")
-        elif "registers" in ln:
-            out[-1] += "; " + ln.split(":", 1)[1].strip()
-    return out
+def launch_line(launch: dict, ptxas: list[str], kernel: str) -> str:
+    """One line of a persistent kernel's geometry: the library's launch
+    info and ptxas's registers / spills / shared memory of `kernel`."""
+    rep = next((p.split(": ", 1)[1] for p in ptxas
+                if p.startswith(kernel + ":")), "no ptxas report")
+    return (f"grid {launch['grid']} ({launch['sm_count']} SMs x "
+            f"{launch['blocks_per_sm']} blocks), "
+            f"{launch['dynamic_smem_bytes']} B dynamic shared memory per "
+            f"block, {launch['registers']} registers, "
+            f"{launch['local_bytes']} B local per thread; ptxas: {rep}")
 
 
 def main() -> int:
@@ -1075,7 +1104,7 @@ def main() -> int:
     t1 = time.perf_counter()
     _build.ensure_built()
     with open(_build.LOG) as f:
-        ptxas = ptxas_summary(f.read())
+        ptxas = _build.ptxas_summary(f.read())
     print(f"host library build {t1 - t0:.1f} s; kernel build "
           f"{time.perf_counter() - t1:.1f} s; " + " | ".join(ptxas))
 
@@ -1088,6 +1117,8 @@ def main() -> int:
 
     k1 = phase_kernel(fr, exact=False)
     print("phase 2 K1 vs plain:", json.dumps(k1))
+    print("phase 2 K1 launch:", launch_line(k1["launch"], ptxas,
+                                            "fused_granule_kernel<false>"))
 
     watch = watched_slots(specs)
     m = phase_main_path(streams, dev, watch)
@@ -1098,6 +1129,8 @@ def main() -> int:
 
     k2 = phase_kernel(fr, exact=True)
     print("phase 5 K2 vs plain:", json.dumps(k2))
+    print("phase 5 K2 launch:", launch_line(k2["launch"], ptxas,
+                                            "fused_granule_kernel<true>"))
 
     me = phase_main_path(streams, dev, watch, exact=True)
     slots = phase_correctness(me.pop("_pcm"), watch, specs, exact=True)
@@ -1189,10 +1222,13 @@ def main() -> int:
                                          for f in LSF_FAMILIES})
     print(json.dumps({"kernels": [
         entry("fused_granule", "fused_granule.cu", m["kernel_launches"],
-              k1["pcm_max_lsb"], k1["kernel_ms"], k1["plain_ms"], k1),
+              k1["pcm_max_lsb"], k1["kernel_ms"], k1["plain_ms"], k1,
+              launch=k1["launch"],
+              k5_ng1_ms=k5[0]["ng1_ab_interleaved"]["k5_ng1_ms"],
+              k1_over_k5_ng1=k5[0]["ng1_ab_interleaved"]["k1_over_k5_ng1"]),
         entry("fused_granule_exact", "fused_granule.cu",
               me["exact_kernel_launches"], k2["pcm_max_lsb"],
-              k2["kernel_ms"], k2["plain_ms"], k2),
+              k2["kernel_ms"], k2["plain_ms"], k2, launch=k2["launch"]),
         lsf_entry(False),
         lsf_entry(True),
         entry("back_half", "back_half.cu", api["k4_launches"],

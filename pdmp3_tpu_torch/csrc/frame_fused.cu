@@ -7,8 +7,9 @@
 // idle slots, the gated prev_lines carry).  Plain PyTorch twin:
 // pdmp3_tpu_torch/ops/frame_step.py:frame_step_ref, which chains the
 // plain granule step; K5 equals chaining K1 (MPEG-1) or K3 (LSF) bit for
-// bit, because each granule runs the same body, granule_step<false, kLsf>
-// (granule_step.cuh).
+// bit: each granule runs granule_step<false, kLsf> (granule_step.cuh),
+// K3's body, which K1's (granule_persist.cuh) matches operation for
+// operation.
 //
 // One 576-thread block per slot loops over the ng granules.  Both
 // channels' overlap-add store (4,608 B) and polyphase FIFO (7,680 B) and

@@ -13,65 +13,94 @@
 // gated prev_lines update.  Plain PyTorch twin:
 // pdmp3_tpu_torch/ops/fused_step.py:fused_granule_step_ref.
 //
-// The family kind is a second template axis of the step's body,
+// K1 and K2 (granule_persist.cuh).  They replace _kernel_full's MPEG-1
+// instances, launched by pallas_step.py:full_step_t (pallas_call at
+// :1525; exact route :1575-1635).  Per slot and granule the step moves
+// about 30 KB of device memory: ix 2,304 B in, store 4,608 B and v 7,680 B
+// read and written, PCM 2,304 B out, small fields; it computes about 0.3
+// MFLOP (IMDCT, matrixing, FIR), ~10 FLOP per byte, so bytes set the
+// bound (0.0723 ms at B = 8192).  What held the former design (one
+// 576-thread block per slot, 1.17-1.31 ms on an H100 80GB HBM3 at 700 W)
+// far above it was latency: each channel read its state in mid-granule
+// behind a barrier, ten barriers a slot, and two memory instructions per
+// product.  Each part of the design answers one of those:
+// - persistent blocks: min(B, SM count x 2) blocks (granule_grid) walk
+//   the slots b = blockIdx.x + k * gridDim.x; tables and barriers are set
+//   up once per block, and no partial last wave is left;
+// - a two-stage ring: while slot n computes, thread 0 fetches slot n + G
+//   into the other stage with cp.async.bulk (ix, the int32 meta, store,
+//   v; 14,720 B, completion counted in bytes on the stage's mbarrier) and
+//   64 threads fetch scf_l, scf_s and prev_lines with 4-byte cp.async
+//   (only 4-byte aligned on the wire); an idle slot fetches no state;
+//   the new store, the new FIFO rows and the PCM go back by bulk stores
+//   from shared memory (fence.proxy.async, then wait_group.read before a
+//   buffer is reused).  The wrapper raises on an operand those copies
+//   cannot take (ops/fused_step.py:check_bulk_alignment);
+// - the tables (cos36, imdct_win, the short basis and window re-indexed
+//   by output, nwin transposed, synth_d: 21,616 B,
+//   ops/consts.py:granule_smem_image) in shared memory once per block,
+//   laid out so one LDS.128 brings the four coefficients a thread uses
+//   together; pow43 and the line maps stay on __ldg;
+// - dots blocked four outputs to a thread (four IMDCT outputs of one
+//   subband, four FIFO columns of one channel and time step), each output
+//   summed in exactly tree_sum's or the sequential order; the FIR gives a
+//   thread three time steps of one column, which share 14 of 16 taps;
+// - both channels' back half in one pass: IMDCT 1,152 outputs, matrixing
+//   2,304, FIR 1,152, with both channels' 33-row FIFOs on chip (15 rows
+//   in the stage, 18 new rows unpadded, so rows 3..17 are the contiguous
+//   new v a bulk store takes; the matrixing's column writes conflict
+//   8-way instead): five barriers a slot where the former design had ten.
+// At two blocks per SM ptxas fits both instances in 56 registers with no
+// spills (the thread index is made opaque per slot; hoisted per-thread
+// addresses spilled otherwise) and 72,512 B of dynamic shared memory per
+// block (pdmp3_granule_launch_info; measured in PERF.md).
+//
+// K3 keeps the former design, the kLsf = true instance of the step's body
 // granule_step<kExact, kLsf> (granule_step.cuh, shared with the frame
-// kernel K5 of frame_fused.cu), as the TPU kernel keeps its MPEG-1 signature
-// free of LSF operands: K1 and K2 are its kLsf = false instances behind
-// the MPEG-1 kernel's unchanged signature and carry no LSF code; K3 is
-// the kLsf = true instance behind fused_granule_lsf_kernel, which adds
-// the LSF operands.  K3 differs in three places only: it reads the slot's
-// 64-entry intensity sidecar into shared memory, its requantize has no
-// sentinel-63 and no band-12 code (LSF gains stay true through q = 124,
-// and every LSF step is a granule-0 step), and its stereo is the LSF one
-// (full-spectrum MS; intensity positions from the sidecar, gains k0/k1 by
-// iscale, panning the raw pre-MS ch0 line).  The family's band maps arrive
-// through the table pointers.
+// kernel K5 of frame_fused.cu) behind fused_granule_lsf_kernel, which
+// adds the LSF operands: one 576-thread block per slot, both channels
+// (stereo couples them): one thread per spectral line for requantize and
+// stereo, one per (subband, sample) for the IMDCT and overlap-add, two
+// outputs each for the matrixing, one per PCM sample for the FIR; both
+// spectra, one channel's x_time and its FIFO in shared memory.  It reads
+// the slot's 64-entry intensity sidecar into shared memory, its
+// requantize has no sentinel-63 and no band-12 code (LSF gains stay true
+// through q = 124, and every LSF step is a granule-0 step), and its
+// stereo is the LSF one (full-spectrum MS; intensity positions from the
+// sidecar, gains k0/k1 by iscale, panning the raw pre-MS ch0 line).  The
+// family's band maps arrive through the table pointers.
 //
-// One thread block decodes one slot, both channels (stereo couples them),
-// with 576 threads: one per spectral line for requantize and stereo, one
-// per (subband, sample) for the IMDCT and overlap-add, two outputs each
-// for the polyphase matrixing, one per PCM sample for the FIR.  Both
-// spectra, one channel's x_time and its 33x64 synthesis FIFO stay in
-// shared memory; nothing intermediate reaches device memory.
-//
-// What bounds it.  Per slot and granule the step moves about 30 KB of
-// device memory in both modes: ix 2,304 B in, store 4,608 B and v 7,680 B
-// each read and written, PCM 2,304 B out, plus small fields.  It computes
-// about 0.3 MFLOP (IMDCT ~83 k, matrixing ~147 k, FIR ~37 k): about 10
-// FLOP per byte, under the f32 CUDA-core ridge of the card, so the state
-// round trip bounds the kernel.  The design touches each state byte once
-// (store and v are read once and updated in place, by the thread that
-// read them), keeps every intermediate on chip, and keeps the products in
-// f32 on CUDA cores: TF32 tensor cores would break both contracts.
-//
-// Arithmetic.  Built with -fmad=false: no product is contracted into an
-// FMA, so every operation rounds exactly where the plain PyTorch version
-// rounds, and the sums run in the same fixed order (fast: a pairwise tree
-// for the IMDCT and matrixing dots; exact: sequential from the first
-// product, the reference's order; sequential FIR taps in both).  The
-// kernel therefore matches the plain version bit for bit.  |x|^(4/3) is
-// read from the frozen 8207-entry table (the correctly rounded value).
-// Denormals are kept (no -ftz): the band-12 carry reads the float BITS of
-// three output lines, and 95 of the exact band-12 gains are subnormal.
-// Exact mode adds, per line: for MPEG-1 the sentinel-63 zero gain
-// (q >= 100) and the band-12 true gain on granule 1's ch1, and the float64
-// rounding points of rounding.cuh (MS, the unsigned quirk, quantize): a
-// few f64 operations per line, where the H100 runs f64 at half its f32
-// rate.  K3 moves the same bytes plus a 128 B sidecar per slot.
+// Arithmetic, all three.  Built with -fmad=false: no product is contracted
+// into an FMA, so every operation rounds exactly where the plain PyTorch
+// version rounds, and the sums run in the same fixed order (fast: a
+// pairwise tree for the IMDCT and matrixing dots; exact: sequential from
+// the first product, the reference's order; sequential FIR taps in both).
+// The kernels therefore match the plain version bit for bit; the products
+// stay f32 on CUDA cores (TF32 tensor cores would break both contracts).
+// |x|^(4/3) is read from the frozen 8207-entry table (the correctly
+// rounded value).  Denormals are kept (no -ftz): the band-12 carry reads
+// the float BITS of three output lines, and 95 of the exact band-12 gains
+// are subnormal.  Exact mode adds, per line: for MPEG-1 the sentinel-63
+// zero gain (q >= 100) and the band-12 true gain on granule 1's ch1, and
+// the float64 rounding points of rounding.cuh (MS, the unsigned quirk,
+// quantize).  K3 moves the same bytes plus a 128 B sidecar per slot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
+#include "granule_persist.cuh"
 #include "granule_step.cuh"
 
 namespace {
 
 using namespace pdmp3;
 
-// two resident blocks per SM: ptxas then fits K1 and K2 in 56 registers
-// with no spills (73 unbounded, one block per SM); three spill.  Both
-// ran fastest at 2 of 1, 2 and 3 blocks (PERF.md, "Launch bounds"); K3
-// starts from the same bound
+// K1 and K2: persistent, two resident blocks per SM (at most 56 registers
+// a thread; one block per SM measured slower, PERF.md), the body in
+// granule_persist.cuh
 template <bool kExact>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_granule_kernel(const int16_t* __restrict__ ix,
@@ -81,12 +110,13 @@ fused_granule_kernel(const int16_t* __restrict__ ix,
                      const int32_t* __restrict__ active, int gr1,
                      int bug_compat, float* __restrict__ store,
                      float* __restrict__ v, float* __restrict__ prev,
-                     uint32_t* __restrict__ pcm, Tables t) {
-  granule_step<kExact, false>(ix, scf_l, scf_s, meta, active, gr1,
-                              bug_compat, store, v, prev, pcm, t,
-                              LsfOperands{});
+                     uint32_t* __restrict__ pcm, Tables t,
+                     const float4* __restrict__ image, int B) {
+  persistent_granules<kExact>(ix, scf_l, scf_s, meta, active, gr1,
+                              bug_compat, store, v, prev, pcm, t, image, B);
 }
 
+// K3 starts from K1's old bound: two resident blocks per SM
 template <bool kExact>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_granule_lsf_kernel(const int16_t* __restrict__ ix,
@@ -102,9 +132,66 @@ fused_granule_lsf_kernel(const int16_t* __restrict__ ix,
                              bug_compat, store, v, prev, pcm, t, lsf);
 }
 
+constexpr int kMaxDevices = 64;
+
+// the persistent grid of K1 (exact = 0) or K2 on the current device: SM
+// count x resident blocks per SM at kSmemBytes of dynamic shared memory
+// (the attribute set on first use per device); info, when not null,
+// receives {grid, blocks per SM, dynamic shared bytes, registers, local
+// (spill) bytes, SM count}.  The figures are cached per (kernel, device)
+// once, under a lock, and published by a release store, so a host thread
+// that sees the flag reads them whole.  Returns a cudaError_t.
+int granule_grid(int exact, int* grid, int* info) {
+  static int cache[2][kMaxDevices][6];
+  static std::atomic<int> filled[2][kMaxDevices];
+  static std::mutex fill_lock;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int* c = cache[exact != 0][dev];
+  std::atomic<int>& ready = filled[exact != 0][dev];
+  if (!ready.load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> hold(fill_lock);
+    if (!ready.load(std::memory_order_relaxed)) {
+      const auto kernel =
+          exact ? fused_granule_kernel<true> : fused_granule_kernel<false>;
+      int sms = 0, per_sm = 0;
+      cudaFuncAttributes fa;
+      if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+          (e = cudaFuncSetAttribute(
+               kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+               kSmemBytes)) != cudaSuccess ||
+          (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, kThreads, kSmemBytes)) != cudaSuccess ||
+          (e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess)
+        return (int)e;
+      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+      const int got[6] = {sms * per_sm, per_sm, kSmemBytes, fa.numRegs,
+                          (int)fa.localSizeBytes, sms};
+      for (int k = 0; k < 6; ++k) c[k] = got[k];
+      ready.store(1, std::memory_order_release);
+    }
+  }
+  *grid = c[0];
+  if (info != nullptr)
+    for (int k = 0; k < 6; ++k) info[k] = c[k];
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The launch geometry of K1 (exact = 0) or K2 on the current device into
+// info[6]: grid, blocks per SM, dynamic shared memory per block (bytes),
+// registers per thread, local memory per thread (bytes), SM count.
+// Returns a cudaError_t (0 on success).
+int pdmp3_granule_launch_info(int exact, int* info) {
+  int grid = 0;
+  return granule_grid(exact, &grid, info);
+}
 
 // Launch one granule step for B slots on `stream`: for MPEG-1 (lsf = 0)
 // K2 when exact else K1; for the LSF families (lsf = 1, is_pos the [B][64]
@@ -129,10 +216,15 @@ int pdmp3_fused_granule(const int16_t* ix, const int16_t* scf_l,
     kernel<<<B, kThreads, 0, s>>>(ix, scf_l, scf_s, meta, active, gr1,
                                   bug_compat, store, v, prev, out, t, ops);
   } else {
+    // persistent: min(B, the resident grid) blocks walk the B slots
+    int grid = 0;
+    const int e = granule_grid(exact, &grid, nullptr);
+    if (e != 0) return e;
     const auto kernel = exact ? fused_granule_kernel<true>
                               : fused_granule_kernel<false>;
-    kernel<<<B, kThreads, 0, s>>>(ix, scf_l, scf_s, meta, active, gr1,
-                                  bug_compat, store, v, prev, out, t);
+    kernel<<<grid < B ? grid : B, kThreads, kSmemBytes, s>>>(
+        ix, scf_l, scf_s, meta, active, gr1, bug_compat, store, v, prev, out,
+        t, static_cast<const float4*>(tables[kTables + 2]), B);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Device code shared by the granule kernels (fused_granule.cu: K1 fast,
 // K2 exact and K3, the LSF step; back_half.cu: K4; frame_fused.cu: K5,
-// the frame step): the wire's constants,
+// the frame step; K1 and K2 take the constants and helpers, not the
+// back half): the wire's constants,
 // the table operands, the IMDCT / polyphase dot products in both summation
 // orders, and the back half of one channel.  Each summation order and
 // rounding point here mirrors the plain PyTorch stage ops

@@ -1,8 +1,9 @@
-// The body of one fused granule step, shared by the granule kernels
-// (fused_granule.cu: K1, K2, K3) and the frame kernel (frame_fused.cu:
-// K5): requantize, the MPEG-1 and LSF stereo, antialias, the back half of
-// both channels (granule.cuh) and the L|R pack, for the slot of the
-// calling block.  Kept in an anonymous namespace, as it was inside
+// The body of one fused granule step, shared by the LSF granule kernel
+// (fused_granule.cu: K3) and the frame kernel (frame_fused.cu: K5; K1
+// and K2 run granule_persist.cuh, which matches it operation for
+// operation): requantize, the MPEG-1 and LSF stereo, antialias, the back
+// half of both channels (granule.cuh) and the L|R pack, for the slot of
+// the calling block.  Kept in an anonymous namespace, as it was inside
 // fused_granule.cu, so that each kernel's translation unit compiles its
 // own copy exactly as before.
 #pragma once

@@ -15,6 +15,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -97,6 +98,25 @@ def ensure_built() -> str:
     return LIB
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """Registers, shared memory and spills of each kernel instance from
+    nvcc's -Xptxas -v report (the text of LOG)."""
+    out, name = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
+                      r"I((?:L[a-z]\d+E)+)E", ln)
+        if m:
+            args = re.findall(r"L([a-z])(\d+)E", m.group(2))
+            name = m.group(1) + "<" + ",".join(
+                ("true" if v == "1" else "false") if t == "b" else v
+                for t, v in args) + ">"
+        elif "spill stores" in ln:
+            out.append(f"{name}: {ln.split(',', 1)[1].strip()}")
+        elif "registers" in ln and out:
+            out[-1] += "; " + ln.split(":", 1)[1].strip()
+    return out
+
+
 @functools.lru_cache(maxsize=1)
 def load() -> C.CDLL:
     """The built library with every entry point's ctypes signature."""
@@ -111,6 +131,8 @@ def load() -> C.CDLL:
         "pdmp3_frame_fused": [ptr] * 11 + [i32] * 5 + [ptr],
         # 7 operand pointers, the table array, B, exact
         "pdmp3_back_half": [ptr] * 8 + [i32] * 2 + [ptr],
+        # exact, the int[6] out array
+        "pdmp3_granule_launch_info": [i32, ptr],
         # construction, base, out, n
         "pdmp3_rounding_sweep": [i32, C.c_uint32, ptr, C.c_longlong, ptr],
     }

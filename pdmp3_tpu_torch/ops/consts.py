@@ -51,6 +51,14 @@ INV_SQRT2_F32 = np.float32(T.INV_SQRT2)
 INV_SQRT2_F64 = float(T.INV_SQRT2)
 POW43_MAX = 8206     # largest |ix| the table covers (pdmp3.c:2117)
 
+# float offsets of the sections of granule_smem_image(), the table image
+# K1 and K2 copy into shared memory once per block (csrc/
+# granule_persist.cuh kT*): cos36 [18,36], imdct_win [4,36], c3p
+# [3,18,36], win2p [3,36], nwin_t [32,64], synth_d [16,32]; every
+# section and row starts 16-byte aligned
+SMEM_COS36, SMEM_IWIN, SMEM_C3P, SMEM_W2P = 0, 648, 792, 2736
+SMEM_NWIN_T, SMEM_SYND, SMEM_FLOATS = 2844, 4892, 5404
+
 
 def compose_reorder(src: np.ndarray, family: int = 0) -> np.ndarray:
     """out[l, i] = src[l, perm_l[i]]: a per-(layout, line) map read in
@@ -99,6 +107,29 @@ def line_maps(family: int = 0) -> np.ndarray:
     return maps
 
 
+def granule_smem_image(c: dict) -> np.ndarray:
+    """The shared-memory table image of K1 and K2 from the tables c
+    (host_consts' entries), f32 [SMEM_FLOATS] laid out so that one
+    16-byte load brings four coefficients one thread uses together:
+    cos36 and imdct_win as they are (four consecutive outputs p); c3p[w,
+    m, p] = c3[m, 6w + p - 6] and win2p[w, p] = win2[p - 6 - 6w], the
+    short window w's basis and window re-indexed by the output p it
+    lands on (zero where window w does not reach p: 6 + 6w <= p < 18 +
+    6w); nwin_t = nwin transposed to [k, j] (four consecutive j); synth_d
+    as it is."""
+    c3p = np.zeros((3, 18, 36), np.float32)
+    w2p = np.zeros((3, 36), np.float32)
+    for w in range(3):
+        p = np.arange(6 + 6 * w, 18 + 6 * w)
+        c3p[w][:, p] = c["c3"][:, 6 * w + p - 6]
+        w2p[w][p] = c["win2"][p - 6 - 6 * w]
+    out = np.concatenate([c["cos36"].ravel(), c["imdct_win"].ravel(),
+                          c3p.ravel(), w2p.ravel(), c["nwin"].T.ravel(),
+                          c["synth_d"].ravel()]).astype(np.float32)
+    assert out.size == SMEM_FLOATS
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def host_consts(family: int = 0) -> dict:
     """Every constant of the family's step as numpy arrays (float32
@@ -118,7 +149,8 @@ def host_consts(family: int = 0) -> dict:
     (T.lsf_intensity_tables(), bit-identical to the JAX kernel's closed
     form); maps int16 (line_maps(family), the only family-dependent
     entry); inv_sqrt2, two32 and k32767 f32 scalars (0-d, so products
-    with them stay in f32)."""
+    with them stay in f32); granule_smem, the table image of
+    granule_smem_image()."""
     cos12 = np.asarray(T.COS_N12, np.float32)
     c3 = np.zeros((18, 36), np.float32)
     for k in range(18):
@@ -148,6 +180,7 @@ def host_consts(family: int = 0) -> dict:
         two32=np.float32(2.0 ** 32),
         k32767=np.float32(32767.0),
     )
+    out["granule_smem"] = granule_smem_image(out)
     return {k: np.array(v, order="C") for k, v in out.items()}
 
 

@@ -20,6 +20,14 @@ the TPU kernel they launch, ``_kernel_full``.
   for the LSF families K3 (its fast and exact instances).  There is no
   fallback between them: a CUDA tensor either runs a kernel or raises.
 
+K1 and K2 are persistent (``granule_launch_info``: a grid of the SM
+count times the resident blocks per SM walks the B slots) and bring
+each slot's ix, meta, store and v_blocks into shared memory by bulk
+copies, which need 16-byte aligned addresses; scf_l, scf_s, prev_lines
+and active arrive by 4-byte copies.  ``check_bulk_alignment`` raises
+on an operand that breaks either rule (a view at an odd element offset):
+there is no slower path for it.
+
 Both read |x|^(4/3) from the frozen 8207-entry table ``T.POW43`` (the
 correctly rounded value).  The JAX fast path computes it with an
 exp2/log2-seeded Newton cube root instead, because its TPU gathers
@@ -52,10 +60,19 @@ LAUNCHES_LSF_EXACT = 0
 
 _F32 = torch.float32
 
-# the kernels' table operands, in the order of csrc/granule.cuh Tables
+# the kernels' table operands: those of csrc/granule.cuh Tables in its
+# order, the LSF gain pairs, then K1/K2's shared-memory table image
 TABLES = ("pow43", "cos36", "c3", "imdct_win", "win2", "nwin", "synth_d",
           "cs", "ca", "ratio_l", "ratio_r", "quarter_down", "quarter_up",
-          "inv_sqrt2", "gain_quarter_true", "maps", "k0", "k1")
+          "inv_sqrt2", "gain_quarter_true", "maps", "k0", "k1",
+          "granule_smem")
+# byte alignment K1/K2 need of each operand: bulk-copied ones 16, the
+# 4-byte copies 4
+BULK_ALIGN = {"ix": 16, "meta": 16, "store": 16, "v_blocks": 16, "pcm": 16,
+              "scf_l": 4, "scf_s": 4, "prev_lines": 4, "active": 4}
+# granule_launch_info's fields, in the order of pdmp3_granule_launch_info
+LAUNCH_INFO = ("grid", "blocks_per_sm", "dynamic_smem_bytes", "registers",
+               "local_bytes", "sm_count")
 
 
 def table_ptrs(device, family: int = 0) -> C.Array:
@@ -63,6 +80,33 @@ def table_ptrs(device, family: int = 0) -> C.Array:
     family), as the pointer array the C entry points take."""
     c = device_consts(str(device), family)
     return (C.c_void_p * len(TABLES))(*[c[k].data_ptr() for k in TABLES])
+
+
+def check_bulk_alignment(**operands) -> None:
+    """Raise ValueError unless each named operand (a key of BULK_ALIGN)
+    starts on the byte alignment K1/K2 copy it with."""
+    for name, t in operands.items():
+        if t.data_ptr() % BULK_ALIGN[name]:
+            raise ValueError(f"{name} must be {BULK_ALIGN[name]}-byte "
+                             f"aligned for K1/K2's copies (address "
+                             f"{t.data_ptr():#x})")
+
+
+def granule_launch_info(device, exact: bool = False) -> dict:
+    """K1's (K2's when exact) launch geometry on a CUDA device, from the
+    kernel library: the persistent grid (SM count x resident blocks per
+    SM; min(B, grid) blocks launch), blocks per SM, dynamic shared memory
+    per block, registers and local (spill) bytes per thread, SM count."""
+    from . import _build
+
+    lib = _build.load()
+    info = (C.c_int * len(LAUNCH_INFO))()
+    with torch.cuda.device(torch.device(device)):
+        rc = lib.pdmp3_granule_launch_info(int(bool(exact)), info)
+    if rc != 0:
+        raise RuntimeError("granule launch info failed: "
+                           + lib.pdmp3_cuda_error_string(rc).decode())
+    return dict(zip(LAUNCH_INFO, info))
 
 
 def check_state(state, B: int, device) -> None:
@@ -143,6 +187,11 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
     pcm = torch.empty((B, 576, 2), dtype=torch.int16, device=ix.device)
     if B == 0:
         return pcm, state
+    if not family:
+        check_bulk_alignment(ix=ix, meta=meta, store=state.store,
+                             v_blocks=state.v_blocks, pcm=pcm, scf_l=scf_l,
+                             scf_s=scf_s, prev_lines=state.prev_lines,
+                             active=active)
     ptr = [None if t is None else t.data_ptr() for t in (
         ix, scf_l, scf_s, meta, active, is_pos if family else None,
         state.store, state.v_blocks, state.prev_lines, pcm)]

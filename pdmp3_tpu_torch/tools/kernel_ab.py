@@ -2,22 +2,36 @@
 """Compare this checkout's CUDA kernels with another checkout's on one GPU.
 
     python3 pdmp3_tpu_torch/tools/kernel_ab.py OTHER_CHECKOUT
+    python3 pdmp3_tpu_torch/tools/kernel_ab.py --ablate
 
 Builds both checkouts' kernel libraries, then:
 
 1. times K1, K2 and K4 (both modes) of each checkout at B = 8192 on the
-   same synthetic operands (CUDA events, median of 25 launches), each
-   checkout in its own process, in the order given by ``--order``
-   (default: other, this, this, other), one JSON line per process;
+   same synthetic operands (CUDA events, median of 25 launches), and K1
+   against K5 at ng = 1 (the same granule with the state staged in
+   shared memory), interleaved launch by launch; each checkout in its
+   own process, in the order given by ``--order`` (default: other,
+   this, this, other), one JSON line per process;
 2. compares the SASS of every kernel the two libraries share
    (``cuobjdump -sass``, addresses and encodings dropped) and prints,
-   per kernel, whether the instruction streams are identical.
+   per kernel, whether the instruction streams are identical, with the
+   static counts of the memory, barrier and f32 instructions
+   (``SASS_OPS``) of every kernel of both libraries;
+3. prints each checkout's registers, spills and shared memory per
+   kernel instance from its build log (``-Xptxas -v``).
 
 Both measurements belong in one call: device times spread between calls
 by more than the differences they are meant to show.  The card's name
 and power limit are printed first.  An older checkout whose package
 imports another package of this repository finds it through PYTHONPATH,
 which is set to this checkout's root for its process.
+
+``--ablate`` instead times this checkout against copies of its package
+(``build/kernel_ab/<stages>/``) whose K1/K2 body skips one stage of the
+slot loop (``STAGES``: its block emptied), and one that skips all of
+them, in the order this, each copy, this: what each stage costs per
+launch, and what the staging, barriers and copies cost alone.  The
+copies compute wrong PCM; only their times mean anything.
 """
 from __future__ import annotations
 
@@ -25,6 +39,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -32,6 +47,18 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 B = 8192
 LAUNCHES = 25
+# SASS opcodes counted per kernel: opcode prefix -> label (LDS.64 and
+# LDS.128 are also counted within LDS)
+SASS_OPS = ("LDG", "LDS", "LDS.64", "LDS.128", "STS", "STG", "LDGSTS",
+            "UBLKCP", "SYNCS", "BAR", "FMUL", "FADD", "DMUL", "DADD", "LDL",
+            "STL")
+# the comment that opens each stage of the slot loop in
+# csrc/granule_persist.cuh; --ablate empties the braced block after it
+STAGES = {"front": "// ---- requantize + stereo",
+          "antialias": "// ---- antialias",
+          "imdct": "// ---- IMDCT",
+          "matrix": "// ---- polyphase matrixing",
+          "fir": "// ---- 16-tap D-window FIR"}
 
 
 def time_kernels(tree: str) -> dict:
@@ -51,6 +78,46 @@ def time_kernels(tree: str) -> dict:
         raise RuntimeError(f"imported {_build.__file__}, not {tree}")
     _build.ensure_built()
     dev = torch.device("cuda")
+    ops = synthetic_operands(dev)
+
+    def median_ms(fn, n: int = LAUNCHES) -> float:
+        times = []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    res = {}
+    for exact in (False, True):
+        st = init_state(B, dev)
+        res["k2" if exact else "k1"] = median_ms(
+            lambda: FS.fused_granule_step(*ops, 0, st, exact=exact))
+    res.update(k1_vs_k5_ng1(ops, init_state(B, dev), init_state(B, dev),
+                            median_ms))
+    f = D.fields(ops[3])
+    bt = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
+    xa = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (B, 2, 32, 18)).astype(np.float32)).to(dev)
+    for exact in (True, False):
+        st = init_state(B, dev)
+        res["k4_exact" if exact else "k4_fast"] = median_ms(
+            lambda: BH.back_half_step(xa, st, bt, ops[4], exact))
+    return res
+
+
+def synthetic_operands(dev, B: int = B) -> tuple:
+    """K1's operands (ix, scf_l, scf_s, meta, active) for B slots from a
+    seeded generator: random lines below 400, layouts of every kind
+    (long, short, mixed), MS and intensity on random slots, every slot
+    active."""
+    import numpy as np
+    import torch
+
     g = np.random.default_rng(0)
 
     def t(a):
@@ -70,35 +137,27 @@ def time_kernels(tree: str) -> dict:
     meta[:, 22] = g.integers(0, 2, B)    # MS
     meta[:, 23] = g.integers(0, 2, B)    # intensity
     meta[:, 24] = 2
-    ops = (t(ix), t(g.integers(0, 8, (B, 2, 22)).astype(np.int16)),
+    return (t(ix), t(g.integers(0, 8, (B, 2, 22)).astype(np.int16)),
            t(g.integers(0, 8, (B, 2, 39)).astype(np.int16)), t(meta),
            torch.ones(B, dtype=torch.int32, device=dev))
 
-    def median_ms(fn) -> float:
-        times = []
-        for _ in range(LAUNCHES):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
 
-    res = {}
-    for exact in (False, True):
-        st = init_state(B, dev)
-        res["k2" if exact else "k1"] = median_ms(
-            lambda: FS.fused_granule_step(*ops, 0, st, exact=exact))
-    f = D.fields(ops[3])
-    bt = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
-    xa = t(g.standard_normal((B, 2, 32, 18)).astype(np.float32))
-    for exact in (True, False):
-        st = init_state(B, dev)
-        res["k4_exact" if exact else "k4_fast"] = median_ms(
-            lambda: BH.back_half_step(xa, st, bt, ops[4], exact))
-    return res
+
+def k1_vs_k5_ng1(ops, s1, s5, median_ms) -> dict:
+    """K1 and K5 at ng = 1 (frame_step over the same granule, parity 0)
+    on the same operands, alternating launch by launch: medians and
+    their ratio."""
+    from pdmp3_tpu_torch.ops import frame_step as FR
+    from pdmp3_tpu_torch.ops import fused_step as FS
+
+    f_ops = [o[None] for o in ops]
+    k1, k5 = [], []
+    for _ in range(LAUNCHES):
+        k1.append(median_ms(lambda: FS.fused_granule_step(*ops, 0, s1), 1))
+        k5.append(median_ms(lambda: FR.frame_step(*f_ops, (0,), s5), 1))
+    m1, m5 = sorted(k1)[LAUNCHES // 2], sorted(k5)[LAUNCHES // 2]
+    return {"k1_interleaved": m1, "k5_ng1_interleaved": m5,
+            "k5_ng1_over_k1": m5 / m1}
 
 
 def build(tree: str) -> str:
@@ -113,6 +172,45 @@ def build(tree: str) -> str:
 
 def _env() -> dict:
     return dict(os.environ, PYTHONPATH=HERE)
+
+
+def time_tree(tree: str) -> dict:
+    """time_kernels(tree) in a process of its own."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--time", tree], check=True,
+                         stdout=subprocess.PIPE, text=True, env=_env())
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def skip_stages(src: str, stages: list[str]) -> str:
+    """granule_persist.cuh's text with the block after each of `stages`'
+    opening comments emptied."""
+    for st in stages:
+        lo = src.index("{", src.index(STAGES[st]))
+        depth, hi = 0, lo
+        while True:
+            depth += {"{": 1, "}": -1}.get(src[hi], 0)
+            if depth == 0:
+                break
+            hi += 1
+        src = src[:lo] + "{}" + src[hi + 1:]
+    return src
+
+
+def ablated_tree(stages: list[str]) -> str:
+    """Root of a copy of this checkout's package whose K1/K2 body skips
+    `stages`."""
+    root = os.path.join(HERE, "build", "kernel_ab", "+".join(stages))
+    pkg = os.path.join(root, "pdmp3_tpu_torch")
+    shutil.rmtree(pkg, ignore_errors=True)
+    shutil.copytree(os.path.join(HERE, "pdmp3_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(pkg, "csrc", "granule_persist.cuh")
+    with open(path) as f:
+        src = skip_stages(f.read(), stages)
+    with open(path, "w") as f:
+        f.write(src)
+    return root
 
 
 def sass(lib: str) -> dict:
@@ -134,28 +232,60 @@ def sass(lib: str) -> dict:
     return out
 
 
+def sass_counts(instructions: list[str]) -> dict:
+    """Static counts of the SASS_OPS opcodes (predicates dropped): an
+    entry with a width (LDS.128) counts the opcodes of that base with
+    that width among their modifiers."""
+    ops = [(ln.split()[1] if ln.startswith("@") else ln.split()[0])
+           .split(".") for ln in instructions if ln.strip()]
+    out = {}
+    for k in SASS_OPS:
+        base, _, width = k.partition(".")
+        out[k] = sum(op[0] == base and (not width or width in op[1:])
+                     for op in ops)
+    return out
+
+
+def ptxas(tree: str) -> list[str]:
+    """Registers, spills and shared memory per kernel instance from
+    `tree`'s build log."""
+    sys.path.insert(0, HERE)
+    from pdmp3_tpu_torch.ops._build import ptxas_summary
+    with open(os.path.join(tree, "build", "torch_kernels",
+                           "build.log")) as f:
+        return ptxas_summary(f.read())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("other", help="root of the other checkout")
+    ap.add_argument("other", nargs="?", help="root of the other checkout")
     ap.add_argument("--order", default="other,this,this,other",
                     help="comma-separated run order of 'this' and 'other'")
+    ap.add_argument("--ablate", action="store_true",
+                    help="time K1/K2 with each stage skipped instead")
     ap.add_argument("--time", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
         print(json.dumps(time_kernels(args.time)))
         return 0
+    if not args.ablate and args.other is None:
+        ap.error("give OTHER_CHECKOUT or --ablate")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
+    if args.ablate:
+        skips = [[st] for st in STAGES] + [list(STAGES)]
+        runs = [("this", HERE)] + [
+            ("skip " + "+".join(s), ablated_tree(s)) for s in skips] + [
+            ("this", HERE)]
+        for label, tree in runs:
+            print(json.dumps({"tree": label, **time_tree(tree)}))
+        return 0
     trees = {"this": HERE, "other": os.path.abspath(args.other)}
     libs = {k: build(v) for k, v in trees.items()}
     for k in args.order.split(","):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              trees[k], "--time", trees[k]], check=True,
-                             capture_output=True, text=True, env=_env())
-        print(json.dumps({"tree": k,
-                          **json.loads(out.stdout.splitlines()[-1])}))
+        print(json.dumps({"tree": k, **time_tree(trees[k])}))
     this, other = sass(libs["this"]), sass(libs["other"])
     for name in sorted(set(this) & set(other)):
         print(json.dumps({"kernel": name, "instructions": len(this[name]),
@@ -163,6 +293,12 @@ def main() -> int:
     for name in sorted(set(this) ^ set(other)):
         print(json.dumps({"kernel": name, "only_in":
                           "this" if name in this else "other"}))
+    for k, lib in (("this", this), ("other", other)):
+        for name in sorted(lib):
+            print(json.dumps({"tree": k, "kernel": name,
+                              "instructions": len(lib[name]),
+                              "sass_counts": sass_counts(lib[name])}))
+        print(json.dumps({"tree": k, "ptxas": ptxas(trees[k])}))
     return 0
 
 

@@ -27,7 +27,8 @@ from pdmp3_tpu_torch.ops import fused_step as FS
 from pdmp3_tpu_torch.ops import rounding as R
 from test_jax_decoder import _band12_zero_bits_stream
 from test_pallas import _frames
-from test_torch_fused_step import wire_from_batch
+from test_torch_fused_step import (IDLE_SEAMS, RAGGED_B, check_ragged_seams,
+                                   wire_from_batch)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import prove_exact_emulations as P  # noqa: E402
@@ -297,3 +298,14 @@ def test_k6_chunks_match_plain_versions_on_cuda():
         res = R.sweep(name, 24, dev, chunks=[0, 1, 127, 128, 129, 255])
         assert R.LAUNCHES == n0 + 6
         assert res["mismatching_chunks"] == [], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", IDLE_SEAMS)
+@pytest.mark.parametrize("n", RAGGED_B)
+def test_k2_ragged_batches_and_idle_seams_on_cuda(n, pattern):
+    """K2 at B = 1, 2, grid - 1, grid + 1 and 2 grid + 3 (grid read from
+    the kernel library) with idle slots at the ring's seams, both granule
+    parities: bitwise equal to the plain version."""
+    _cuda()
+    check_ragged_seams(n, pattern, exact=True)

@@ -14,6 +14,9 @@ Tolerances:
   1e-5 of the largest value is ~80 ulp at that scale, while a wrong
   stage is off by O(value).
 """
+import importlib.util
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -208,3 +211,177 @@ def test_kernel_matches_plain_version_on_cuda():
                 assert torch.equal(a.view(torch.int32),
                                    b.view(torch.int32)), name
             assert not pk[3].any()
+
+
+# ---- K1 / K2 as persistent kernels: the table image, the alignment the
+# bulk copies need, ragged batches and idle slots at the ring's seams ----
+
+def _image_sections():
+    from pdmp3_tpu_torch.ops import consts as CC
+    c = CC.host_consts(0)
+    im = c["granule_smem"]
+    bounds = (CC.SMEM_COS36, CC.SMEM_IWIN, CC.SMEM_C3P, CC.SMEM_W2P,
+              CC.SMEM_NWIN_T, CC.SMEM_SYND, CC.SMEM_FLOATS)
+    shapes = ((18, 36), (4, 36), (3, 18, 36), (3, 36), (32, 64), (16, 32))
+    names = ("cos36", "imdct_win", "c3p", "win2p", "nwin_t", "synth_d")
+    return c, {n: im[a:b].reshape(s) for n, a, b, s in
+               zip(names, bounds, bounds[1:], shapes)}
+
+
+@pytest.mark.parametrize("name", ["cos36", "imdct_win", "c3p", "win2p",
+                                  "nwin_t", "synth_d"])
+def test_granule_smem_image_reindexes_tables(name):
+    """Each section of K1/K2's shared-memory table image equals its
+    source table re-indexed: the short window w's basis and window moved
+    to the output p they land on (c3p[w, m, p] = c3[m, 6w + p - 6],
+    win2p[w, p] = win2[p - 6 - 6w], zero where w does not reach p),
+    nwin transposed, the rest as they are."""
+    c, sec = _image_sections()
+    got = sec[name]
+    assert got.dtype == np.float32
+    if name == "c3p" or name == "win2p":
+        want = np.zeros_like(got)
+        for w in range(3):
+            for p in range(6 + 6 * w, 18 + 6 * w):
+                if name == "c3p":
+                    want[w, :, p] = c["c3"][:, 6 * w + p - 6]
+                else:
+                    want[w, p] = c["win2"][p - 6 - 6 * w]
+        # every nonzero coefficient of c3 appears once
+        if name == "c3p":
+            assert np.count_nonzero(got) == np.count_nonzero(c["c3"])
+    elif name == "nwin_t":
+        want = c["nwin"].T
+    else:
+        want = c[name]
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  np.ascontiguousarray(want).view(np.uint32))
+
+
+@pytest.mark.parametrize("name", sorted(FS.BULK_ALIGN))
+def test_bulk_alignment_check_raises_on_misaligned_operand(name):
+    """K1/K2 bulk-copy ix, meta, store, v_blocks and PCM (16-byte
+    aligned) and copy scf_l, scf_s, prev_lines and active by 4-byte
+    words: an operand that starts off that alignment raises ValueError,
+    aligned ones pass."""
+    align = FS.BULK_ALIGN[name]
+    base = torch.zeros(4096, dtype=torch.int16)
+    assert base.data_ptr() % 64 == 0
+    FS.check_bulk_alignment(**{name: base[align // 2:]})   # align bytes
+    with pytest.raises(ValueError, match=name):         # align / 2 bytes
+        FS.check_bulk_alignment(**{name: base[align // 4:]})
+
+
+@pytest.mark.parametrize("stage", ["front", "antialias", "imdct", "matrix",
+                                   "fir"])
+def test_kernel_ab_ablation_empties_one_stage(stage):
+    """kernel_ab.py --ablate finds each stage's opening comment once in
+    the K1/K2 body and empties the block after it; the stages are
+    disjoint, so skipping the others afterwards equals skipping all."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab", os.path.join(root, "pdmp3_tpu_torch", "tools",
+                                  "kernel_ab.py"))
+    K = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(K)
+    with open(os.path.join(root, "pdmp3_tpu_torch", "csrc",
+                           "granule_persist.cuh")) as f:
+        src = f.read()
+    marker = K.STAGES[stage]
+    assert src.count(marker) == 1
+    out = K.skip_stages(src, [stage])
+    after = out[out.index(marker):]
+    assert after[after.index("{"):].startswith("{}")
+    assert len(out) < len(src) and out.count("{") == out.count("}")
+    rest = [s for s in K.STAGES if s != stage]
+    assert K.skip_stages(out, rest) == K.skip_stages(src, list(K.STAGES))
+
+
+RAGGED_B = ("1", "2", "grid-1", "grid+1", "2grid+3")
+IDLE_SEAMS = ("none", "first", "last", "two_in_a_row", "alternating")
+
+
+def ragged_batch(n: str, grid: int) -> int:
+    return {"1": 1, "2": 2, "grid-1": grid - 1, "grid+1": grid + 1,
+            "2grid+3": 2 * grid + 3}[n]
+
+
+def idle_slots(pattern: str, B: int, grid: int) -> list[int]:
+    """Slots made idle at the seams of the persistent blocks' two-stage
+    ring (block j decodes slots j, j + grid, ...): the first slot, the
+    last, two in a row of one block, or every other slot of each block
+    (every other slot when B <= grid); "none" leaves every slot
+    active."""
+    if pattern == "none":
+        return []
+    if pattern == "first":
+        return [0]
+    if pattern == "last":
+        return [B - 1]
+    if pattern == "two_in_a_row":
+        return [s for s in (1, 1 + grid) if s < B] or [0]
+    step = grid if B > grid else 1
+    return [b for b in range(B) if (b // step) % 2 == 1] or [0]
+
+
+def tiled_operands(B: int, dev, seed: int = 0):
+    """Both granules' wire operands of the 8 test streams' first frame,
+    tiled over B slots, and a random starting state from numpy (seeded):
+    ([(ix, scf_l, scf_s, meta, active, gr1)] * 2, DecoderState)."""
+    frames = _frames(1)
+    idx = torch.arange(B) % len(frames)
+    grans = []
+    for batch in JM.frame_to_batches([fr[0] for fr in frames]):
+        ix, scf_l, scf_s, meta, act, gr1 = wire_from_batch(batch)
+        grans.append([t[idx].contiguous().to(dev)
+                      for t in (ix, scf_l, scf_s, meta, act)] + [gr1])
+    rng = np.random.default_rng(seed)
+    st = DecoderState(*(torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+        for s in ((B, 2, 32, 18), (B, 2, 15, 64), (B, 3))))
+    return grans, st
+
+
+def check_ragged_seams(n: str, pattern: str, exact: bool) -> None:
+    """K1 (K2 when exact) vs its plain version over granule 0 then 1 at
+    the ragged B `n` with the idle `pattern`: PCM, store, v_blocks and
+    prev_lines bitwise; idle slots silent and frozen; launches counted."""
+    dev = torch.device("cuda")
+    grid = FS.granule_launch_info(dev, exact)["grid"]
+    B = ragged_batch(n, grid)
+    grans, st0 = tiled_operands(B, dev)
+    idle = idle_slots(pattern, B, grid)
+    names = ("store", "v_blocks", "prev_lines")
+    sk, sr = (DecoderState(*(getattr(st0, k).clone() for k in names))
+              for _ in range(2))
+    attr = "LAUNCHES_EXACT" if exact else "LAUNCHES"
+    for ix, scf_l, scf_s, meta, act, gr1 in grans:
+        act[idle] = 0
+        n0 = getattr(FS, attr)
+        pk, sk = FS.fused_granule_step(ix, scf_l, scf_s, meta, act, gr1, sk,
+                                       exact=exact)
+        assert getattr(FS, attr) == n0 + 1
+        pr, sr = FS.fused_granule_step_ref(ix, scf_l, scf_s, meta, act, gr1,
+                                           sr, exact=exact)
+        assert torch.equal(pk, pr), (n, pattern, gr1)
+        for name in names:
+            a, b = getattr(sk, name), getattr(sr, name)
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                (n, pattern, gr1, name)
+        assert not pk[idle].any()
+        assert len(idle) == B or pk.any()
+    for name in names:
+        assert torch.equal(getattr(sk, name)[idle].view(torch.int32),
+                           getattr(st0, name)[idle].view(torch.int32)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", IDLE_SEAMS)
+@pytest.mark.parametrize("n", RAGGED_B)
+def test_k1_ragged_batches_and_idle_seams_on_cuda(n, pattern):
+    """K1 at B = 1, 2, grid - 1, grid + 1 and 2 grid + 3 (grid read from
+    the kernel library) with idle slots at the ring's seams, both granule
+    parities: bitwise equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    check_ragged_seams(n, pattern, exact=False)
