@@ -30,17 +30,20 @@ from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
 6. the exact main path: phase 3 with ``exact=True`` (K2), and its
    watched slots bitwise equal to the native decoder;
 7. K4, the back-half kernel, against its plain version in both modes on
-   one frame's post-antialias spectra, bitwise and timed; then the fused
-   exact route (K2) against the split one (stage ops + K4 + the f64
-   quantize), bitwise;
+   one frame's post-antialias spectra, bitwise and timed, and timed at
+   one slot (the shape the per-stream route launches it at); then the
+   fused exact route (K2) against the split one (stage ops + K4 + the
+   f64 quantize), bitwise;
 8. the per-stream route: ``pdmp3_tpu_torch.api.decode_file`` with
    ``TorchDSP(device="cuda")`` (K4) on 6 generated streams, exact
    byte-equal to the native decoder and fast within 1 LSB;
 9. K6: the exact kernel's three float64 rounding points over all 2^32
    f32 inputs on the card against their plain f64 versions, bitwise;
 10. K3, the LSF granule kernel, fast and exact, against its plain version
-    on one natively parsed LSF step per family (MPEG-2, MPEG-2.5),
-    bitwise, both timed;
+    on one natively parsed LSF step per family (MPEG-2, MPEG-2.5), at B
+    and at the ragged B = 2 x grid + 3 (K3's grid) with the is_pos
+    sidecar at an address that is 4-byte but not 16-byte aligned;
+    bitwise, both timed, K3's launch geometry printed;
 11. the LSF serving pools: ``StreamDecoder(8192, family=f, exact=e,
     device="cuda")`` for both families and precisions, fed by
     ``LoopFeeder`` from 64 distinct 12-frame LSF streams each, 2 warm-up
@@ -54,9 +57,11 @@ from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
     step chained): phase 2's MPEG-1 frame (parities (0, 1), slots idle
     in both granules or in the second only), a directed band-12 fixture
     whose carry holds small subnormal bit patterns, and each LSF
-    family's frame taken twice (parities (0, 0)); bitwise, timed, and
-    timed against two K1 launches interleaved in the same run, and K5 at
-    ng = 1 (granule 0 alone) against one K1 launch, interleaved;
+    family's frame taken twice (parities (0, 0)), at B and at the ragged
+    B = 2 x grid + 3 (K5's grid); bitwise, timed, K5's launch geometry
+    printed, and timed against two K1 launches interleaved in the same
+    run, and K5 at ng = 1 (granule 0 alone) against one K1 launch,
+    interleaved;
 15. frame-fused serving: phase 3 with ``models.decoder._FRAME_FUSED``
     set, K5 once per frame step and no K1, its watched slots byte-equal
     to phase 3's; the device replay of both routes interleaved;
@@ -342,6 +347,12 @@ def clone_state(s):
                         s.prev_lines.clone())
 
 
+def slot_state(s, n: int):
+    """The first n slots of a state (views)."""
+    from pdmp3_tpu_torch.models.decoder import DecoderState
+    return DecoderState(s.store[:n], s.v_blocks[:n], s.prev_lines[:n])
+
+
 def pcm_error(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
     return int(d.max()), float((d != 0).float().mean())
@@ -382,6 +393,11 @@ def granule_args(fr: dict, gr: int) -> tuple:
             fr["meta"][gr].contiguous(), fr["active"], gr)
 
 
+def granule_kw(fr: dict) -> dict:
+    """The LSF sidecar of an LSF frame as a keyword of the granule step."""
+    return {} if fr.get("is_pos") is None else {"is_pos": fr["is_pos"]}
+
+
 def compare_steps(fr: dict, step_k, step_r, phase: str, grs=(0, 1),
                   st0=None) -> dict:
     """Run the granules grs with a kernel step and its plain version from
@@ -392,7 +408,7 @@ def compare_steps(fr: dict, step_k, step_r, phase: str, grs=(0, 1),
     def run(step, state):
         outs = []
         for gr in grs:
-            pcm, state = step(*granule_args(fr, gr), state)
+            pcm, state = step(*granule_args(fr, gr), state, **granule_kw(fr))
             outs.append(pcm)
         return torch.cat(outs, 1), state
 
@@ -438,44 +454,53 @@ def bitwise_report(pk, sk, pr, sr, st0, phase: str) -> dict:
 
 
 def ragged_frame(fr: dict, n: int) -> dict:
-    """The first n slots of a parsed MPEG-1 frame, state copied."""
-    from pdmp3_tpu_torch.models.decoder import DecoderState
-
-    st = fr["st0"]
+    """The first n slots of a parsed frame, state copied; an LSF frame's
+    is_pos sidecar copied to an address 4 bytes past a 16-byte boundary,
+    where the packed LSF wire puts it when its B % 4 != 0."""
+    ip = fr["is_pos"]
+    if ip is not None:
+        buf = torch.empty(n * 64 + 8, dtype=torch.int16, device=ip.device)
+        off = (4 - buf.data_ptr() % 16) % 16 // 2
+        ip = buf[off:off + n * 64].view(n, 64)
+        ip.copy_(fr["is_pos"][:n])
+        check(ip.data_ptr() % 16 == 4, "is_pos not 4 past 16-byte")
     return dict({k: fr[k][:, :n] for k in ("ix", "scf_l", "scf_s", "meta")},
-                active=fr["active"][:n], is_pos=None, st0=DecoderState(
-                    st.store[:n].clone(), st.v_blocks[:n].clone(),
-                    st.prev_lines[:n].clone()))
+                active=fr["active"][:n], is_pos=ip,
+                st0=clone_state(slot_state(fr["st0"], n)))
 
 
 def phase_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
     """The fused kernel (family 0: K1, or K2 when exact; LSF: K3) vs its
-    plain version on one natively parsed frame (for K1 and K2 also on its
-    first 2 x grid + 3 slots, a ragged B, with their launch geometry);
-    both timed per granule step."""
+    plain version on one natively parsed frame and on its first 2 x grid
+    + 3 slots, a ragged B (grid: the instance's persistent grid, printed
+    with its launch geometry); both timed per granule step."""
     from pdmp3_tpu_torch.ops import fused_step as FS
 
     phase = ("phase 10" if family else "phase 5" if exact else "phase 2")
-    lsf = dict(family=family, is_pos=fr["is_pos"]) if family else {}
-    step_k = functools.partial(FS.fused_granule_step, exact=exact, **lsf)
+    step_k = functools.partial(FS.fused_granule_step, exact=exact,
+                               family=family)
     step_r = functools.partial(FS.fused_granule_step_ref, exact=exact,
-                               **lsf)
-    res = compare_steps(fr, step_k, step_r, phase,
-                        grs=(0,) if family else (0, 1))
-    if not family:
-        launch = FS.granule_launch_info(fr["ix"].device, exact)
-        n = 2 * launch["grid"] + 3
-        res["launch"] = launch
-        res["ragged"] = dict(batch_slots=n, **compare_steps(
-            ragged_frame(fr, n), step_k, step_r, f"{phase} ragged B={n}"))
+                               family=family)
+    grs = (0,) if family else (0, 1)
+    res = compare_steps(fr, step_k, step_r, phase, grs=grs)
+    launch = FS.granule_launch_info(fr["ix"].device, exact, family)
+    n = 2 * launch["grid"] + 3
+    res["launch"] = launch
+    rfr = ragged_frame(fr, n)
+    res["ragged"] = dict(batch_slots=n, **compare_steps(
+        rfr, step_k, step_r, f"{phase} ragged B={n}", grs=grs))
+    if family:
+        res["ragged"]["is_pos_address_mod_16"] = rfr["is_pos"].data_ptr() % 16
     if exact and not family:
         res["band12_subnormal"] = phase_band12_subnormal(fr, step_k,
                                                          step_r)
     # one granule step per timed call, each on its own state copy
     sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
-    args = granule_args(fr, 0)
-    res["kernel_ms"] = median_ms(lambda: step_k(*args, sk), TIMED_LAUNCHES)
-    res["plain_ms"] = median_ms(lambda: step_r(*args, sr), TIMED_LAUNCHES)
+    args, kw = granule_args(fr, 0), granule_kw(fr)
+    res["kernel_ms"] = median_ms(lambda: step_k(*args, sk, **kw),
+                                 TIMED_LAUNCHES)
+    res["plain_ms"] = median_ms(lambda: step_r(*args, sr, **kw),
+                                TIMED_LAUNCHES)
     res.update(granule_bound(B, int((fr["active"] != 0).sum()),
                              lsf=family != 0))
     return res
@@ -519,8 +544,8 @@ def frame_operands(fr: dict, family: int = 0) -> tuple:
         lsf = dict(family=family, is_pos=torch.stack([fr["is_pos"]] * 2))
         parities = (0, 0)
     else:
-        ops = [fr[k] for k in ("ix", "scf_l", "scf_s")] + [
-            fr["meta"].contiguous()]
+        ops = [fr[k].contiguous() for k in ("ix", "scf_l", "scf_s",
+                                              "meta")]
         lsf, parities = {}, (0, 1)
     active = torch.stack([fr["active"]] * 2)
     active[1, IDLE_SECOND] = 0
@@ -542,16 +567,25 @@ def compare_frame(ops, parities, lsf, st0, phase: str) -> dict:
 
 
 def phase_frame_kernel(fr: dict, family: int = 0) -> dict:
-    """Phase 14: K5 vs its plain version on one parsed frame, bitwise
-    (MPEG-1 also on the directed band-12 fixture), both timed per launch;
-    for MPEG-1 also two K1 launches on the same granules, interleaved
-    with K5's in one loop."""
+    """Phase 14: K5 vs its plain version on one parsed frame and on its
+    first 2 x grid + 3 slots (K5's grid, with its launch geometry),
+    bitwise (MPEG-1 also on the directed band-12 fixture), both timed
+    per launch; for MPEG-1 also two K1 launches on the same granules,
+    interleaved with K5's in one loop."""
     from pdmp3_tpu_torch.ops import frame_step as FR
     from pdmp3_tpu_torch.ops import fused_step as FS
 
     phase = f"phase 14 family {family}"
     ops, parities, lsf = frame_operands(fr, family)
     res = compare_frame(ops, parities, lsf, fr["st0"], phase)
+    launch = FS.granule_launch_info(fr["ix"].device, family=family,
+                                    frame=True)
+    n = 2 * launch["grid"] + 3
+    rfr = ragged_frame(fr, n)
+    rops, _, rlsf = frame_operands(rfr, family)
+    res["launch"] = launch
+    res["ragged"] = dict(batch_slots=n, **compare_frame(
+        rops, parities, rlsf, rfr["st0"], f"{phase} ragged B={n}"))
     if not family:
         res["band12_carry"] = phase_band12_carry(ops, fr["st0"])
     sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
@@ -578,8 +612,8 @@ def phase_frame_kernel(fr: dict, family: int = 0) -> dict:
         "k5_over_two_k1": float(np.median(k5) / np.median(k1)),
         "two_k1_bound_ms": 2 * granule_bound(
             B, int((ops[4][0] != 0).sum()))["bound_ms"]}
-    # K5 at ng = 1: granule 0 alone, one block per slot (K1's former
-    # design) with the state staged in shared memory
+    # K5 at ng = 1: granule 0 alone, K1's work with the slot's state in a
+    # state set instead of the stage
     ops1 = [o[0:1] for o in ops]
     s5, s1 = clone_state(fr["st0"]), clone_state(fr["st0"])
     k5, k1 = [], []
@@ -630,8 +664,10 @@ def phase_band12_carry(ops: list, st0) -> dict:
 
 def phase_back_half(fr: dict) -> dict:
     """K4 vs its plain version, exact and fast, on the post-antialias
-    spectra of granule 0, bitwise and timed; then the fused exact route
-    (K2) vs the split one (stage ops + K4 + f64 quantize), bitwise."""
+    spectra of granule 0, bitwise and timed, and timed at one slot (slot
+    0), the shape at which the per-stream route (TorchDSP) launches it;
+    then the fused exact route (K2) vs the split one (stage ops + K4 +
+    f64 quantize), bitwise."""
     from pdmp3_tpu_torch.ops import back_half as BH
     from pdmp3_tpu_torch.ops import dsp as D
     from pdmp3_tpu_torch.ops import fused_step as FS
@@ -665,8 +701,15 @@ def phase_back_half(fr: dict) -> dict:
         r["plain_ms"] = median_ms(
             lambda: BH.back_half_step_ref(xa, sr, bt, fr["active"], exact),
             TIMED_LAUNCHES)
+        one = (xa[:1], clone_state(slot_state(fr["st0"], 1)), bt[:1],
+               fr["active"][:1])
+        r["one_slot_ms"] = median_ms(lambda: BH.back_half_step(*one, exact),
+                                     TIMED_LAUNCHES)
+        r["one_slot_plain_ms"] = median_ms(
+            lambda: BH.back_half_step_ref(*one, exact), TIMED_LAUNCHES)
         res[mode] = r
     res.update(back_half_bound(B, int((fr["active"] != 0).sum())))
+    res["one_slot"] = back_half_bound(1, 1)
     res["fused_vs_split"] = compare_steps(
         fr, functools.partial(FS.fused_granule_step, exact=True),
         functools.partial(BH.split_granule_step, exact=True),
@@ -1142,6 +1185,8 @@ def main() -> int:
     print("phase 7 K4 vs plain, fused vs split:", json.dumps(k4))
     k5 = {0: phase_frame_kernel(fr)}
     print("phase 14 K5 MPEG-1 vs plain, vs two K1:", json.dumps(k5[0]))
+    print("phase 14 K5 MPEG-1 launch:", launch_line(
+        k5[0]["launch"], ptxas, "frame_fused_kernel<false>"))
     del fr
 
     api = phase_api(dev)
@@ -1164,9 +1209,14 @@ def main() -> int:
             k3[(family, exact)] = r
             print(f"phase 10 K3 family {family} exact={exact} vs plain:",
                   json.dumps(r))
+            print(f"phase 10 K3 family {family} exact={exact} launch:",
+                  launch_line(r["launch"], ptxas, "fused_granule_lsf_kernel"
+                              f"<{str(exact).lower()}>"))
         k5[family] = phase_frame_kernel(lfr, family)
         print(f"phase 14 K5 family {family} vs plain:",
               json.dumps(k5[family]))
+        print(f"phase 14 K5 family {family} launch:", launch_line(
+            k5[family]["launch"], ptxas, "frame_fused_kernel<true>"))
         del lfr
         lwatch = watched_slots(lspecs)
         rates = [int(T.SAMPLE_RATES_FAM[family][sp["sfreq"]])
@@ -1215,7 +1265,7 @@ def main() -> int:
                      max(k3[(f, exact)]["pcm_max_lsb"]
                          for f in LSF_FAMILIES),
                      r1["kernel_ms"], r1["plain_ms"], r1,
-                     launches_by_family=by_family,
+                     launch=r1["launch"], launches_by_family=by_family,
                      ms_by_family={f: k3[(f, exact)]["kernel_ms"]
                                    for f in LSF_FAMILIES},
                      plain_ms_by_family={f: k3[(f, exact)]["plain_ms"]
@@ -1235,7 +1285,12 @@ def main() -> int:
               max(k4["exact"]["max_abs_err"], k4["fast"]["max_abs_err"]),
               k4["exact"]["kernel_ms"], k4["exact"]["plain_ms"], k4,
               ms_fast=k4["fast"]["kernel_ms"],
-              plain_ms_fast=k4["fast"]["plain_ms"]),
+              plain_ms_fast=k4["fast"]["plain_ms"],
+              one_slot={"ms": k4["exact"]["one_slot_ms"],
+                        "ms_fast": k4["fast"]["one_slot_ms"],
+                        "plain_ms": k4["exact"]["one_slot_plain_ms"],
+                        "plain_ms_fast": k4["fast"]["one_slot_plain_ms"],
+                        **k4["one_slot"]}),
         entry("rounding_sweep", "rounding_sweep.cu", k6["launches"],
               k6["max_abs_err"], sum(k6["kernel_ms"].values()),
               sum(k6["plain_ms"].values()),
@@ -1245,8 +1300,9 @@ def main() -> int:
               mf["ff_kernel_launches"] + sp["k5_launches"],
               max(r["pcm_max_lsb"] for r in k5.values()),
               k5[0]["kernel_ms"], k5[0]["plain_ms"], k5[0],
-              ng=2, launches_by_family={0: mf["ff_kernel_launches"]
-                                        + sp["k5_launches"], 1: 0, 2: 0},
+              ng=2, launch=k5[0]["launch"],
+              launches_by_family={0: mf["ff_kernel_launches"]
+                                  + sp["k5_launches"], 1: 0, 2: 0},
               ms_by_family={f: r["kernel_ms"] for f, r in k5.items()},
               plain_ms_by_family={f: r["plain_ms"] for f, r in k5.items()},
               two_k1_ms=k5[0]["ab_interleaved"]["two_k1_ms"],

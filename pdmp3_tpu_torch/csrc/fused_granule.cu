@@ -6,41 +6,45 @@
 // Replaces the TPU kernel pdmp3_tpu/ops/pallas_step.py:_kernel_full
 // (_fused_granule + _back_ch_sb) for family 0 in fast mode (K1) and exact
 // mode (K2), and for families 1 and 2 in both modes (K3, LSF stereo
-// :954-1004), together with the glue of decode_granules_pallas's fast and
-// fused exact branches: for MPEG-1 the band-12 scalefactor substitution
-// and, in exact mode, the band-12 true gains; for LSF the intensity
-// sidecar and iscale; the L|R int16 pack with mono duplication, and the
-// gated prev_lines update.  Plain PyTorch twin:
-// pdmp3_tpu_torch/ops/fused_step.py:fused_granule_step_ref.
+// :954-1004), launched by pallas_step.py:full_step_t (pallas_call at
+// :1525; exact route :1575-1635), together with the glue of
+// decode_granules_pallas's fast and fused exact branches: for MPEG-1 the
+// band-12 scalefactor substitution and, in exact mode, the band-12 true
+// gains; for LSF the intensity sidecar and iscale; the L|R int16 pack
+// with mono duplication, and the gated prev_lines update.  Plain PyTorch
+// twin: pdmp3_tpu_torch/ops/fused_step.py:fused_granule_step_ref.
 //
-// K1 and K2 (granule_persist.cuh).  They replace _kernel_full's MPEG-1
-// instances, launched by pallas_step.py:full_step_t (pallas_call at
-// :1525; exact route :1575-1635).  Per slot and granule the step moves
-// about 30 KB of device memory: ix 2,304 B in, store 4,608 B and v 7,680 B
-// read and written, PCM 2,304 B out, small fields; it computes about 0.3
-// MFLOP (IMDCT, matrixing, FIR), ~10 FLOP per byte, so bytes set the
-// bound (0.0723 ms at B = 8192).  What held the former design (one
-// 576-thread block per slot, 1.17-1.31 ms on an H100 80GB HBM3 at 700 W)
-// far above it was latency: each channel read its state in mid-granule
-// behind a barrier, ten barriers a slot, and two memory instructions per
-// product.  Each part of the design answers one of those:
-// - persistent blocks: min(B, SM count x 2) blocks (granule_grid) walk
-//   the slots b = blockIdx.x + k * gridDim.x; tables and barriers are set
-//   up once per block, and no partial last wave is left;
+// What bounds them.  Per slot and granule the step moves about 30 KB of
+// device memory: ix 2,304 B in, store 4,608 B and v 7,680 B read and
+// written, PCM 2,304 B out, small fields (K3: plus a 128 B sidecar); it
+// computes about 0.3 MFLOP (IMDCT, matrixing, FIR), ~10 FLOP per byte,
+// so bytes set the bound (0.0723 ms at B = 8192).  What held the former
+// design (one 576-thread block per slot, 1.17-1.32 ms on an H100 80GB
+// HBM3 at 700 W) far above it was latency: each channel read its state
+// in mid-granule behind a barrier, ten barriers a slot, and two memory
+// instructions per product.  All four instances now run the persistent
+// body of granule_persist.cuh, and each part of its design answers one
+// of those:
+// - persistent blocks: min(B, SM count x 2) blocks (persistent_grid)
+//   walk the slots b = blockIdx.x + k * gridDim.x; tables and barriers
+//   are set up once per block, and no partial last wave is left;
 // - a two-stage ring: while slot n computes, thread 0 fetches slot n + G
 //   into the other stage with cp.async.bulk (ix, the int32 meta, store,
 //   v; 14,720 B, completion counted in bytes on the stage's mbarrier) and
-//   64 threads fetch scf_l, scf_s and prev_lines with 4-byte cp.async
-//   (only 4-byte aligned on the wire); an idle slot fetches no state;
-//   the new store, the new FIFO rows and the PCM go back by bulk stores
-//   from shared memory (fence.proxy.async, then wait_group.read before a
-//   buffer is reused).  The wrapper raises on an operand those copies
-//   cannot take (ops/fused_step.py:check_bulk_alignment);
+//   64 threads fetch scf_l, scf_s and prev_lines (K3: the 128 B is_pos
+//   sidecar instead of prev_lines) with 4-byte cp.async (only 4-byte
+//   aligned on the wire: the packed LSF wire puts is_pos at F x B x 2,612
+//   bytes); an idle slot fetches no state; the new store, the new FIFO
+//   rows and the PCM go back by bulk stores from shared memory
+//   (fence.proxy.async, then wait_group.read before a buffer is reused).
+//   The wrapper raises on an operand those copies cannot take
+//   (ops/fused_step.py:check_bulk_alignment);
 // - the tables (cos36, imdct_win, the short basis and window re-indexed
 //   by output, nwin transposed, synth_d: 21,616 B,
-//   ops/consts.py:granule_smem_image) in shared memory once per block,
-//   laid out so one LDS.128 brings the four coefficients a thread uses
-//   together; pow43 and the line maps stay on __ldg;
+//   ops/consts.py:granule_smem_image, the same for every family) in
+//   shared memory once per block, laid out so one LDS.128 brings the
+//   four coefficients a thread uses together; pow43 and the line maps
+//   (the family's, through the table pointers) stay on __ldg;
 // - dots blocked four outputs to a thread (four IMDCT outputs of one
 //   subband, four FIFO columns of one channel and time step), each output
 //   summed in exactly tree_sum's or the sequential order; the FIR gives a
@@ -50,27 +54,19 @@
 //   in the stage, 18 new rows unpadded, so rows 3..17 are the contiguous
 //   new v a bulk store takes; the matrixing's column writes conflict
 //   8-way instead): five barriers a slot where the former design had ten.
-// At two blocks per SM ptxas fits both instances in 56 registers with no
+// At two blocks per SM ptxas fits every instance in 56 registers with no
 // spills (the thread index is made opaque per slot; hoisted per-thread
-// addresses spilled otherwise) and 72,512 B of dynamic shared memory per
-// block (pdmp3_granule_launch_info; measured in PERF.md).
+// addresses spilled otherwise); dynamic shared memory per block: 72,512 B
+// (K1, K2), 72,768 B (K3) (pdmp3_granule_launch_info; measured in
+// PERF.md).
 //
-// K3 keeps the former design, the kLsf = true instance of the step's body
-// granule_step<kExact, kLsf> (granule_step.cuh, shared with the frame
-// kernel K5 of frame_fused.cu) behind fused_granule_lsf_kernel, which
-// adds the LSF operands: one 576-thread block per slot, both channels
-// (stereo couples them): one thread per spectral line for requantize and
-// stereo, one per (subband, sample) for the IMDCT and overlap-add, two
-// outputs each for the matrixing, one per PCM sample for the FIR; both
-// spectra, one channel's x_time and its FIFO in shared memory.  It reads
-// the slot's 64-entry intensity sidecar into shared memory, its
-// requantize has no sentinel-63 and no band-12 code (LSF gains stay true
-// through q = 124, and every LSF step is a granule-0 step), and its
-// stereo is the LSF one (full-spectrum MS; intensity positions from the
-// sidecar, gains k0/k1 by iscale, panning the raw pre-MS ch0 line).  The
-// family's band maps arrive through the table pointers.
+// K3's front half has no sentinel-63 and no band-12 code (LSF gains stay
+// true through q = 124, and every LSF step is a granule-0 step, which
+// latches prev_lines and never reads it), and its stereo is the LSF one
+// (full-spectrum MS; intensity positions from the sidecar, gains k0/k1
+// by iscale, panning the raw pre-MS ch0 line).
 //
-// Arithmetic, all three.  Built with -fmad=false: no product is contracted
+// Arithmetic, all four.  Built with -fmad=false: no product is contracted
 // into an FMA, so every operation rounds exactly where the plain PyTorch
 // version rounds, and the sums run in the same fixed order (fast: a
 // pairwise tree for the IMDCT and matrixing dots; exact: sequential from
@@ -83,24 +79,19 @@
 // are subnormal.  Exact mode adds, per line: for MPEG-1 the sentinel-63
 // zero gain (q >= 100) and the band-12 true gain on granule 1's ch1, and
 // the float64 rounding points of rounding.cuh (MS, the unsigned quirk,
-// quantize).  K3 moves the same bytes plus a 128 B sidecar per slot.
+// quantize).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-#include <mutex>
-
 #include "granule_persist.cuh"
-#include "granule_step.cuh"
 
 namespace {
 
 using namespace pdmp3;
 
 // K1 and K2: persistent, two resident blocks per SM (at most 56 registers
-// a thread; one block per SM measured slower, PERF.md), the body in
-// granule_persist.cuh
+// a thread; one block per SM measured slower, PERF.md)
 template <bool kExact>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_granule_kernel(const int16_t* __restrict__ ix,
@@ -112,93 +103,75 @@ fused_granule_kernel(const int16_t* __restrict__ ix,
                      float* __restrict__ v, float* __restrict__ prev,
                      uint32_t* __restrict__ pcm, Tables t,
                      const float4* __restrict__ image, int B) {
-  persistent_granules<kExact>(ix, scf_l, scf_s, meta, active, gr1,
-                              bug_compat, store, v, prev, pcm, t, image, B);
+  persistent_granules<kExact, false, false>(
+      ix, scf_l, scf_s, meta, active, gr1, bug_compat, store, v, prev, pcm,
+      t, image, B, LsfOperands{}, 1, 0u);
 }
 
-// K3 starts from K1's old bound: two resident blocks per SM
+// K3: the same body with the LSF front half, as K1 two blocks per SM;
+// every LSF step is a granule-0 step
 template <bool kExact>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_granule_lsf_kernel(const int16_t* __restrict__ ix,
                          const int16_t* __restrict__ scf_l,
                          const int16_t* __restrict__ scf_s,
                          const int32_t* __restrict__ meta,
-                         const int32_t* __restrict__ active, int gr1,
-                         int bug_compat, float* __restrict__ store,
-                         float* __restrict__ v, float* __restrict__ prev,
+                         const int32_t* __restrict__ active,
+                         float* __restrict__ store, float* __restrict__ v,
+                         float* __restrict__ prev,
                          uint32_t* __restrict__ pcm, Tables t,
+                         const float4* __restrict__ image, int B,
                          LsfOperands lsf) {
-  granule_step<kExact, true>(ix, scf_l, scf_s, meta, active, gr1,
-                             bug_compat, store, v, prev, pcm, t, lsf);
+  persistent_granules<kExact, true, false>(ix, scf_l, scf_s, meta, active,
+                                           0, 0, store, v, prev, pcm, t,
+                                           image, B, lsf, 1, 0u);
 }
 
-constexpr int kMaxDevices = 64;
-
-// the persistent grid of K1 (exact = 0) or K2 on the current device: SM
-// count x resident blocks per SM at kSmemBytes of dynamic shared memory
-// (the attribute set on first use per device); info, when not null,
-// receives {grid, blocks per SM, dynamic shared bytes, registers, local
-// (spill) bytes, SM count}.  The figures are cached per (kernel, device)
-// once, under a lock, and published by a release store, so a host thread
-// that sees the flag reads them whole.  Returns a cudaError_t.
-int granule_grid(int exact, int* grid, int* info) {
-  static int cache[2][kMaxDevices][6];
-  static std::atomic<int> filled[2][kMaxDevices];
-  static std::mutex fill_lock;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  int* c = cache[exact != 0][dev];
-  std::atomic<int>& ready = filled[exact != 0][dev];
-  if (!ready.load(std::memory_order_acquire)) {
-    std::lock_guard<std::mutex> hold(fill_lock);
-    if (!ready.load(std::memory_order_relaxed)) {
-      const auto kernel =
-          exact ? fused_granule_kernel<true> : fused_granule_kernel<false>;
-      int sms = 0, per_sm = 0;
-      cudaFuncAttributes fa;
-      if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-          (e = cudaFuncSetAttribute(
-               kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-               kSmemBytes)) != cudaSuccess ||
-          (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, kernel, kThreads, kSmemBytes)) != cudaSuccess ||
-          (e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess)
-        return (int)e;
-      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-      const int got[6] = {sms * per_sm, per_sm, kSmemBytes, fa.numRegs,
-                          (int)fa.localSizeBytes, sms};
-      for (int k = 0; k < 6; ++k) c[k] = got[k];
-      ready.store(1, std::memory_order_release);
-    }
+// the kernel of persistent instance 0..3: K1, K2, K3 fast, K3 exact
+const void* granule_kernel(int instance) {
+  switch (instance) {
+    case 0: return reinterpret_cast<const void*>(fused_granule_kernel<false>);
+    case 1: return reinterpret_cast<const void*>(fused_granule_kernel<true>);
+    case 2:
+      return reinterpret_cast<const void*>(fused_granule_lsf_kernel<false>);
+    default:
+      return reinterpret_cast<const void*>(fused_granule_lsf_kernel<true>);
   }
-  *grid = c[0];
-  if (info != nullptr)
-    for (int k = 0; k < 6; ++k) info[k] = c[k];
-  return 0;
+}
+
+int granule_grid(int instance, int* grid, int* info) {
+  return persistent_grid(instance, granule_kernel(instance),
+                         instance < 2 ? Smem<false, false>::kSmemBytes
+                                      : Smem<true, false>::kSmemBytes,
+                         grid, info);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The launch geometry of K1 (exact = 0) or K2 on the current device into
-// info[6]: grid, blocks per SM, dynamic shared memory per block (bytes),
-// registers per thread, local memory per thread (bytes), SM count.
-// Returns a cudaError_t (0 on success).
-int pdmp3_granule_launch_info(int exact, int* info) {
+int pdmp3_frame_launch_info(int lsf, int* info);  // frame_fused.cu
+
+// The launch geometry of a persistent kernel instance on the current
+// device into info[6]: grid, blocks per SM, dynamic shared memory per
+// block (bytes), registers per thread, local memory per thread (bytes),
+// SM count.  instance: 0 K1, 1 K2, 2 K3 fast, 3 K3 exact, 4 K5 MPEG-1, 5
+// K5 LSF.  Returns a cudaError_t (0 on success).
+int pdmp3_granule_launch_info(int instance, int* info) {
+  if (instance < 0 || instance >= kInstances)
+    return (int)cudaErrorInvalidValue;
+  if (instance >= 4) return pdmp3_frame_launch_info(instance - 4, info);
   int grid = 0;
-  return granule_grid(exact, &grid, info);
+  return granule_grid(instance, &grid, info);
 }
 
 // Launch one granule step for B slots on `stream`: for MPEG-1 (lsf = 0)
 // K2 when exact else K1; for the LSF families (lsf = 1, is_pos the [B][64]
-// sidecar, gr1 = 0) K3 in the precision `exact` selects.  tables: the
-// device pointers of fused_step.TABLES (maps of the step's family; the
-// LSF gains k0/k1 last).  Returns cudaGetLastError() (0 when the launch
-// was accepted).
+// sidecar, gr1 = 0) K3 in the precision `exact` selects; min(B, the
+// resident grid) blocks walk the B slots.  tables: the device pointers of
+// fused_step.TABLES (maps of the step's family; then the LSF gains k0/k1
+// and the shared-memory table image).  Returns the launch-geometry query's
+// or cudaGetLastError()'s code (0 when the launch was accepted).
 int pdmp3_fused_granule(const int16_t* ix, const int16_t* scf_l,
                         const int16_t* scf_s, const int32_t* meta,
                         const int32_t* active, const int16_t* is_pos,
@@ -208,23 +181,25 @@ int pdmp3_fused_granule(const int16_t* ix, const int16_t* scf_l,
   const Tables t = make_tables(tables);
   auto* out = reinterpret_cast<uint32_t*>(pcm);
   auto* s = (cudaStream_t)stream;
+  const auto* image = static_cast<const float4*>(tables[kTables + 2]);
+  int grid = 0;
+  const int e = granule_grid(2 * (lsf != 0) + (exact != 0), &grid, nullptr);
+  if (e != 0) return e;
+  const int blocks = grid < B ? grid : B;
   if (lsf) {
     const LsfOperands ops{is_pos, static_cast<const float*>(tables[kTables]),
                           static_cast<const float*>(tables[kTables + 1])};
     const auto kernel = exact ? fused_granule_lsf_kernel<true>
                               : fused_granule_lsf_kernel<false>;
-    kernel<<<B, kThreads, 0, s>>>(ix, scf_l, scf_s, meta, active, gr1,
-                                  bug_compat, store, v, prev, out, t, ops);
+    kernel<<<blocks, kThreads, Smem<true, false>::kSmemBytes, s>>>(
+        ix, scf_l, scf_s, meta, active, store, v, prev, out, t, image, B,
+        ops);
   } else {
-    // persistent: min(B, the resident grid) blocks walk the B slots
-    int grid = 0;
-    const int e = granule_grid(exact, &grid, nullptr);
-    if (e != 0) return e;
     const auto kernel = exact ? fused_granule_kernel<true>
                               : fused_granule_kernel<false>;
-    kernel<<<grid < B ? grid : B, kThreads, kSmemBytes, s>>>(
+    kernel<<<blocks, kThreads, Smem<false, false>::kSmemBytes, s>>>(
         ix, scf_l, scf_s, meta, active, gr1, bug_compat, store, v, prev, out,
-        t, static_cast<const float4*>(tables[kTables + 2]), B);
+        t, image, B);
   }
   return (int)cudaGetLastError();
 }

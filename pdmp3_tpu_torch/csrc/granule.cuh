@@ -1,12 +1,10 @@
-// Device code shared by the granule kernels (fused_granule.cu: K1 fast,
-// K2 exact and K3, the LSF step; back_half.cu: K4; frame_fused.cu: K5,
-// the frame step; K1 and K2 take the constants and helpers, not the
-// back half): the wire's constants,
-// the table operands, the IMDCT / polyphase dot products in both summation
-// orders, and the back half of one channel.  Each summation order and
-// rounding point here mirrors the plain PyTorch stage ops
-// (pdmp3_tpu_torch/ops/dsp.py), so every kernel is held to its plain
-// version bit for bit.
+// Device code shared by the granule kernels: the wire's constants, the
+// table operands and small helpers, for every kernel (K1-K3 and K5 run
+// the body of granule_persist.cuh); and, for K4 (back_half.cu) alone,
+// the IMDCT / polyphase dot products in both summation orders and the
+// back half of one channel.  Each summation order and rounding point
+// here mirrors the plain PyTorch stage ops (pdmp3_tpu_torch/ops/dsp.py),
+// so every kernel is held to its plain version bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,7 +15,7 @@
 namespace pdmp3 {
 
 constexpr int kLines = 576;
-constexpr int kThreads = 576;  // one block per slot, one thread per line
+constexpr int kThreads = 576;  // a block's threads: one per line
 constexpr int kMetaWords = 32;
 constexpr int kLayouts = 9;
 constexpr int kPow43Max = 8206;

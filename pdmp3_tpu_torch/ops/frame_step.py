@@ -18,6 +18,13 @@ per granule.
   an LSF instance), launched for CUDA tensors.  There is no fallback: a
   CUDA tensor either runs the kernel or raises.
 
+K5 runs the persistent body of K1-K3 (``fused_step.granule_launch_info(
+device, family=f, frame=True)`` gives its grid): it bulk-copies each
+granule's ix and meta and each slot's store and v_blocks, and writes
+each granule's PCM back by bulk copy, so those need 16-byte aligned
+addresses; scf_l, scf_s, is_pos, prev_lines and active arrive by 4-byte
+copies (``fused_step.check_bulk_alignment``).
+
 The operands are the wire's per-granule sections stacked on a leading
 granule axis, slot-major (``[ng,B,...]``), which is how a frame of the
 packed wire already lies in memory: the frame step reads them where they
@@ -30,8 +37,8 @@ import ctypes as C
 import torch
 
 from . import dsp as D
-from .fused_step import (check_operands, check_state, fused_granule_step_ref,
-                         table_ptrs)
+from .fused_step import (check_bulk_alignment, check_operands, check_state,
+                         fused_granule_step_ref, table_ptrs)
 
 # Launches of the CUDA kernel since the last reset: the MPEG-1 and the
 # LSF instance apart.
@@ -95,6 +102,11 @@ def frame_step(ix, scf_l, scf_s, meta, active, parities, state,
     pcm = torch.empty((B, ng * 576, 2), dtype=torch.int16, device=ix.device)
     if B == 0:
         return pcm, state
+    check_bulk_alignment(ix=ix, meta=meta, store=state.store,
+                         v_blocks=state.v_blocks, pcm=pcm, scf_l=scf_l,
+                         scf_s=scf_s, prev_lines=state.prev_lines,
+                         active=active, **({"is_pos": is_pos} if family
+                                           else {}))
     ptr = [None if t is None else t.data_ptr() for t in (
         ix, scf_l, scf_s, meta, active, is_pos if family else None,
         state.store, state.v_blocks, state.prev_lines, pcm)]

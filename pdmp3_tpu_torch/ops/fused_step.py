@@ -20,13 +20,15 @@ the TPU kernel they launch, ``_kernel_full``.
   for the LSF families K3 (its fast and exact instances).  There is no
   fallback between them: a CUDA tensor either runs a kernel or raises.
 
-K1 and K2 are persistent (``granule_launch_info``: a grid of the SM
+K1, K2 and K3 are persistent (``granule_launch_info``: a grid of the SM
 count times the resident blocks per SM walks the B slots) and bring
 each slot's ix, meta, store and v_blocks into shared memory by bulk
-copies, which need 16-byte aligned addresses; scf_l, scf_s, prev_lines
-and active arrive by 4-byte copies.  ``check_bulk_alignment`` raises
-on an operand that breaks either rule (a view at an odd element offset):
-there is no slower path for it.
+copies, which need 16-byte aligned addresses; scf_l, scf_s, prev_lines,
+active and K3's is_pos sidecar arrive by 4-byte copies (the packed LSF
+wire puts is_pos at F x B x 2,612 bytes, 16-byte aligned only when
+F x B % 4 == 0).  ``check_bulk_alignment`` raises on an operand that
+breaks either rule (a view at an odd element offset): there is no
+slower path for it.
 
 Both read |x|^(4/3) from the frozen 8207-entry table ``T.POW43`` (the
 correctly rounded value).  The JAX fast path computes it with an
@@ -61,15 +63,16 @@ LAUNCHES_LSF_EXACT = 0
 _F32 = torch.float32
 
 # the kernels' table operands: those of csrc/granule.cuh Tables in its
-# order, the LSF gain pairs, then K1/K2's shared-memory table image
+# order, the LSF gain pairs, then the persistent kernels' table image
 TABLES = ("pow43", "cos36", "c3", "imdct_win", "win2", "nwin", "synth_d",
           "cs", "ca", "ratio_l", "ratio_r", "quarter_down", "quarter_up",
           "inv_sqrt2", "gain_quarter_true", "maps", "k0", "k1",
           "granule_smem")
-# byte alignment K1/K2 need of each operand: bulk-copied ones 16, the
-# 4-byte copies 4
+# byte alignment the persistent kernels (K1-K3, K5) need of each
+# operand: bulk-copied ones 16, the 4-byte copies 4
 BULK_ALIGN = {"ix": 16, "meta": 16, "store": 16, "v_blocks": 16, "pcm": 16,
-              "scf_l": 4, "scf_s": 4, "prev_lines": 4, "active": 4}
+              "scf_l": 4, "scf_s": 4, "prev_lines": 4, "active": 4,
+              "is_pos": 4}
 # granule_launch_info's fields, in the order of pdmp3_granule_launch_info
 LAUNCH_INFO = ("grid", "blocks_per_sm", "dynamic_smem_bytes", "registers",
                "local_bytes", "sm_count")
@@ -84,25 +87,44 @@ def table_ptrs(device, family: int = 0) -> C.Array:
 
 def check_bulk_alignment(**operands) -> None:
     """Raise ValueError unless each named operand (a key of BULK_ALIGN)
-    starts on the byte alignment K1/K2 copy it with."""
+    starts on the byte alignment the persistent kernels copy it with."""
     for name, t in operands.items():
         if t.data_ptr() % BULK_ALIGN[name]:
             raise ValueError(f"{name} must be {BULK_ALIGN[name]}-byte "
-                             f"aligned for K1/K2's copies (address "
+                             f"aligned for the kernels' copies (address "
                              f"{t.data_ptr():#x})")
 
 
-def granule_launch_info(device, exact: bool = False) -> dict:
-    """K1's (K2's when exact) launch geometry on a CUDA device, from the
-    kernel library: the persistent grid (SM count x resident blocks per
-    SM; min(B, grid) blocks launch), blocks per SM, dynamic shared memory
-    per block, registers and local (spill) bytes per thread, SM count."""
+def launch_instance(exact: bool = False, family: int = 0,
+                    frame: bool = False) -> int:
+    """The persistent kernel instance of pdmp3_granule_launch_info: 0 K1,
+    1 K2, 2 K3 fast, 3 K3 exact (family 1 or 2), 4 K5 MPEG-1, 5 K5 LSF
+    (frame; fast only).  ValueError for any other combination."""
+    if family not in (0, 1, 2):
+        raise ValueError(f"family must be 0, 1 or 2, got {family!r}")
+    if frame and exact:
+        raise ValueError("K5, the frame kernel, is fast only")
+    if frame:
+        return 4 + (family != 0)
+    return 2 * (family != 0) + int(exact)
+
+
+def granule_launch_info(device, exact: bool = False, family: int = 0,
+                        frame: bool = False) -> dict:
+    """The launch geometry of the persistent kernel that runs a step of
+    `family` in that precision (K1, K2 or K3; K5 when frame) on a CUDA
+    device, from the kernel library: the persistent grid (SM count x
+    resident blocks per SM; min(B, grid) blocks launch), blocks per SM,
+    dynamic shared memory per block, registers and local (spill) bytes
+    per thread, SM count.  The arguments are checked (launch_instance)
+    before the library is loaded."""
+    instance = launch_instance(exact, family, frame)
     from . import _build
 
     lib = _build.load()
     info = (C.c_int * len(LAUNCH_INFO))()
     with torch.cuda.device(torch.device(device)):
-        rc = lib.pdmp3_granule_launch_info(int(bool(exact)), info)
+        rc = lib.pdmp3_granule_launch_info(instance, info)
     if rc != 0:
         raise RuntimeError("granule launch info failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())
@@ -187,11 +209,11 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
     pcm = torch.empty((B, 576, 2), dtype=torch.int16, device=ix.device)
     if B == 0:
         return pcm, state
-    if not family:
-        check_bulk_alignment(ix=ix, meta=meta, store=state.store,
-                             v_blocks=state.v_blocks, pcm=pcm, scf_l=scf_l,
-                             scf_s=scf_s, prev_lines=state.prev_lines,
-                             active=active)
+    check_bulk_alignment(ix=ix, meta=meta, store=state.store,
+                         v_blocks=state.v_blocks, pcm=pcm, scf_l=scf_l,
+                         scf_s=scf_s, prev_lines=state.prev_lines,
+                         active=active, **({"is_pos": is_pos} if family
+                                           else {}))
     ptr = [None if t is None else t.data_ptr() for t in (
         ix, scf_l, scf_s, meta, active, is_pos if family else None,
         state.store, state.v_blocks, state.prev_lines, pcm)]

@@ -6,12 +6,14 @@
 
 Builds both checkouts' kernel libraries, then:
 
-1. times K1, K2 and K4 (both modes) of each checkout at B = 8192 on the
-   same synthetic operands (CUDA events, median of 25 launches), and K1
-   against K5 at ng = 1 (the same granule with the state staged in
-   shared memory), interleaved launch by launch; each checkout in its
-   own process, in the order given by ``--order`` (default: other,
-   this, this, other), one JSON line per process;
+1. times K1, K2, K3 (fast and exact, both LSF families), K4 (both
+   modes) and K5 at ng = 2 (the MPEG-1 instance over two granules,
+   parities (0, 1)) of each checkout at B = 8192 on the same synthetic
+   operands (CUDA events, median of 25 launches), and K1 against K5 at
+   ng = 1 (the same granule with the state in K5's state set),
+   interleaved launch by launch; each checkout in its own process, in
+   the order given by ``--order`` (default: other, this, this, other),
+   one JSON line per process;
 2. compares the SASS of every kernel the two libraries share
    (``cuobjdump -sass``, addresses and encodings dropped) and prints,
    per kernel, whether the instruction streams are identical, with the
@@ -62,8 +64,9 @@ STAGES = {"front": "// ---- requantize + stereo",
 
 
 def time_kernels(tree: str) -> dict:
-    """Median device ms of K1, K2, K4 exact and K4 fast of `tree`'s
-    package on synthetic operands."""
+    """Median device ms of K1, K2, K3 (k3_f{family}_{fast,exact}), K4
+    exact and fast and K5 at ng = 2 of `tree`'s package on synthetic
+    operands, and the interleaved K1 / K5-at-ng=1 pair."""
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -72,6 +75,7 @@ def time_kernels(tree: str) -> dict:
     from pdmp3_tpu_torch.ops import _build
     from pdmp3_tpu_torch.ops import back_half as BH
     from pdmp3_tpu_torch.ops import dsp as D
+    from pdmp3_tpu_torch.ops import frame_step as FR
     from pdmp3_tpu_torch.ops import fused_step as FS
 
     if not _build.__file__.startswith(tree):
@@ -97,6 +101,16 @@ def time_kernels(tree: str) -> dict:
         st = init_state(B, dev)
         res["k2" if exact else "k1"] = median_ms(
             lambda: FS.fused_granule_step(*ops, 0, st, exact=exact))
+    for family in (1, 2):
+        lops, ip = synthetic_lsf_operands(dev, family)
+        for exact in (False, True):
+            st = init_state(B, dev)
+            res[f"k3_f{family}_{'exact' if exact else 'fast'}"] = median_ms(
+                lambda: FS.fused_granule_step(*lops, 0, st, exact=exact,
+                                              family=family, is_pos=ip))
+    f2 = [torch.stack([o, o]) for o in ops]
+    st = init_state(B, dev)
+    res["k5_ng2"] = median_ms(lambda: FR.frame_step(*f2, (0, 1), st))
     res.update(k1_vs_k5_ng1(ops, init_state(B, dev), init_state(B, dev),
                             median_ms))
     f = D.fields(ops[3])
@@ -141,6 +155,24 @@ def synthetic_operands(dev, B: int = B) -> tuple:
            t(g.integers(0, 8, (B, 2, 39)).astype(np.int16)), t(meta),
            torch.ones(B, dtype=torch.int32, device=dev))
 
+
+def synthetic_lsf_operands(dev, family: int, B: int = B) -> tuple:
+    """K3's operands for one LSF family: synthetic_operands' with meta's
+    family and iscale words set (iscale random) and a seeded is_pos
+    sidecar [B, 64] (positions 0..7, one in ten illegal); (ops,
+    is_pos)."""
+    import numpy as np
+    import torch
+
+    ix, scf_l, scf_s, meta, act = synthetic_operands(dev, B)
+    g = np.random.default_rng(family)
+    meta = meta.clone()
+    meta[:, 26] = family
+    meta[:, 27] = torch.from_numpy(g.integers(0, 2, B).astype(np.int32)).to(
+        dev)
+    ip = g.integers(0, 8, (B, 64)).astype(np.int16)
+    ip[g.random((B, 64)) < 0.1] = 63
+    return (ix, scf_l, scf_s, meta, act), torch.from_numpy(ip).to(dev)
 
 
 def k1_vs_k5_ng1(ops, s1, s5, median_ms) -> dict:

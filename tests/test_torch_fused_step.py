@@ -260,10 +260,10 @@ def test_granule_smem_image_reindexes_tables(name):
 
 @pytest.mark.parametrize("name", sorted(FS.BULK_ALIGN))
 def test_bulk_alignment_check_raises_on_misaligned_operand(name):
-    """K1/K2 bulk-copy ix, meta, store, v_blocks and PCM (16-byte
-    aligned) and copy scf_l, scf_s, prev_lines and active by 4-byte
-    words: an operand that starts off that alignment raises ValueError,
-    aligned ones pass."""
+    """The persistent kernels (K1-K3, K5) bulk-copy ix, meta, store,
+    v_blocks and PCM (16-byte aligned) and copy scf_l, scf_s, prev_lines,
+    active and the LSF is_pos sidecar by 4-byte words: an operand that
+    starts off that alignment raises ValueError, aligned ones pass."""
     align = FS.BULK_ALIGN[name]
     base = torch.zeros(4096, dtype=torch.int16)
     assert base.data_ptr() % 64 == 0
