@@ -30,15 +30,19 @@ from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
 6. the exact main path: phase 3 with ``exact=True`` (K2), and its
    watched slots bitwise equal to the native decoder;
 7. K4, the back-half kernel, against its plain version in both modes on
-   one frame's post-antialias spectra, bitwise and timed, and timed at
-   one slot (the shape the per-stream route launches it at); then the
-   fused exact route (K2) against the split one (stage ops + K4 + the
-   f64 quantize), bitwise;
+   one frame's post-antialias spectra, at B and at one slot (the shape
+   the per-stream route launches it at), bitwise and timed, with the
+   launch geometry of both instances; one step of the batched split
+   route (``decode_granules``: stage ops + K4 + the pack) timed at B in
+   both modes; then the fused exact route (K2) against the split one
+   (stage ops + K4 + the f64 quantize), bitwise;
 8. the per-stream route: ``pdmp3_tpu_torch.api.decode_file`` with
    ``TorchDSP(device="cuda")`` (K4) on 6 generated streams, exact
    byte-equal to the native decoder and fast within 1 LSB;
 9. K6: the exact kernel's three float64 rounding points over all 2^32
-   f32 inputs on the card against their plain f64 versions, bitwise;
+   f32 inputs on the card, all three from one launch per 2^24-input
+   chunk, against their plain f64 versions, bitwise; one chunk timed
+   with the three-construction launch and with each construction's own;
 10. K3, the LSF granule kernel, fast and exact, against its plain version
     on one natively parsed LSF step per family (MPEG-2, MPEG-2.5), at B
     and at the ragged B = 2 x grid + 3 (K3's grid) with the is_pos
@@ -76,12 +80,18 @@ adds phase 13: ``torch.profiler`` over fast MPEG-1 serving steps
 (device time by kernel and copy, and the device's busy share of the
 loop), then the serving loop at 1, 2, 4 and 8 parse threads.
 
-The line before the last is the kernels' JSON record, each kernel with
-its time, its plain version's, and its bound (the least time the card
-could take for the same work: the larger of this run's bytes over the
-memory rate and its operations over the peak rate of their type, NVIDIA's
-H100 SXM data sheet); the last line is ``{"ok": true, "device": {...}}``.
-Nothing here imports JAX or the JAX package.
+Kernel times come from ``pdmp3_tpu_torch/timing.py``: ``ms`` is the
+device time per launch (torch.profiler, in one pass after every route
+is timed), ``burst_ms`` CUDA events around a burst of back-to-back calls
+over the calls, ``per_call_ms`` events around one call, its Python
+launcher included; plain versions and routes are timed in bursts.  The
+line before the last is the kernels'
+JSON record, each kernel with those times, its plain version's, and its
+bound (the least time the card could take for the same work: the larger
+of this run's bytes over the memory rate and its operations over the
+peak rate of their type, NVIDIA's H100 SXM data sheet); the last line is
+``{"ok": true, "device": {...}}``.  Nothing here imports JAX or the JAX
+package.
 """
 from __future__ import annotations
 
@@ -101,6 +111,7 @@ FRAMES_PER_STREAM = 12
 WARMUP_STEPS = 2
 TIMED_STEPS = 32
 TIMED_LAUNCHES = 25
+PLAIN_CALLS, PLAIN_BURSTS = 5, 3
 PROFILE_STEPS = 8
 PARSE_THREADS = (1, 2, 4, 8, 8, 4, 2, 1)   # two passes, mirrored
 SWEEP_STEPS = 16
@@ -151,7 +162,6 @@ LSF_API_CONFIGS = {
     "m25-short": dict(family=2, blocks="short"),
     "m2-mono": dict(family=1, blocks="long", mode=3),
 }
-SWEEP_TIMED = 9      # chunk launches timed for K6's ms / plain_ms
 # phase 14: a slot idle only in the frame's second granule, and the small
 # subnormal bit patterns of the directed band-12 carry
 IDLE_SECOND = 9
@@ -327,18 +337,50 @@ def bound(nbytes: float, ops: float, f64_ops: float = 0.0) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def median_ms(fn, n: int) -> float:
-    """Median over n calls of fn's device time, from CUDA events."""
-    times = []
-    for _ in range(n):
-        a, b = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+def kernel_timing(res: dict, fn, kernel: str) -> None:
+    """A kernel's times over TIMED_LAUNCHES calls of fn
+    (pdmp3_tpu_torch/timing.py), into res: kernel_burst_ms, CUDA events
+    around a burst of back-to-back calls over the calls, median of
+    bursts, and kernel_per_call_ms, events around one call, its Python
+    launcher included, now; kernel_ms, its device time per launch
+    (torch.profiler, the launches whose name holds `kernel`), from
+    profile_kernels at the end of the run."""
+    from pdmp3_tpu_torch import timing as T
+
+    res["kernel_burst_ms"] = T.burst_ms(fn, TIMED_LAUNCHES)
+    res["kernel_per_call_ms"] = T.per_call_ms(fn, TIMED_LAUNCHES)
+    PROFILE_LATER.append((res, fn, kernel))
+
+
+# (result, fn, kernel) of every kernel_timing: the profiler's pass over
+# them runs after every route is timed, so that no profiler session in
+# the process comes before a route's timing
+PROFILE_LATER = []
+
+
+def profile_kernels() -> None:
+    """kernel_ms of every kernel_timing so far."""
+    from pdmp3_tpu_torch import timing as T
+
+    for res, fn, kernel in PROFILE_LATER:
+        res["kernel_ms"] = T.profiled_ms(fn, kernel, TIMED_LAUNCHES)
+    PROFILE_LATER.clear()
+
+
+def plain_ms(fn) -> float:
+    """A plain version's (or a route's) device time per call: CUDA events
+    around bursts of PLAIN_CALLS calls, the median of PLAIN_BURSTS."""
+    from pdmp3_tpu_torch import timing as T
+
+    return T.burst_ms(fn, PLAIN_CALLS, PLAIN_BURSTS, warmup=1)
+
+
+def per_call_ms(fn, n: int) -> float:
+    """Median over n calls of events around one call of fn (host work
+    included: a route's step as its caller sees it)."""
+    from pdmp3_tpu_torch import timing as T
+
+    return T.per_call_ms(fn, n)
 
 
 def clone_state(s):
@@ -494,13 +536,13 @@ def phase_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
     if exact and not family:
         res["band12_subnormal"] = phase_band12_subnormal(fr, step_k,
                                                          step_r)
-    # one granule step per timed call, each on its own state copy
+    # granule steps on state copies made before the timed window
     sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
     args, kw = granule_args(fr, 0), granule_kw(fr)
-    res["kernel_ms"] = median_ms(lambda: step_k(*args, sk, **kw),
-                                 TIMED_LAUNCHES)
-    res["plain_ms"] = median_ms(lambda: step_r(*args, sr, **kw),
-                                TIMED_LAUNCHES)
+    kernel_timing(
+        res, lambda: step_k(*args, sk, **kw),
+        "fused_granule_lsf_kernel" if family else "fused_granule_kernel")
+    res["plain_ms"] = plain_ms(lambda: step_r(*args, sr, **kw))
     res.update(granule_bound(B, int((fr["active"] != 0).sum()),
                              lsf=family != 0))
     return res
@@ -589,11 +631,10 @@ def phase_frame_kernel(fr: dict, family: int = 0) -> dict:
     if not family:
         res["band12_carry"] = phase_band12_carry(ops, fr["st0"])
     sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
-    res["kernel_ms"] = median_ms(
-        lambda: FR.frame_step(*ops, parities, sk, **lsf), TIMED_LAUNCHES)
-    res["plain_ms"] = median_ms(
-        lambda: FR.frame_step_ref(*ops, parities, sr, **lsf),
-        TIMED_LAUNCHES // 5)
+    kernel_timing(res, lambda: FR.frame_step(*ops, parities, sk, **lsf),
+                  "frame_fused_kernel")
+    res["plain_ms"] = plain_ms(
+        lambda: FR.frame_step_ref(*ops, parities, sr, **lsf))
     res.update(frame_bound(ops[4], lsf=family != 0))
     if family:
         return res
@@ -604,8 +645,9 @@ def phase_frame_kernel(fr: dict, family: int = 0) -> dict:
             FS.fused_granule_step(*(o[g] for o in ops), g, s1)
     k5, k1 = [], []
     for _ in range(TIMED_LAUNCHES):
-        k5.append(median_ms(lambda: FR.frame_step(*ops, parities, s5), 1))
-        k1.append(median_ms(two_k1, 1))
+        k5.append(per_call_ms(lambda: FR.frame_step(*ops, parities, s5),
+                              1))
+        k1.append(per_call_ms(two_k1, 1))
     res["ab_interleaved"] = {
         "launches_each": TIMED_LAUNCHES,
         "k5_ms": float(np.median(k5)), "two_k1_ms": float(np.median(k1)),
@@ -618,8 +660,8 @@ def phase_frame_kernel(fr: dict, family: int = 0) -> dict:
     s5, s1 = clone_state(fr["st0"]), clone_state(fr["st0"])
     k5, k1 = [], []
     for _ in range(TIMED_LAUNCHES):
-        k5.append(median_ms(lambda: FR.frame_step(*ops1, (0,), s5), 1))
-        k1.append(median_ms(
+        k5.append(per_call_ms(lambda: FR.frame_step(*ops1, (0,), s5), 1))
+        k1.append(per_call_ms(
             lambda: FS.fused_granule_step(*(o[0] for o in ops), 0, s1), 1))
     res["ng1_ab_interleaved"] = {
         "launches_each": TIMED_LAUNCHES,
@@ -662,12 +704,37 @@ def phase_band12_carry(ops: list, st0) -> dict:
     return res
 
 
+def compare_back_half(xa, st0, bt, active, exact: bool, what: str) -> dict:
+    """K4 and its plain version from copies of st0 on the same operands:
+    out, prev3, store and v_blocks required bitwise equal."""
+    from pdmp3_tpu_torch.ops import back_half as BH
+
+    sk, sr = clone_state(st0), clone_state(st0)
+    ok, pk = BH.back_half_step(xa, sk, bt, active, exact)
+    orf, pr = BH.back_half_step_ref(xa, sr, bt, active, exact)
+    torch.cuda.synchronize()
+    pairs = {"out": (ok, orf), "prev3": (pk, pr),
+             "store": (sk.store, sr.store),
+             "v_blocks": (sk.v_blocks, sr.v_blocks)}
+    r = {"max_abs_err": max(float((a - b).abs().max())
+                            for a, b in pairs.values())}
+    for name, (a, b) in pairs.items():
+        r[f"{name}_bitwise_equal"] = bool(
+            torch.equal(a.view(torch.int32), b.view(torch.int32)))
+        check(r[f"{name}_bitwise_equal"],
+              f"{what} {name} differs from the plain version")
+    return r
+
+
 def phase_back_half(fr: dict) -> dict:
     """K4 vs its plain version, exact and fast, on the post-antialias
-    spectra of granule 0, bitwise and timed, and timed at one slot (slot
-    0), the shape at which the per-stream route (TorchDSP) launches it;
-    then the fused exact route (K2) vs the split one (stage ops + K4 +
-    f64 quantize), bitwise."""
+    spectra of granule 0 at B and at one slot (slot 0, the shape at which
+    the per-stream route, TorchDSP, launches it), bitwise, both timed,
+    with each instance's launch geometry; one step of the batched split
+    route (decode_granules: the stage-op front half, K4, the pack) timed
+    at B in both modes; then the fused exact route (K2) vs the split one,
+    bitwise."""
+    from pdmp3_tpu_torch.models.decoder import GranuleBatch, decode_granules
     from pdmp3_tpu_torch.ops import back_half as BH
     from pdmp3_tpu_torch.ops import dsp as D
     from pdmp3_tpu_torch.ops import fused_step as FS
@@ -675,41 +742,37 @@ def phase_back_half(fr: dict) -> dict:
     args = granule_args(fr, 0)
     f = D.fields(args[3])
     bt = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
+    act = fr["active"]
     res = {}
     for exact in (True, False):
         mode = "exact" if exact else "fast"
         xa = D.front_half(*args[:4], 0, fr["st0"].prev_lines, exact)
+        r = compare_back_half(xa, fr["st0"], bt, act, exact,
+                              f"phase 7: K4 {mode}")
+        one = (xa[:1], slot_state(fr["st0"], 1), bt[:1], act[:1])
+        r["one_slot"] = compare_back_half(*one, exact,
+                                          f"phase 7: K4 {mode} one slot")
+        # state copies made before the timed window
         sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
-        ok, pk = BH.back_half_step(xa, sk, bt, fr["active"], exact)
-        orf, pr = BH.back_half_step_ref(xa, sr, bt, fr["active"], exact)
-        torch.cuda.synchronize()
-        pairs = {"out": (ok, orf), "prev3": (pk, pr),
-                 "store": (sk.store, sr.store),
-                 "v_blocks": (sk.v_blocks, sr.v_blocks)}
-        r = {"max_abs_err": max(float((a - b).abs().max())
-                                for a, b in pairs.values())}
-        for name, (a, b) in pairs.items():
-            r[f"{name}_bitwise_equal"] = bool(
-                torch.equal(a.view(torch.int32), b.view(torch.int32)))
-            check(r[f"{name}_bitwise_equal"],
-                  f"phase 7: K4 {mode} {name} differs from the plain "
-                  "version")
-        sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
-        r["kernel_ms"] = median_ms(
-            lambda: BH.back_half_step(xa, sk, bt, fr["active"], exact),
-            TIMED_LAUNCHES)
-        r["plain_ms"] = median_ms(
-            lambda: BH.back_half_step_ref(xa, sr, bt, fr["active"], exact),
-            TIMED_LAUNCHES)
-        one = (xa[:1], clone_state(slot_state(fr["st0"], 1)), bt[:1],
-               fr["active"][:1])
-        r["one_slot_ms"] = median_ms(lambda: BH.back_half_step(*one, exact),
-                                     TIMED_LAUNCHES)
-        r["one_slot_plain_ms"] = median_ms(
-            lambda: BH.back_half_step_ref(*one, exact), TIMED_LAUNCHES)
+        kernel_timing(r, functools.partial(BH.back_half_step, xa, sk, bt,
+                                           act, exact), "back_half_kernel")
+        r["plain_ms"] = plain_ms(
+            lambda: BH.back_half_step_ref(xa, sr, bt, act, exact))
+        s1, r1 = clone_state(one[1]), clone_state(one[1])
+        kernel_timing(r["one_slot"], functools.partial(
+            BH.back_half_step, one[0], s1, one[2], one[3], exact),
+            "back_half_kernel")
+        r["one_slot"]["plain_ms"] = plain_ms(
+            lambda: BH.back_half_step_ref(one[0], r1, one[2], one[3], exact))
+        r["launch"] = FS.granule_launch_info(xa.device, exact,
+                                             back_half=True)
+        batch = GranuleBatch(*args)
+        st = clone_state(fr["st0"])
+        r["split_step_ms"] = plain_ms(
+            lambda: decode_granules(batch, st, exact))
         res[mode] = r
-    res.update(back_half_bound(B, int((fr["active"] != 0).sum())))
-    res["one_slot"] = back_half_bound(1, 1)
+    res.update(back_half_bound(B, int((act != 0).sum())))
+    res["one_slot_bound"] = back_half_bound(1, 1)
     res["fused_vs_split"] = compare_steps(
         fr, functools.partial(FS.fused_granule_step, exact=True),
         functools.partial(BH.split_granule_step, exact=True),
@@ -769,29 +832,27 @@ def phase_api(dev, lsf: bool = False) -> dict:
 
 
 def phase_sweep(dev) -> dict:
-    """K6: the three rounding points over all 2^32 inputs, then one
-    chunk's kernel and plain times."""
+    """K6: the three rounding points over all 2^32 inputs, all three from
+    one launch per 2^24-input chunk, against the plain f64 functions;
+    then one chunk's times: the launch and the plain functions."""
     from pdmp3_tpu_torch.ops import rounding as R
 
     reset_launch_counts()
-    res = {"results": [R.sweep(name, device=dev) for name in R.CONSTRUCTIONS]}
+    res = R.sweep(device=dev)
     res["launches"] = launch_counts("phase 9", "rounding_sweep")
-    check(res["launches"] == 256 * len(R.CONSTRUCTIONS),
-          f"phase 9: {res['launches']} sweep launches")
-    for r in res["results"]:
-        check(r["mismatching_chunks"] == [] and r["chunks_swept"] == 256,
-              f"phase 9: {json.dumps(r)}")
+    check(res["launches"] == 256, f"phase 9: {res['launches']} sweep "
+                                  "launches for 256 chunks")
+    check(res["mismatching_chunks"] == [] and res["chunks_swept"] == 256
+          and res["mismatching_inputs"] == 0, f"phase 9: {json.dumps(res)}")
     n = 1 << 24
     x = R.chunk_inputs(n, n, dev)
     res["chunk_inputs"] = n
-    res["kernel_ms"] = {name: median_ms(
-        lambda: R.rounding_sweep_step(name, n, n, dev), SWEEP_TIMED)
+    kernel_timing(res, lambda: R.rounding_sweep_all(n, n, dev),
+                  "rounding_sweep_kernel")
+    res["plain_ms_by_construction"] = {
+        name: plain_ms(functools.partial(R.PLAIN[name], x))
         for name in R.CONSTRUCTIONS}
-    res["plain_ms"] = {name: median_ms(lambda: R.PLAIN[name](x),
-                                       SWEEP_TIMED)
-                       for name in R.CONSTRUCTIONS}
-    res["seconds"] = sum(r["seconds"] for r in res["results"])
-    res["max_abs_err"] = max(r["max_abs_err"] for r in res["results"])
+    res["plain_ms"] = sum(res["plain_ms_by_construction"].values())
     return res
 
 
@@ -864,11 +925,11 @@ def _main_path(streams, dev, watch, exact, family, rates, frame_fused):
     wire = dec._wires_t[dec._cur ^ 1].to(dev)
     state = clone_state(dec.state)
     if family:
-        replay_ms = median_ms(
+        replay_ms = per_call_ms(
             lambda: decode_frame_packed_lsf(wire, state, B=B, family=family,
                                             exact=exact), TIMED_STEPS)
     else:
-        replay_ms = median_ms(
+        replay_ms = per_call_ms(
             lambda: decode_frame_packed(wire, state, B=B, exact=exact),
             TIMED_STEPS)
 
@@ -925,7 +986,7 @@ def replay_ab(streams: list[bytes], dev) -> dict:
         for _ in range(TIMED_STEPS):
             for ff in (False, True):
                 frame_fused_route(ff)
-                times[ff].append(median_ms(
+                times[ff].append(per_call_ms(
                     lambda: decode_frame_packed(wire, state, B=B), 1))
     finally:
         frame_fused_route(False)
@@ -1183,6 +1244,11 @@ def main() -> int:
 
     k4 = phase_back_half(fr)
     print("phase 7 K4 vs plain, fused vs split:", json.dumps(k4))
+    for exact in (True, False):
+        print(f"phase 7 K4 exact={exact} launch:", launch_line(
+            k4["exact" if exact else "fast"]["launch"], ptxas,
+            f"back_half_kernel<{str(exact).lower()},"
+            f"{str(not exact).lower()}>"))
     k5 = {0: phase_frame_kernel(fr)}
     print("phase 14 K5 MPEG-1 vs plain, vs two K1:", json.dumps(k5[0]))
     print("phase 14 K5 MPEG-1 launch:", launch_line(
@@ -1241,18 +1307,31 @@ def main() -> int:
     print("phase 15 frame-fused serving:", json.dumps(mf))
     sp = phase_sparse(streams, dev, watch, m["_pcm"])
     print("phase 16 sparse frame-fused pipelined serving:", json.dumps(sp))
+    profile_kernels()
+    print("kernel device times (profiler):", json.dumps({
+        "K1": k1["kernel_ms"], "K2": k2["kernel_ms"],
+        "K3": {f"{f}_{'exact' if e else 'fast'}": r["kernel_ms"]
+               for (f, e), r in k3.items()},
+        "K4": {m: [k4[m]["kernel_ms"], k4[m]["one_slot"]["kernel_ms"]]
+               for m in ("exact", "fast")},
+        "K5": {f: r["kernel_ms"] for f, r in k5.items()},
+        "K6": k6["kernel_ms"]}))
     if args.profile:
         print("phase 13 profile:", json.dumps(phase_profile(streams, dev)))
     check("jax" not in sys.modules, "JAX was imported")
     check(not [m for m in sys.modules if m.split(".")[0] == "pdmp3_tpu"],
           "the JAX package was imported")
 
-    def entry(name, src, launches, err, ms, plain_ms, bnd, **extra):
+    def entry(name, src, launches, err, t, bnd, **extra):
+        """One kernel's record; t: its phase result (kernel_timing's
+        keys and plain_ms)."""
         return {"name": name, "route": "cuda", "source": CSRC + src,
                 "replaces": REPLACES[name], "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
-                "library_ms": None, **extra}
+                "max_abs_err": err, "ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": bnd["bound_ms"],
+                "bound_by": bnd["bound_by"], "library_ms": None,
+                "burst_ms": t["kernel_burst_ms"],
+                "per_call_ms": t["kernel_per_call_ms"], **extra}
 
     def lsf_entry(exact):
         name = "fused_granule_lsf" + ("_exact" if exact else "")
@@ -1263,43 +1342,48 @@ def main() -> int:
         r1 = k3[(1, exact)]
         return entry(name, "fused_granule.cu", sum(by_family.values()),
                      max(k3[(f, exact)]["pcm_max_lsb"]
-                         for f in LSF_FAMILIES),
-                     r1["kernel_ms"], r1["plain_ms"], r1,
+                         for f in LSF_FAMILIES), r1, r1,
                      launch=r1["launch"], launches_by_family=by_family,
                      ms_by_family={f: k3[(f, exact)]["kernel_ms"]
                                    for f in LSF_FAMILIES},
                      plain_ms_by_family={f: k3[(f, exact)]["plain_ms"]
                                          for f in LSF_FAMILIES})
+
+    def k4_times(r):
+        return {"ms": r["kernel_ms"], "burst_ms": r["kernel_burst_ms"],
+                "per_call_ms": r["kernel_per_call_ms"],
+                "plain_ms": r["plain_ms"]}
+    k4e, k4f = k4["exact"], k4["fast"]
     print(json.dumps({"kernels": [
         entry("fused_granule", "fused_granule.cu", m["kernel_launches"],
-              k1["pcm_max_lsb"], k1["kernel_ms"], k1["plain_ms"], k1,
-              launch=k1["launch"],
+              k1["pcm_max_lsb"], k1, k1, launch=k1["launch"],
               k5_ng1_ms=k5[0]["ng1_ab_interleaved"]["k5_ng1_ms"],
               k1_over_k5_ng1=k5[0]["ng1_ab_interleaved"]["k1_over_k5_ng1"]),
         entry("fused_granule_exact", "fused_granule.cu",
-              me["exact_kernel_launches"], k2["pcm_max_lsb"],
-              k2["kernel_ms"], k2["plain_ms"], k2, launch=k2["launch"]),
+              me["exact_kernel_launches"], k2["pcm_max_lsb"], k2, k2,
+              launch=k2["launch"]),
         lsf_entry(False),
         lsf_entry(True),
         entry("back_half", "back_half.cu", api["k4_launches"],
-              max(k4["exact"]["max_abs_err"], k4["fast"]["max_abs_err"]),
-              k4["exact"]["kernel_ms"], k4["exact"]["plain_ms"], k4,
-              ms_fast=k4["fast"]["kernel_ms"],
-              plain_ms_fast=k4["fast"]["plain_ms"],
-              one_slot={"ms": k4["exact"]["one_slot_ms"],
-                        "ms_fast": k4["fast"]["one_slot_ms"],
-                        "plain_ms": k4["exact"]["one_slot_plain_ms"],
-                        "plain_ms_fast": k4["fast"]["one_slot_plain_ms"],
-                        **k4["one_slot"]}),
+              max(k4e["max_abs_err"], k4f["max_abs_err"]), k4e, k4,
+              ms_fast=k4f["kernel_ms"],
+              burst_ms_fast=k4f["kernel_burst_ms"],
+              per_call_ms_fast=k4f["kernel_per_call_ms"],
+              plain_ms_fast=k4f["plain_ms"],
+              launch={"exact": k4e["launch"], "fast": k4f["launch"]},
+              one_slot={"exact": k4_times(k4e["one_slot"]),
+                        "fast": k4_times(k4f["one_slot"]),
+                        **k4["one_slot_bound"]},
+              split_step_ms={"exact": k4e["split_step_ms"],
+                             "fast": k4f["split_step_ms"]}),
         entry("rounding_sweep", "rounding_sweep.cu", k6["launches"],
-              k6["max_abs_err"], sum(k6["kernel_ms"].values()),
-              sum(k6["plain_ms"].values()),
-              sweep_bound(k6["chunk_inputs"], len(k6["kernel_ms"])),
+              k6["max_abs_err"], k6,
+              sweep_bound(k6["chunk_inputs"], len(k6["constructions"])),
+              plain_ms_by_construction=k6["plain_ms_by_construction"],
               sweep_seconds=k6["seconds"]),
         entry("frame_fused", "frame_fused.cu",
               mf["ff_kernel_launches"] + sp["k5_launches"],
-              max(r["pcm_max_lsb"] for r in k5.values()),
-              k5[0]["kernel_ms"], k5[0]["plain_ms"], k5[0],
+              max(r["pcm_max_lsb"] for r in k5.values()), k5[0], k5[0],
               ng=2, launch=k5[0]["launch"],
               launches_by_family={0: mf["ff_kernel_launches"]
                                   + sp["k5_launches"], 1: 0, 2: 0},

@@ -47,8 +47,9 @@
 //   (the family's, through the table pointers) stay on __ldg;
 // - dots blocked four outputs to a thread (four IMDCT outputs of one
 //   subband, four FIFO columns of one channel and time step), each output
-//   summed in exactly tree_sum's or the sequential order; the FIR gives a
-//   thread three time steps of one column, which share 14 of 16 taps;
+//   summed in exactly the pairwise tree's or the sequential order of
+//   ops/dsp.py (_dot_tree, _dot_seq); the FIR gives a thread three time
+//   steps of one column, which share 14 of 16 taps;
 // - both channels' back half in one pass: IMDCT 1,152 outputs, matrixing
 //   2,304, FIR 1,152, with both channels' 33-row FIFOs on chip (15 rows
 //   in the stage, 18 new rows unpadded, so rows 3..17 are the contiguous
@@ -150,16 +151,18 @@ int granule_grid(int instance, int* grid, int* info) {
 
 extern "C" {
 
-int pdmp3_frame_launch_info(int lsf, int* info);  // frame_fused.cu
+int pdmp3_frame_launch_info(int lsf, int* info);       // frame_fused.cu
+int pdmp3_back_half_launch_info(int exact, int* info);  // back_half.cu
 
 // The launch geometry of a persistent kernel instance on the current
 // device into info[6]: grid, blocks per SM, dynamic shared memory per
 // block (bytes), registers per thread, local memory per thread (bytes),
 // SM count.  instance: 0 K1, 1 K2, 2 K3 fast, 3 K3 exact, 4 K5 MPEG-1, 5
-// K5 LSF.  Returns a cudaError_t (0 on success).
+// K5 LSF, 6 K4 fast, 7 K4 exact.  Returns a cudaError_t (0 on success).
 int pdmp3_granule_launch_info(int instance, int* info) {
   if (instance < 0 || instance >= kInstances)
     return (int)cudaErrorInvalidValue;
+  if (instance >= 6) return pdmp3_back_half_launch_info(instance - 6, info);
   if (instance >= 4) return pdmp3_frame_launch_info(instance - 4, info);
   int grid = 0;
   return granule_grid(instance, &grid, info);

@@ -1,8 +1,10 @@
 // The one granule body of the port's step kernels: K1 and K2 (MPEG-1,
 // fast and exact) and K3 (the LSF families, fast and exact), launched
 // from fused_granule.cu, and K5 (the frame kernel, MPEG-1 and LSF, fast),
-// launched from frame_fused.cu.  K4 (back_half.cu) keeps granule.cuh's
-// back_half_channel.
+// launched from frame_fused.cu; and beside it persistent_back_half, the
+// same pattern over the same back-half stages (imdct4, matrix4, and
+// fir3, the FIR the body writes inline) for K4 (back_half.cu), fast and
+// exact.
 //
 // Persistent blocks walk units: for K1-K3 a unit is one slot's granule
 // step, b = blockIdx.x + k * gridDim.x; for K5 it is one (slot, granule)
@@ -188,7 +190,7 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 }
 
 // pairwise tree of the products xf(m) * w[m * ws + 0..3] over m in
-// [LO, LO + N), N a power of two: tree_sum's order for each output
+// [LO, LO + N), N a power of two: dsp._dot_tree's order for each output
 template <int LO, int N, class XF>
 __device__ __forceinline__ float4 tree4(const XF& xf, const float* w,
                                         int ws) {
@@ -201,10 +203,10 @@ __device__ __forceinline__ float4 tree4(const XF& xf, const float* w,
 }
 
 // four outputs e = 0..3 of sum over m < N of xf(m) * w[m * ws + e] (w
-// 16-byte aligned, ws a multiple of 4), each summed as dot<kExact, N>
-// sums one (granule.cuh): sequentially from the first product when
-// kExact, else as tree_sum<N> (N = 18: the tree of the first 16 plus the
-// last pair)
+// 16-byte aligned, ws a multiple of 4), each summed as the plain version
+// sums one (ops/dsp.py): sequentially from the first product when kExact
+// (_dot_seq), else as a pairwise tree (_dot_tree; N = 18: the tree of
+// the first 16 plus the last pair)
 template <bool kExact, int N, class XF>
 __device__ __forceinline__ float4 dot4(const XF& xf, const float* w,
                                        int ws) {
@@ -387,8 +389,9 @@ __device__ __forceinline__ void front_line(
 
 // outputs p0..p0+3 (p0 = 4g) of the 36 windowed IMDCT outputs of one
 // subband (xf(m): its line m), bt its effective block type: the long
-// IMDCT, or the three short IMDCTs overlapped as short_out (granule.cuh)
-// adds them, window by window in increasing w
+// IMDCT, or the three short IMDCTs overlapped as dsp.hybrid_synthesis
+// adds them, window by window in increasing w (outputs no window covers
+// are +0.0)
 template <bool kExact, class XF>
 __device__ __forceinline__ void imdct4(const float* tab, const XF& xf,
                                        int bt, int p0, float (&o)[4]) {
@@ -421,6 +424,46 @@ __device__ __forceinline__ void imdct4(const float* tab, const XF& xf,
         any[e] = true;
       }
     }
+  }
+}
+
+// polyphase matrixing of both channels into the new FIFO rows: thread =
+// (four columns 4jg.., channel, time it) = lt; nb[it][j] = sum over
+// subbands k of NWIN[j][k] * x_time[k][it] (s_xt row k: [ch][18])
+template <bool kExact>
+__device__ __forceinline__ void matrix4(const float* tab, const float* s_xt,
+                                        float* s_nb, int lt) {
+  const int jg = lt / 36, c = lt % 36;
+  const float* xt = s_xt + c;
+  const float4 nb = dot4<kExact, 32>([&](int kk) { return xt[kk * kXtRow]; },
+                                     tab + kTNwinT + 4 * jg, 64);
+  *reinterpret_cast<float4*>(s_nb + c * 64 + 4 * jg) = nb;
+}
+
+// the 16-tap D-window FIR of one channel over its 33-row FIFO (15
+// carried rows vold, 18 new rows vnew): the sums of time steps it0,
+// it0 + 2 and it0 + 4 of column kc, which share 14 of their 16 taps,
+// each summed sequentially from tap 0.  K4's copy of the FIR that
+// persistent_granules writes inline: called there, it changes K1-K3's
+// register allocation.
+__device__ __forceinline__ void fir3(const float* tab, const float* vold,
+                                     const float* vnew, int it0, int kc,
+                                     float (&acc)[3]) {
+  // e[q] = FIFO row it0 + q, half 32 * (j & 1) of the taps j that read
+  // it: j = 15 + 2o - q, so its parity is that of q + 1
+  float e[20];
+#pragma unroll
+  for (int q = 0; q < 20; ++q) {
+    const int row = it0 + q, col = (q & 1) ? kc : 32 + kc;
+    e[q] = row < 15 ? vold[row * 64 + col] : vnew[(row - 15) * 64 + col];
+  }
+#pragma unroll
+  for (int o = 0; o < 3; ++o) acc[o] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float d = tab[kTSynD + j * 32 + kc];
+#pragma unroll
+    for (int o = 0; o < 3; ++o) acc[o] = acc[o] + d * e[15 - j + 2 * o];
   }
 }
 
@@ -745,14 +788,7 @@ __device__ __forceinline__ void persistent_granules(
     // ---- polyphase matrixing into the new FIFO rows: thread = (four
     // columns 4jg.., channel, time it); nb[it][j] = sum over subbands k
     // of NWIN[j][k] * x_time[k][it] ----
-    {
-      const int jg = lt / 36, c = lt % 36;
-      const float* xt = s_xt + c;
-      const float4 nb = dot4<kExact, 32>(
-          [&](int kk) { return xt[kk * kXtRow]; }, tab + kTNwinT + 4 * jg,
-          64);
-      *reinterpret_cast<float4*>(s_nb + c * 64 + 4 * jg) = nb;
-    }
+    { matrix4<kExact>(tab, s_xt, s_nb, lt); }
     fence_async_shared();
     __syncthreads();
     // the state goes back: every unit (K1-K3), after the slot's last
@@ -818,11 +854,211 @@ __device__ __forceinline__ void persistent_granules(
   }
 }
 
+// K4's shared memory, byte offsets: the table image, a two-stage ring of
+// one slot's operands (all bulk-copied, so 16-byte aligned and sized),
+// x_time, the new FIFO rows and the output row.
+struct SmemBack {
+  static constexpr int kSXa = 0;         // f32 [2][32][18] spectra
+  static constexpr int kSBt = 4608;      // int32 [2][32] block types
+  static constexpr int kSStore = 4864;   // f32 [2][32][18]
+  static constexpr int kSV = 9472;       // f32 [2][15][64]
+  static constexpr int kSAct = 17152;    // int32 active flag (producer)
+  static constexpr int kStage = kSAct + 16;
+  static constexpr int kBulkIdle = kSV;  // an idle slot's copies: xa,
+                                         // bt_eff and store (its prev3)
+  static constexpr int kBulk = kSAct;    // an active slot's: and v
+  static constexpr int kOTab = 0;
+  static constexpr int kOStage = kOTab + kTFloats * 4;
+  static constexpr int kOXt = kOStage + 2 * kStage;  // f32 [32][kXtRow]
+  static constexpr int kONb = kOXt + 32 * kXtRow * 4;  // f32 [2][18][64]
+  static constexpr int kOOut = kONb + kNbBytes;       // f32 [2][576]
+  static constexpr int kOBar = kOOut + 2 * kLines * 4;  // two mbarriers
+  static constexpr int kSmemBytes = kOBar + 16;
+  static_assert(kOStage % 16 == 0 && kStage % 16 == 0 && kSBt % 16 == 0 &&
+                    kSStore % 16 == 0 && kSV % 16 == 0 && kONb % 16 == 0 &&
+                    kOOut % 16 == 0 && kOBar % 8 == 0,
+                "bulk copies need 16-byte aligned shared addresses");
+};
+
+// K4: the back half of B slots from post-antialias spectra, on the same
+// persistent, bulk-staged pattern and the same stages as the granule
+// body.  A unit is one slot b = blockIdx.x + k * gridDim.x; the producer
+// (thread 0) fills the other stage one slot ahead: xa, bt_eff and store
+// for every slot, v for an active one.  Per active slot: IMDCT + window
+// + overlap-add + frequency inversion of both channels (imdct4, thread =
+// four outputs, channel, subband), matrixing (matrix4), FIR (fir3,
+// thread = channel, three time steps, column), three barriers; the new
+// store and FIFO rows and the f32 output row [2][576] go back by bulk
+// stores: the raw FIR sums, or with kQuantize quantize_fast's samples as
+// floats.  An idle slot leaves its state alone and writes a zero row,
+// and thread 0 still computes its prev3 (x_time[0:3] of ch0, subband 0,
+// outputs 0..2 of imdct4 plus the store: no frequency inversion in
+// subband 0), as it does for every slot.
+template <bool kExact, bool kQuantize>
+__device__ __forceinline__ void persistent_back_half(
+    const float* __restrict__ xa, const int32_t* __restrict__ bt_eff,
+    const int32_t* __restrict__ active, float* __restrict__ store,
+    float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ prev3, const float4* __restrict__ image, int B) {
+  using L = SmemBack;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  float* tab = reinterpret_cast<float*>(smem + L::kOTab);
+  float* s_xt = reinterpret_cast<float*>(smem + L::kOXt);
+  float* s_nb = reinterpret_cast<float*>(smem + L::kONb);
+  float* s_out = reinterpret_cast<float*>(smem + L::kOOut);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::kOBar);
+  const int G = gridDim.x;
+
+  const auto produce = [&](int s, int slot, int act) {
+    unsigned char* st = smem + L::kOStage + s * L::kStage;
+    *reinterpret_cast<int*>(st + L::kSAct) = act;
+    mbar_expect_tx(bar + s, act ? L::kBulk : L::kBulkIdle);
+    bulk_load(st + L::kSXa, xa + (size_t)slot * 2 * kLines, 2 * kLines * 4,
+              bar + s);
+    bulk_load(st + L::kSBt, bt_eff + (size_t)slot * 64, 64 * 4, bar + s);
+    bulk_load(st + L::kSStore, store + (size_t)slot * kStoreFloats,
+              kStoreFloats * 4, bar + s);
+    if (act)
+      bulk_load(st + L::kSV, v + (size_t)slot * 2 * 15 * 64, 2 * 15 * 64 * 4,
+                bar + s);
+  };
+
+  for (int k = tid; k < kTFloats / 4; k += kThreads)
+    reinterpret_cast<float4*>(tab)[k] = __ldg(image + k);
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  int b = blockIdx.x;  // the launch keeps gridDim.x <= B
+  int act_next = 0;    // thread 0: active flag of slot b + G
+  int pend = -1;       // thread 0: output row waiting in s_out
+  if (tid == 0) {
+    produce(0, b, __ldg(active + b) != 0);
+    if (b + G < B) act_next = __ldg(active + b + G) != 0;
+  }
+
+  for (int n = 0; b < B; ++n, b += G) {
+    const int s = n & 1;
+    unsigned char* st = smem + L::kOStage + s * L::kStage;
+    mbar_wait(bar + s, (n >> 1) & 1);
+    __syncthreads();
+    const int act = *reinterpret_cast<const int*>(st + L::kSAct);
+    const int bn = b + G;
+    if (tid == 0) {
+      // the last slot's bulk stores have left shared memory: its stage
+      // may be refilled; then its output row goes out
+      bulk_wait_read();
+      if (bn < B) {
+        produce(s ^ 1, bn, act_next);
+        act_next = bn + G < B ? __ldg(active + bn + G) != 0 : 0;
+      }
+      if (pend >= 0) {
+        bulk_store(out + (size_t)pend * 2 * kLines, s_out, 2 * kLines * 4);
+        bulk_commit();
+      }
+      pend = act ? b : -1;
+    }
+    const float* s_xa = reinterpret_cast<const float*>(st + L::kSXa);
+    const int* s_bt = reinterpret_cast<const int*>(st + L::kSBt);
+    float* s_store = reinterpret_cast<float*>(st + L::kSStore);
+    if (!act) {
+      out[(size_t)b * 2 * kLines + tid] = 0.0f;
+      out[(size_t)b * 2 * kLines + kLines + tid] = 0.0f;
+      if (tid == 0) {
+        float o[4];
+        imdct4<kExact>(tab, [&](int m) { return s_xa[m]; },
+                       clampi(s_bt[0], 0, 3), 0, o);
+        for (int p = 0; p < 3; ++p)
+          prev3[(size_t)b * 3 + p] = o[p] + s_store[p];
+      }
+      continue;
+    }
+    // opaque per slot, as in the granule body: otherwise the per-thread
+    // addresses of the stages are hoisted out of the slot loop and spill
+    int lt = tid;
+    asm volatile("" : "+r"(lt));
+
+    // IMDCT stage: thread = (outputs 4og..4og+3, channel, subband)
+    float hi[4];
+    const int og = lt / 64, ch = lt / 32 % 2, sb = lt % 32, p0 = 4 * og;
+    {
+      const int bt = clampi(s_bt[ch * 32 + sb], 0, 3);
+      const float* xs = s_xa + ch * kLines + sb * 18;
+      float xr[18];
+#pragma unroll
+      for (int m = 0; m < 9; ++m) {
+        const float2 p = reinterpret_cast<const float2*>(xs)[m];
+        xr[2 * m] = p.x;
+        xr[2 * m + 1] = p.y;
+      }
+      float o[4];
+      imdct4<kExact>(tab, [&](int m) { return xr[m]; }, bt, p0, o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + e;
+        hi[e] = o[e];
+        if (p < 18) {
+          const float inv = ((sb & 1) && (p & 1)) ? -1.0f : 1.0f;
+          const float xt = (o[e] + s_store[ch * 576 + sb * 18 + p]) * inv;
+          s_xt[sb * kXtRow + ch * 18 + p] = xt;
+          if (ch == 0 && sb == 0 && p < 3) prev3[(size_t)b * 3 + p] = xt;
+        }
+      }
+    }
+    if (tid == 0) bulk_wait_read();  // the last output row has left s_out
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (p0 + e >= 18) s_store[ch * 576 + sb * 18 + p0 + e - 18] = hi[e];
+
+    matrix4<kExact>(tab, s_xt, s_nb, lt);
+    fence_async_shared();
+    __syncthreads();
+    if (tid == 0) {
+      bulk_store(store + (size_t)b * kStoreFloats, s_store, kStoreFloats * 4);
+      // the new FIFO is the newest 15 rows, nb rows 3..17 of each channel
+      for (int c2 = 0; c2 < 2; ++c2)
+        bulk_store(v + ((size_t)b * 2 + c2) * 15 * 64,
+                   s_nb + (c2 * 18 + 3) * 64, 15 * 64 * 4);
+      bulk_commit();
+    }
+
+    // FIR stage: thread = (channel, time steps it0, it0 + 2, it0 + 4,
+    // column kc)
+    if (lt < 2 * 6 * 32) {
+      const int fch = lt / 192, grp = lt / 32 % 6, kc = lt % 32;
+      const int it0 = (grp & 1) + 6 * (grp >> 1);
+      const float* s_v = reinterpret_cast<const float*>(st + L::kSV);
+      float acc[3];
+      fir3(tab, s_v + fch * 15 * 64, s_nb + fch * 18 * 64, it0, kc, acc);
+#pragma unroll
+      for (int o = 0; o < 3; ++o)
+        s_out[fch * kLines + (it0 + 2 * o) * 32 + kc] =
+            kQuantize ? quantize_fast(acc[o]) : acc[o];
+    }
+    fence_async_shared();
+  }
+
+  __syncthreads();
+  if (tid == 0) {
+    if (pend >= 0) {
+      bulk_store(out + (size_t)pend * 2 * kLines, s_out, 2 * kLines * 4);
+      bulk_commit();
+    }
+    bulk_wait_all();
+  }
+}
+
 // ---- launch geometry (host) ----
 
 constexpr int kMaxDevices = 64;
-// the persistent instances: K1, K2, K3 fast, K3 exact, K5 MPEG-1, K5 LSF
-constexpr int kInstances = 6;
+// the persistent instances: K1, K2, K3 fast, K3 exact, K5 MPEG-1, K5 LSF,
+// K4 fast, K4 exact
+constexpr int kInstances = 8;
 
 // The persistent grid of one kernel instance on the current device: SM
 // count x resident blocks per SM at `smem` bytes of dynamic shared

@@ -100,16 +100,17 @@ def ensure_built() -> str:
 
 def ptxas_summary(log: str) -> list[str]:
     """Registers, shared memory and spills of each kernel instance from
-    nvcc's -Xptxas -v report (the text of LOG)."""
+    nvcc's -Xptxas -v report (the text of LOG): a template instance as
+    name<args>, a kernel without template arguments by its name."""
     out, name = [], "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
-                      r"I((?:L[a-z]\d+E)+)E", ln)
+                      r"(?:I((?:L[a-z]\d+E)+)E)?", ln)
         if m:
-            args = re.findall(r"L([a-z])(\d+)E", m.group(2))
-            name = m.group(1) + "<" + ",".join(
+            args = re.findall(r"L([a-z])(\d+)E", m.group(2) or "")
+            name = m.group(1) + ("<" + ",".join(
                 ("true" if v == "1" else "false") if t == "b" else v
-                for t, v in args) + ">"
+                for t, v in args) + ">" if args else "")
         elif "spill stores" in ln:
             out.append(f"{name}: {ln.split(',', 1)[1].strip()}")
         elif "registers" in ln and out:
@@ -131,10 +132,11 @@ def load() -> C.CDLL:
         "pdmp3_frame_fused": [ptr] * 11 + [i32] * 5 + [ptr],
         # 7 operand pointers, the table array, B, exact
         "pdmp3_back_half": [ptr] * 8 + [i32] * 2 + [ptr],
-        # exact, the int[6] out array
+        # instance, the int[6] out array
         "pdmp3_granule_launch_info": [i32, ptr],
-        # construction, base, out, n
-        "pdmp3_rounding_sweep": [i32, C.c_uint32, ptr, C.c_longlong, ptr],
+        # base, out, n, row stride
+        "pdmp3_rounding_sweep": [C.c_uint32, ptr, C.c_longlong,
+                                 C.c_longlong, ptr],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -21,7 +21,11 @@ for bit; it is the route of the per-stream ``models.decoder.TorchDSP``.
 ``back_half_step`` has two implementations: the plain PyTorch version
 ``back_half_step_ref`` (the stage ops of ``ops/dsp.py``), taken for CPU
 tensors, and the CUDA kernel ``csrc/back_half.cu``, launched for CUDA
-tensors, which shares its device code with the fused kernels.
+tensors: persistent instances 6 (fast) and 7 (exact) of the granule
+body's pattern (``fused_step.granule_launch_info(device, exact,
+back_half=True)``), over the same back-half stages as K1 and K2.  Its
+bulk copies need 16-byte aligned xa, bt_eff, store, v_blocks and out;
+``check_bulk_alignment`` raises otherwise.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ import ctypes as C
 import torch
 
 from . import dsp as D
-from .fused_step import (_check, check_operands, check_state, commit_state,
-                         latch_prev, table_ptrs)
+from .fused_step import (_check, check_bulk_alignment, check_operands,
+                         check_state, commit_state, latch_prev, table_ptrs)
 from .rounding import qz_f64
 
 # Launches of the CUDA kernel since the last reset.
@@ -71,6 +75,9 @@ def back_half_step(xa, state, bt_eff, active, exact: bool):
     prev3 = torch.empty((B, 3), dtype=_F32, device=xa.device)
     if B == 0:
         return out, prev3
+    check_bulk_alignment(xa=xa, bt_eff=bt_eff, active=active,
+                         store=state.store, v_blocks=state.v_blocks,
+                         out=out)
     ptr = [t.data_ptr() for t in (xa, bt_eff, active, state.store,
                                   state.v_blocks, out, prev3)]
     stream = torch.cuda.current_stream(xa.device).cuda_stream

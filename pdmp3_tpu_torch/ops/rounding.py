@@ -24,7 +24,9 @@ functions over all 2^32 f32 bit patterns on the card (the kernel
 ``csrc/rounding_sweep.cu``, counterpart of the TPU sweep
 ``tools/prove_on_tpu.py:_device_fn``) and compares each chunk bitwise
 with the plain functions below, NaNs canonicalised.  Unlike the TPU
-sweep it masks nothing: the card keeps subnormals.
+sweep it masks nothing: the card keeps subnormals.  One launch
+(``rounding_sweep_all``) covers a chunk for all three constructions,
+generating the inputs once.
 """
 from __future__ import annotations
 
@@ -38,8 +40,9 @@ from .consts import INV_SQRT2_F64
 # Launches of the sweep kernel since the last reset.
 LAUNCHES = 0
 
-# construction name -> the kernel's selector (csrc/rounding_sweep.cu)
-CONSTRUCTIONS = {"ms": 0, "uq": 1, "qz": 2}
+# the constructions in the order of the kernel's output rows
+# (csrc/rounding_sweep.cu)
+CONSTRUCTIONS = ("ms", "uq", "qz")
 
 _F32, _F64 = torch.float32, torch.float64
 
@@ -86,35 +89,44 @@ def chunk_inputs(base: int, n: int, device) -> torch.Tensor:
     return bits.to(torch.int32).view(_F32)
 
 
-def rounding_sweep_step(construction: str, base: int, n: int,
-                        device) -> torch.Tensor:
-    """f32 [n]: the construction applied to chunk_inputs(base, n).  On a
-    CUDA device the kernel generates the inputs and applies the device
-    functions the exact granule kernel calls; on the CPU this is the
-    plain version."""
-    global LAUNCHES
-    if construction not in CONSTRUCTIONS:
-        raise ValueError(f"construction must be one of {list(PLAIN)}, "
-                         f"got {construction!r}")
-    if not 0 <= base < 2 ** 32 or not 0 < n <= 2 ** 32 - base:
-        raise ValueError(f"chunk [{base}, {base} + {n}) is outside 2^32")
-    device = torch.device(device)
+def rounding_sweep_all(base: int, n: int, device) -> torch.Tensor:
+    """f32 [3, n]: row c is construction c (CONSTRUCTIONS order) of
+    chunk_inputs(base, n), all three from one launch on a CUDA device
+    (rows of a [3, row_stride(n)] buffer); the plain versions on the
+    CPU."""
+    device = _check_chunk(base, n, device)
     if device.type == "cpu":
-        return PLAIN[construction](chunk_inputs(base, n, device))
-    if device.type != "cuda":
-        raise ValueError(f"no rounding sweep for {device}")
+        x = chunk_inputs(base, n, device)
+        return torch.stack([PLAIN[c](x) for c in CONSTRUCTIONS])
+    global LAUNCHES
     from . import _build
 
     lib = _build.load()
-    out = torch.empty(n, dtype=_F32, device=device)
+    ld = row_stride(n)
+    out = torch.empty((len(CONSTRUCTIONS), ld), dtype=_F32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.pdmp3_rounding_sweep(CONSTRUCTIONS[construction], base,
-                                  out.data_ptr(), n, C.c_void_p(stream))
+    rc = lib.pdmp3_rounding_sweep(base, out.data_ptr(), n, ld,
+                                  C.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("rounding_sweep launch failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())
     LAUNCHES += 1
-    return out
+    return out[:, :n]
+
+
+def row_stride(n: int) -> int:
+    """Floats between rounding_sweep_all's rows: n rounded up to the
+    kernel's vector of 4, so every row starts 16-byte aligned."""
+    return -(-n // 4) * 4
+
+
+def _check_chunk(base: int, n: int, device) -> torch.device:
+    if not 0 <= base < 2 ** 32 or not 0 < n <= 2 ** 32 - base:
+        raise ValueError(f"chunk [{base}, {base} + {n}) is outside 2^32")
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no rounding sweep for {device}")
+    return device
 
 
 def mismatches(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -133,13 +145,14 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return torch.where(fin, d, torch.zeros_like(d)).max()
 
 
-def sweep(construction: str, chunk_bits: int = 24, device="cuda",
-          chunks=None) -> dict:
+def sweep(chunk_bits: int = 24, device="cuda", chunks=None) -> dict:
     """Compare the device functions with the plain f64 functions over
     every f32 bit pattern, in 2^chunk_bits chunks (or only the chunk
-    indices given in ``chunks``).  Returns the chunks that mismatched,
-    the largest error over inputs finite on both sides, and the time
-    taken; one synchronisation at the end."""
+    indices given in ``chunks``), all three constructions from one
+    rounding_sweep_all launch per chunk.  Returns the chunks that
+    mismatched in any construction, the mismatching inputs and the
+    largest error over inputs finite on both sides per construction, and
+    the time taken; one synchronisation at the end."""
     n = 1 << chunk_bits
     n_chunks = 1 << (32 - chunk_bits)
     todo = range(n_chunks) if chunks is None else list(chunks)
@@ -147,16 +160,25 @@ def sweep(construction: str, chunk_bits: int = 24, device="cuda",
     counts, errs = [], []
     t0 = time.perf_counter()
     for c in todo:
-        got = rounding_sweep_step(construction, c * n, n, device)
-        want = PLAIN[construction](chunk_inputs(c * n, n, device))
-        counts.append(mismatches(got, want))
-        errs.append(max_abs_err(got, want))
-    counts = torch.stack(counts).cpu().tolist() if counts else []
-    err = float(torch.stack(errs).max()) if errs else 0.0
+        got = rounding_sweep_all(c * n, n, device)
+        x = chunk_inputs(c * n, n, device)
+        want = [PLAIN[name](x) for name in CONSTRUCTIONS]
+        counts.append(torch.stack([mismatches(g, w)
+                                   for g, w in zip(got, want)]))
+        errs.append(torch.stack([max_abs_err(g, w)
+                                 for g, w in zip(got, want)]))
+    k = len(CONSTRUCTIONS)
+    counts = torch.stack(counts).cpu().tolist() if counts else [[0] * k]
+    err = torch.stack(errs).amax(0).tolist() if errs else [0.0] * k
     seconds = time.perf_counter() - t0
-    bad = [c for c, k in zip(todo, counts) if k]
-    return {"construction": construction, "chunk_bits": chunk_bits,
-            "chunks_swept": len(counts), "inputs_swept": len(counts) * n,
+    bad = [c for c, m in zip(todo, counts) if any(m)]
+    return {"constructions": list(CONSTRUCTIONS), "chunk_bits": chunk_bits,
+            "chunks_swept": len(errs), "inputs_swept": len(errs) * n,
             "mismatching_chunks": bad,
-            "mismatching_inputs": int(sum(counts)), "max_abs_err": err,
+            "mismatching_inputs": int(sum(map(sum, counts))),
+            "max_abs_err": max(err),
+            "by_construction": {
+                name: {"mismatching_inputs": int(sum(m[i] for m in counts)),
+                       "max_abs_err": err[i]}
+                for i, name in enumerate(CONSTRUCTIONS)},
             "seconds": seconds}

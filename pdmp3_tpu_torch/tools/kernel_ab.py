@@ -7,11 +7,18 @@
 Builds both checkouts' kernel libraries, then:
 
 1. times K1, K2, K3 (fast and exact, both LSF families), K4 (both
-   modes) and K5 at ng = 2 (the MPEG-1 instance over two granules,
-   parities (0, 1)) of each checkout at B = 8192 on the same synthetic
-   operands (CUDA events, median of 25 launches), and K1 against K5 at
-   ng = 1 (the same granule with the state in K5's state set),
-   interleaved launch by launch; each checkout in its own process, in
+   modes, at B = 8192 and at one slot), K5 at ng = 2 (the MPEG-1
+   instance over two granules, parities (0, 1)) and K6 (one 2^24-input
+   chunk, the three rounding points: one launch, or one launch per point
+   in a tree without the three-in-one kernel) of each checkout on the
+   same synthetic operands, each kernel three ways
+   (``pdmp3_tpu_torch/timing.py``, this checkout's copy for both
+   trees): ``ms``, its device time per launch
+   from torch.profiler; ``burst_ms``, CUDA events around a burst of 25
+   back-to-back calls over the calls, median of 5 bursts; ``per_call_ms``,
+   events around one call, launcher included, median of 25; and K1
+   against K5 at ng = 1 (the same granule with the state in K5's state
+   set), interleaved call by call; each checkout in its own process, in
    the order given by ``--order`` (default: other, this, this, other),
    one JSON line per process;
 2. compares the SASS of every kernel the two libraries share
@@ -38,6 +45,7 @@ copies compute wrong PCM; only their times mean anything.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import re
@@ -63,9 +71,21 @@ STAGES = {"front": "// ---- requantize + stereo",
           "fir": "// ---- 16-tap D-window FIR"}
 
 
+def timing():
+    """This checkout's pdmp3_tpu_torch/timing.py, loaded by path, so that
+    both trees are timed by the same code."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab_timing", os.path.join(HERE, "pdmp3_tpu_torch",
+                                         "timing.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def time_kernels(tree: str) -> dict:
-    """Median device ms of K1, K2, K3 (k3_f{family}_{fast,exact}), K4
-    exact and fast and K5 at ng = 2 of `tree`'s package on synthetic
+    """Device times (timing.kernel_times) of K1, K2, K3
+    (k3_f{family}_{fast,exact}), K4 exact and fast at B and at one slot,
+    K5 at ng = 2 and K6 per chunk of `tree`'s package on synthetic
     operands, and the interleaved K1 / K5-at-ng=1 pair."""
     sys.path.insert(0, tree)
     import numpy as np
@@ -77,50 +97,63 @@ def time_kernels(tree: str) -> dict:
     from pdmp3_tpu_torch.ops import dsp as D
     from pdmp3_tpu_torch.ops import frame_step as FR
     from pdmp3_tpu_torch.ops import fused_step as FS
+    from pdmp3_tpu_torch.ops import rounding as R
 
     if not _build.__file__.startswith(tree):
         raise RuntimeError(f"imported {_build.__file__}, not {tree}")
     _build.ensure_built()
+    T = timing()
     dev = torch.device("cuda")
     ops = synthetic_operands(dev)
 
-    def median_ms(fn, n: int = LAUNCHES) -> float:
-        times = []
-        for _ in range(n):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
+    def times(fn, kernel):
+        return T.kernel_times(fn, kernel, LAUNCHES)
 
     res = {}
     for exact in (False, True):
         st = init_state(B, dev)
-        res["k2" if exact else "k1"] = median_ms(
-            lambda: FS.fused_granule_step(*ops, 0, st, exact=exact))
+        res["k2" if exact else "k1"] = times(
+            lambda: FS.fused_granule_step(*ops, 0, st, exact=exact),
+            "fused_granule_kernel")
     for family in (1, 2):
         lops, ip = synthetic_lsf_operands(dev, family)
         for exact in (False, True):
             st = init_state(B, dev)
-            res[f"k3_f{family}_{'exact' if exact else 'fast'}"] = median_ms(
+            res[f"k3_f{family}_{'exact' if exact else 'fast'}"] = times(
                 lambda: FS.fused_granule_step(*lops, 0, st, exact=exact,
-                                              family=family, is_pos=ip))
+                                              family=family, is_pos=ip),
+                "fused_granule_lsf_kernel")
     f2 = [torch.stack([o, o]) for o in ops]
     st = init_state(B, dev)
-    res["k5_ng2"] = median_ms(lambda: FR.frame_step(*f2, (0, 1), st))
+    res["k5_ng2"] = times(lambda: FR.frame_step(*f2, (0, 1), st),
+                          "frame_fused_kernel")
     res.update(k1_vs_k5_ng1(ops, init_state(B, dev), init_state(B, dev),
-                            median_ms))
+                            T.per_call_ms))
     f = D.fields(ops[3])
     bt = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
     xa = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (B, 2, 32, 18)).astype(np.float32)).to(dev)
     for exact in (True, False):
+        mode = "exact" if exact else "fast"
         st = init_state(B, dev)
-        res["k4_exact" if exact else "k4_fast"] = median_ms(
-            lambda: BH.back_half_step(xa, st, bt, ops[4], exact))
+        res[f"k4_{mode}"] = times(
+            lambda: BH.back_half_step(xa, st, bt, ops[4], exact),
+            "back_half_kernel")
+        st1 = init_state(1, dev)
+        one = (xa[:1], st1, bt[:1].contiguous(), ops[4][:1])
+        res[f"k4_{mode}_one_slot"] = times(
+            lambda: BH.back_half_step(*one, exact), "back_half_kernel")
+    n = 1 << 24
+    if hasattr(R, "rounding_sweep_all"):
+        res["k6"] = times(lambda: R.rounding_sweep_all(n, n, dev),
+                          "rounding_sweep_kernel")
+        res["k6_ms_per_chunk"] = res["k6"]["ms"]
+    else:  # an older tree: one launch per construction
+        res["k6_single"] = {
+            c: times(lambda: R.rounding_sweep_step(c, n, n, dev),
+                     "rounding_sweep_kernel") for c in R.CONSTRUCTIONS}
+        res["k6_ms_per_chunk"] = sum(r["ms"] for r in
+                                     res["k6_single"].values())
     return res
 
 
@@ -175,18 +208,18 @@ def synthetic_lsf_operands(dev, family: int, B: int = B) -> tuple:
     return (ix, scf_l, scf_s, meta, act), torch.from_numpy(ip).to(dev)
 
 
-def k1_vs_k5_ng1(ops, s1, s5, median_ms) -> dict:
+def k1_vs_k5_ng1(ops, s1, s5, per_call_ms) -> dict:
     """K1 and K5 at ng = 1 (frame_step over the same granule, parity 0)
-    on the same operands, alternating launch by launch: medians and
-    their ratio."""
+    on the same operands, alternating call by call (per_call_ms of one
+    call each): medians and their ratio."""
     from pdmp3_tpu_torch.ops import frame_step as FR
     from pdmp3_tpu_torch.ops import fused_step as FS
 
     f_ops = [o[None] for o in ops]
     k1, k5 = [], []
     for _ in range(LAUNCHES):
-        k1.append(median_ms(lambda: FS.fused_granule_step(*ops, 0, s1), 1))
-        k5.append(median_ms(lambda: FR.frame_step(*f_ops, (0,), s5), 1))
+        k1.append(per_call_ms(lambda: FS.fused_granule_step(*ops, 0, s1), 1))
+        k5.append(per_call_ms(lambda: FR.frame_step(*f_ops, (0,), s5), 1))
     m1, m5 = sorted(k1)[LAUNCHES // 2], sorted(k5)[LAUNCHES // 2]
     return {"k1_interleaved": m1, "k5_ng1_interleaved": m5,
             "k5_ng1_over_k1": m5 / m1}
@@ -246,18 +279,27 @@ def ablated_tree(stages: list[str]) -> str:
 
 
 def sass(lib: str) -> dict:
-    """Kernel name (template arguments kept, namespace hash dropped) ->
-    its SASS instructions without addresses and encodings."""
+    """sass_functions of `lib`'s cuobjdump -sass listing."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", lib], check=True,
-                          capture_output=True, text=True).stdout
+    return sass_functions(subprocess.run(
+        [cuobjdump, "-sass", lib], check=True, capture_output=True,
+        text=True).stdout)
+
+
+def sass_functions(text: str) -> dict:
+    """Kernel name (template arguments kept, namespace hash and the
+    parameter list of a kernel without template arguments dropped) -> its
+    SASS instructions without addresses and encodings; functions that are
+    not a kernel of the port are left out."""
     out, name = {}, None
     for ln in text.splitlines():
-        m = re.match(r"\s*Function : \S*?\d+([a-z_]+_kernel)(I\w+?EE)", ln)
-        if m:
-            name = m.group(1) + m.group(2)
-            out[name] = []
+        if "Function :" in ln:
+            m = re.match(r"\s*Function : \S*?\d+([a-z_]+_kernel)(I\w+?EE)?",
+                         ln)
+            name = m.group(1) + (m.group(2) or "") if m else None
+            if name:
+                out[name] = []
         elif name and re.search(r"/\*[0-9a-f]{4}\*/", ln):
             out[name].append(re.sub(r"/\*[0-9a-f]+\*/", "",
                                     ln.split(";")[0]).strip())

@@ -220,15 +220,58 @@ def test_sweep_plain_control_flow_on_cpu():
     the consecutive bit patterns."""
     x = R.chunk_inputs(2 ** 32 - 4, 4, "cpu")
     assert x.view(torch.int32).tolist() == [-4, -3, -2, -1]
-    res = R.sweep("qz", chunk_bits=30, device="cpu", chunks=[])
+    res = R.sweep(chunk_bits=30, device="cpu", chunks=[])
     assert res["chunks_swept"] == 0 and res["mismatching_chunks"] == []
-    out = R.rounding_sweep_step("uq", 2 ** 31, 1024, "cpu")
+    out = R.rounding_sweep_all(2 ** 31, 1024, "cpu")[
+        R.CONSTRUCTIONS.index("uq")]
     assert out.shape == (1024,) and int(R.mismatches(
         out, R.uq_f64(R.chunk_inputs(2 ** 31, 1024, "cpu")))) == 0
     with pytest.raises(ValueError):
-        R.rounding_sweep_step("mod", 0, 4, "cpu")
+        R.rounding_sweep_all(2 ** 32 - 2, 4, "cpu")
+
+
+# (base, n): ragged chunk sizes (n % 4 != 0), chunks that end at 2^32
+# (the last bit pattern 0xFFFFFFFF), and one across the sign bit
+SWEEP_CHUNKS = {"ragged_1": (0, 1), "ragged_5": (12345, 5),
+                "ragged_1027": (2 ** 31 - 700, 1027),
+                "top_7": (2 ** 32 - 7, 7), "top_4096": (2 ** 32 - 4096, 4096)}
+
+
+@pytest.mark.parametrize("chunk", list(SWEEP_CHUNKS))
+def test_sweep_all_rows_are_the_plain_constructions_on_cpu(chunk):
+    """rounding_sweep_all gives [3, n], row c bitwise equal to the plain
+    function of construction c (CONSTRUCTIONS order) on the chunk's
+    inputs, on ragged chunks and chunks that end at 2^32."""
+    base, n = SWEEP_CHUNKS[chunk]
+    got = R.rounding_sweep_all(base, n, "cpu")
+    assert got.shape == (3, n)
+    x = R.chunk_inputs(base, n, "cpu")
+    for k, name in enumerate(R.CONSTRUCTIONS):
+        assert int(R.mismatches(got[k], R.PLAIN[name](x))) == 0, name
+    if base + n == 2 ** 32:
+        assert R.chunk_inputs(base, n, "cpu").view(torch.int32)[-1] == -1
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 2 ** 24, 2 ** 32 - 1, 2 ** 32])
+def test_sweep_row_stride_keeps_rows_aligned(n):
+    """rounding_sweep_all's rows start a multiple of 16 bytes apart: the
+    row stride is n rounded up to the kernel's 4-float vector."""
+    ld = R.row_stride(n)
+    assert ld % 4 == 0 and n <= ld < n + 4
+
+
+def test_sweep_chunk_checks():
+    """A chunk past 2^32, an empty one, or a device that is neither CPU
+    nor CUDA raise ValueError; a sweep on no chunk reports all three
+    constructions and nothing swept."""
+    for base, n in ((2 ** 32 - 2, 4), (0, 0), (2 ** 32, 1), (-1, 2)):
+        with pytest.raises(ValueError):
+            R.rounding_sweep_all(base, n, "cpu")
     with pytest.raises(ValueError):
-        R.rounding_sweep_step("ms", 2 ** 32 - 2, 4, "cpu")
+        R.rounding_sweep_all(0, 4, "meta")
+    res = R.sweep(chunk_bits=30, device="cpu", chunks=[])
+    assert res["constructions"] == list(R.CONSTRUCTIONS)
+    assert res["chunks_swept"] == 0 and res["mismatching_inputs"] == 0
 
 
 def test_exact_idle_slots_frozen():
@@ -289,15 +332,33 @@ def test_k2_matches_plain_version_on_cuda():
 
 @pytest.mark.cuda
 def test_k6_chunks_match_plain_versions_on_cuda():
-    """A few 2^24-input chunks of each rounding point: the sweep kernel
-    (the device functions K2 calls) vs the plain f64 functions, bitwise;
-    chunk 0 holds the positive subnormals, 128 the negative ones."""
+    """A few 2^24-input chunks of the three rounding points, one launch
+    per chunk: the sweep kernel (the device functions K2 calls) vs the
+    plain f64 functions, bitwise; chunk 0 holds the positive subnormals,
+    128 the negative ones."""
     dev = _cuda()
-    for name in R.CONSTRUCTIONS:
-        n0 = R.LAUNCHES
-        res = R.sweep(name, 24, dev, chunks=[0, 1, 127, 128, 129, 255])
-        assert R.LAUNCHES == n0 + 6
-        assert res["mismatching_chunks"] == [], res
+    chunks = [0, 1, 127, 128, 129, 255]
+    n0 = R.LAUNCHES
+    res = R.sweep(24, dev, chunks=chunks)
+    assert R.LAUNCHES == n0 + len(chunks)
+    assert res["mismatching_chunks"] == [] and res["chunks_swept"] == 6, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", list(SWEEP_CHUNKS))
+def test_k6_ragged_and_top_chunks_on_cuda(chunk):
+    """K6 on ragged chunks (n % 4 != 0: the tail past the last 16-byte
+    vector) and chunks that end at 2^32, the three constructions in one
+    launch (rows a 16-byte multiple apart): bitwise equal to the plain
+    f64 functions."""
+    dev = _cuda()
+    base, n = SWEEP_CHUNKS[chunk]
+    x = R.chunk_inputs(base, n, dev)
+    n0 = R.LAUNCHES
+    got = R.rounding_sweep_all(base, n, dev)
+    assert R.LAUNCHES == n0 + 1
+    for k, name in enumerate(R.CONSTRUCTIONS):
+        assert int(R.mismatches(got[k], R.PLAIN[name](x))) == 0, name
 
 
 @pytest.mark.cuda

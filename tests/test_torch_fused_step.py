@@ -297,6 +297,61 @@ def test_kernel_ab_ablation_empties_one_stage(stage):
     assert K.skip_stages(out, rest) == K.skip_stages(src, list(K.STAGES))
 
 
+# kernels of a -Xptxas -v report and a cuobjdump -sass listing: two
+# template instances and one kernel without template arguments
+_MANGLED = {
+    "back_half_kernel<false,true>":
+        "_ZN45_GLOBAL__N__a81dc2af_12_back_half_cu_5e83cad216back_half_"
+        "kernelILb0ELb1EEEvPKfPKiS4_PfS5_S5_S5_PK6float4i",
+    "fused_granule_kernel<true>":
+        "_ZN49_GLOBAL__N__0c1d2e3f_16_fused_granule_cu_1a2b3c4d20fused_"
+        "granule_kernelILb1EEEvPKsS2_S2_PKiS4_i",
+    "rounding_sweep_kernel":
+        "_ZN50_GLOBAL__N__9f8e7d6c_17_rounding_sweep_cu_4b3a291021rounding_"
+        "sweep_kernelEjPfmjj"}
+
+
+@pytest.mark.parametrize("which", ["ptxas", "sass"])
+def test_kernel_names_from_build_log_and_sass(which):
+    """_build.ptxas_summary and kernel_ab.sass_functions name a template
+    instance with its arguments and a kernel without template arguments
+    by its name, so that each kernel's lines stay its own (a kernel the
+    parsers did not recognise used to add its lines to the kernel before
+    it)."""
+    names = list(_MANGLED)
+    if which == "ptxas":
+        from pdmp3_tpu_torch.ops._build import ptxas_summary
+        log = "".join(
+            f"ptxas info    : Compiling entry function '{_MANGLED[n]}' for "
+            f"'sm_90a'\nptxas info    : Function properties for "
+            f"{_MANGLED[n]}\n    0 bytes stack frame, {k} bytes spill "
+            f"stores, 0 bytes spill loads\nptxas info    : Used {40 + k} "
+            f"registers, used 1 barriers\n" for k, n in enumerate(names))
+        got = ptxas_summary(log)
+        assert [g.split(":")[0] for g in got] == names
+        for k, g in enumerate(got):
+            assert f"{k} bytes spill stores" in g
+            assert f"Used {40 + k} registers" in g
+        return
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab", os.path.join(root, "pdmp3_tpu_torch", "tools",
+                                  "kernel_ab.py"))
+    K = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(K)
+    text = "".join(
+        f"\t\tFunction : {_MANGLED[n]}\n"
+        + "".join(f"        /*{16 * i:04x}*/   FADD R{k}, R{i}, R1 ;"
+                  f"   /* 0x000fe20000000000 */\n" for i in range(k + 2))
+        for k, n in enumerate(names))
+    got = K.sass_functions(text)
+    assert list(got) == ["back_half_kernelILb0ELb1EE",
+                         "fused_granule_kernelILb1EE",
+                         "rounding_sweep_kernel"]
+    assert [len(v) for v in got.values()] == [2, 3, 4]
+    assert got["rounding_sweep_kernel"][0] == "FADD R2, R0, R1"
+
+
 RAGGED_B = ("1", "2", "grid-1", "grid+1", "2grid+3")
 IDLE_SEAMS = ("none", "first", "last", "two_in_a_row", "alternating")
 

@@ -55,19 +55,23 @@ def test_packed_lsf_wire_sections_pass_the_alignment_check(B, F):
 @pytest.mark.parametrize("kw,instance", [
     ({}, 0), (dict(exact=True), 1), (dict(family=1), 2),
     (dict(family=2, exact=True), 3), (dict(frame=True), 4),
-    (dict(family=1, frame=True), 5), (dict(family=2, frame=True), 5)])
+    (dict(family=1, frame=True), 5), (dict(family=2, frame=True), 5),
+    (dict(back_half=True), 6), (dict(back_half=True, exact=True), 7)])
 def test_launch_instance_names_every_persistent_kernel(kw, instance):
-    """K1, K2, K3 fast / exact and K5 MPEG-1 / LSF are the instances 0-5
-    of pdmp3_granule_launch_info."""
+    """K1, K2, K3 fast / exact, K5 MPEG-1 / LSF and K4 fast / exact are
+    the instances 0-7 of pdmp3_granule_launch_info."""
     assert FS.launch_instance(**kw) == instance
 
 
 @pytest.mark.parametrize("kw", [dict(family=3), dict(family=-1),
                                 dict(exact=True, frame=True),
-                                dict(family=1, exact=True, frame=True)])
+                                dict(family=1, exact=True, frame=True),
+                                dict(back_half=True, frame=True),
+                                dict(back_half=True, family=1)])
 def test_granule_launch_info_rejects_other_arguments(kw):
-    """A family other than 0-2, or an exact frame step (K5 is fast only),
-    raises ValueError before the kernel library is loaded."""
+    """A family other than 0-2, an exact frame step (K5 is fast only), or
+    K4 with a frame or a family (it takes post-antialias spectra) raises
+    ValueError before the kernel library is loaded."""
     with pytest.raises(ValueError):
         FS.launch_instance(**kw)
     with pytest.raises(ValueError):
