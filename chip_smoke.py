@@ -5,8 +5,10 @@
 
 Layer III decoding through ``pdmp3_tpu_torch`` at B = 8192 stream slots,
 fast and exact, MPEG-1 and the LSF families MPEG-2 and MPEG-2.5, one
-granule per launch and one frame per launch, dense and sparse wire, in
-fifteen phases; any failure exits non-zero.  The kernels are built here
+granule per launch and one frame per launch, dense and sparse wire, S16
+and float PCM; Layer I/II pools, mid-stream joins, the resampler and
+batched and offline file decode, in twenty phases; any failure exits
+non-zero.  The kernels are built here
 from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
 ``pdmp3_tpu_torch/host/src``.
 
@@ -72,7 +74,40 @@ from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
 16. ``SparseStreamDecoder(8192, frames_per_step=2)``, frame-fused, with
     the pipelined PCM drain (``decode_step_pipelined`` /
     ``drain_pending``): the watched slots byte-equal to phase 3's, and
-    the sparse wire's bytes per step beside the dense wire's.
+    the sparse wire's bytes per step beside the dense wire's;
+17. float PCM: K4's fast raw-sums instance (8) against its plain version
+    (``back_half_step_ref(raw=True)``) on phase 2's frame at B, at one
+    slot and at the ragged B = 2 x grid + 3 with idle slots at the seams
+    of its slot ring, bitwise, timed, its launch geometry printed; then
+    ``StreamDecoder(8192, float_pcm=True, device="cuda")`` fast (K4
+    instance 8) and exact (instance 7) on phase 3's streams, 2 warm-up
+    and 10 timed steps, the instance's launches checked; the watched
+    slots' trunc(pcm x 32767) equal to phase 6's S16 PCM (exact) or
+    within 1.001/32767 of phase 3's / 32767 (fast), but at the wrap;
+18. Layer I/II pools: ``L12StreamDecoder(8192, layer=l, exact=e,
+    device="cuda")`` for both layers and precisions, fed by ``LoopFeeder``
+    from 64 generated 12-frame streams per layer (stereo and mono,
+    several bitrates, the three MPEG-1 rates), 2 warm-up and 10 timed
+    steps; watched slots against the native decoder with PROFILE_L12
+    (exact bitwise, fast within 1 LSB); Layer II float PCM within
+    1.001/32767 of its S16;
+19. mid-stream joins: in a serving pool, fast and exact, two slots each
+    joined to new streams at 0.1-0.3 s (``StreamDecoder.join``); after
+    ``drop_samples`` each slot's PCM is the same window of the native
+    decode (exact bitwise, fast within 1 LSB);
+20. the resampler: ``StreamDecoder(8192, resample_to=48000,
+    sample_rate=44100, device="cuda")`` on a 44.1 kHz corpus, each
+    step's length as the phase gives it, the watched slots within 1 LSB
+    of the same resampler run on the CPU over their S16 PCM; the
+    resample step timed;
+21. file decode: ``decode_files_batched`` over 1,024 files (phase 3's 64
+    streams x 16), exact, and with gapless=True, window=(0.1, 0.2) on
+    64 of them and layer=2 on 64 Layer II files; ``decode_files_scan``
+    over the 1,024 files, exact; every 64th file (every file of the
+    64-file runs) bitwise against the native decoder, its window or
+    trim; files and audio seconds per wall second.
+
+Each phase's wall seconds are printed before the kernels' line.
 
     python3 chip_smoke.py --profile
 
@@ -81,10 +116,10 @@ adds phase 13: ``torch.profiler`` over fast MPEG-1 serving steps
 loop), then the serving loop at 1, 2, 4 and 8 parse threads.
 
 Kernel times come from ``pdmp3_tpu_torch/timing.py``: ``ms`` is the
-device time per launch (torch.profiler, in one pass after every route
-is timed), ``burst_ms`` CUDA events around a burst of back-to-back calls
-over the calls, ``per_call_ms`` events around one call, its Python
-launcher included; plain versions and routes are timed in bursts.  The
+device time per launch (CUDA events around replays of a CUDA graph that
+holds the calls), ``burst_ms`` CUDA events around a burst of
+back-to-back calls over the calls, ``per_call_ms`` events around one
+call, its Python launcher included; plain versions and routes are timed in bursts.  The
 line before the last is the kernels'
 JSON record, each kernel with those times, its plain version's, and its
 bound (the least time the card could take for the same work: the larger
@@ -130,6 +165,7 @@ REPLACES = {"fused_granule": "pdmp3_tpu/ops/pallas_step.py:771",
             "fused_granule_lsf": "pdmp3_tpu/ops/pallas_step.py:771",
             "fused_granule_lsf_exact": "pdmp3_tpu/ops/pallas_step.py:771",
             "back_half": "pdmp3_tpu/ops/pallas_step.py:463",
+            "back_half_raw": "pdmp3_tpu/ops/pallas_step.py:463",
             "frame_fused": "pdmp3_tpu/ops/pallas_step.py:1067",
             "rounding_sweep": "tools/prove_on_tpu.py:88"}
 # the card's peak rates for the bounds (NVIDIA H100 SXM data sheet):
@@ -170,6 +206,24 @@ CARRY_BITS = (1, 40)
 # 3's frames
 SPARSE_F = 2
 SPARSE_STEPS = (WARMUP_STEPS + TIMED_STEPS) // SPARSE_F
+# phases 17, 18 and 20: timed steps after the warm-up (with the warm-up,
+# the 12 frames of a stream, which phase 18 compares with the native
+# decoder), and phase 18's parse threads (its host parse, which
+# requantizes, takes ~0.1 s a step on one thread)
+NEW_TIMED_STEPS = 10
+L12_PARSE_THREADS = 8
+# float PCM against S16 / 32767: trunc toward zero loses under one step
+FLOAT_TOL = 1.001 / 32767
+# phase 19: (start s, duration s) of each pool's two joins, and the steps
+# served before them
+JOINS = ((0.1, 0.2), (0.3, 0.15))
+JOIN_SLOTS = (3, B // 2 + 1)
+JOIN_LEAD_STEPS = 2
+# phase 21: copies of phase 3's streams, and the subset size
+FILE_COPIES = 16
+FILE_SUBSET = 64
+# wall seconds per phase (phase name -> seconds)
+PHASE_SECONDS = {}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -188,6 +242,7 @@ def _counters() -> dict:
             "fused_granule_lsf": (FS, "LAUNCHES_LSF"),
             "fused_granule_lsf_exact": (FS, "LAUNCHES_LSF_EXACT"),
             "back_half": (BH, "LAUNCHES"),
+            "back_half_raw": (BH, "LAUNCHES_RAW"),
             "rounding_sweep": (R, "LAUNCHES"),
             "frame_fused": (FR, "LAUNCHES_FRAME"),
             "frame_fused_lsf": (FR, "LAUNCHES_FRAME_LSF")}
@@ -254,6 +309,53 @@ def lsf_corpus(family: int) -> list[tuple[bytes, dict]]:
             spec["mode_extension"] = 2 if (i // 4) % 4 == 0 else 3
             if spec["mode_extension"] == 3:
                 spec["stereo_extent_ch1"] = 0.4
+        i += 1
+        try:
+            out.append((mp3gen.make_stream(**spec), spec))
+        except AssertionError:   # the encoder could not fit the budget
+            continue
+    return out
+
+
+def l12_corpus(layer: int) -> list[tuple[bytes, dict]]:
+    """64 distinct 12-frame Layer I or II streams: stereo, joint stereo,
+    dual channel and mono, four bitrates of the layer, the three MPEG-1
+    sample rates."""
+    from pdmp3_tpu_torch.testing import mp3gen
+
+    out = []
+    i = 0
+    while len(out) < N_STREAMS:
+        spec = dict(layer=layer, n_frames=FRAMES_PER_STREAM,
+                    seed=9000 + 100 * layer + i, mode=[0, 3, 1, 2][i % 4],
+                    bitrate_index=[6, 8, 10, 12][(i // 4) % 4],
+                    sfreq=i % 3)
+        if spec["mode"] == 1:
+            spec["mode_extension"] = (i // 4) % 4
+        i += 1
+        try:
+            out.append((mp3gen.make_l12_stream(**spec), spec))
+        except (AssertionError, ValueError):   # no such allocation table
+            continue
+    return out
+
+
+def corpus_44k() -> list[tuple[bytes, dict]]:
+    """Phase 20's rate-homogeneous corpus: 64 distinct 12-frame MPEG-1
+    streams at 44.1 kHz in corpus()'s mix of blocks, modes and
+    bitrates."""
+    from pdmp3_tpu_torch.testing import mp3gen
+
+    out = []
+    i = 0
+    while len(out) < N_STREAMS:
+        spec = dict(n_frames=FRAMES_PER_STREAM, seed=9500 + i,
+                    blocks=["long", "varied", "short", "mixed"][i % 4],
+                    mode=[0, 1, 1, 3][i % 4],
+                    bitrate_index=[9, 11, 14, 7][(i // 4) % 4], sfreq=0,
+                    use_reservoir=i % 5 == 0)
+        if spec["mode"] == 1:
+            spec["mode_extension"] = 2
         i += 1
         try:
             out.append((mp3gen.make_stream(**spec), spec))
@@ -337,34 +439,18 @@ def bound(nbytes: float, ops: float, f64_ops: float = 0.0) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def kernel_timing(res: dict, fn, kernel: str) -> None:
+def kernel_timing(res: dict, fn) -> None:
     """A kernel's times over TIMED_LAUNCHES calls of fn
-    (pdmp3_tpu_torch/timing.py), into res: kernel_burst_ms, CUDA events
-    around a burst of back-to-back calls over the calls, median of
-    bursts, and kernel_per_call_ms, events around one call, its Python
-    launcher included, now; kernel_ms, its device time per launch
-    (torch.profiler, the launches whose name holds `kernel`), from
-    profile_kernels at the end of the run."""
+    (pdmp3_tpu_torch/timing.py), into res: kernel_ms, its device time per
+    launch (CUDA events around replays of a CUDA graph of the calls);
+    kernel_burst_ms, CUDA events around a burst of back-to-back calls
+    over the calls, median of bursts; and kernel_per_call_ms, events
+    around one call, its Python launcher included."""
     from pdmp3_tpu_torch import timing as T
 
+    res["kernel_ms"] = T.graph_ms(fn, TIMED_LAUNCHES)
     res["kernel_burst_ms"] = T.burst_ms(fn, TIMED_LAUNCHES)
     res["kernel_per_call_ms"] = T.per_call_ms(fn, TIMED_LAUNCHES)
-    PROFILE_LATER.append((res, fn, kernel))
-
-
-# (result, fn, kernel) of every kernel_timing: the profiler's pass over
-# them runs after every route is timed, so that no profiler session in
-# the process comes before a route's timing
-PROFILE_LATER = []
-
-
-def profile_kernels() -> None:
-    """kernel_ms of every kernel_timing so far."""
-    from pdmp3_tpu_torch import timing as T
-
-    for res, fn, kernel in PROFILE_LATER:
-        res["kernel_ms"] = T.profiled_ms(fn, kernel, TIMED_LAUNCHES)
-    PROFILE_LATER.clear()
 
 
 def plain_ms(fn) -> float:
@@ -539,9 +625,7 @@ def phase_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
     # granule steps on state copies made before the timed window
     sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
     args, kw = granule_args(fr, 0), granule_kw(fr)
-    kernel_timing(
-        res, lambda: step_k(*args, sk, **kw),
-        "fused_granule_lsf_kernel" if family else "fused_granule_kernel")
+    kernel_timing(res, lambda: step_k(*args, sk, **kw))
     res["plain_ms"] = plain_ms(lambda: step_r(*args, sr, **kw))
     res.update(granule_bound(B, int((fr["active"] != 0).sum()),
                              lsf=family != 0))
@@ -631,8 +715,7 @@ def phase_frame_kernel(fr: dict, family: int = 0) -> dict:
     if not family:
         res["band12_carry"] = phase_band12_carry(ops, fr["st0"])
     sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
-    kernel_timing(res, lambda: FR.frame_step(*ops, parities, sk, **lsf),
-                  "frame_fused_kernel")
+    kernel_timing(res, lambda: FR.frame_step(*ops, parities, sk, **lsf))
     res["plain_ms"] = plain_ms(
         lambda: FR.frame_step_ref(*ops, parities, sr, **lsf))
     res.update(frame_bound(ops[4], lsf=family != 0))
@@ -704,14 +787,15 @@ def phase_band12_carry(ops: list, st0) -> dict:
     return res
 
 
-def compare_back_half(xa, st0, bt, active, exact: bool, what: str) -> dict:
+def compare_back_half(xa, st0, bt, active, exact: bool, what: str,
+                      raw: bool = False) -> dict:
     """K4 and its plain version from copies of st0 on the same operands:
     out, prev3, store and v_blocks required bitwise equal."""
     from pdmp3_tpu_torch.ops import back_half as BH
 
     sk, sr = clone_state(st0), clone_state(st0)
-    ok, pk = BH.back_half_step(xa, sk, bt, active, exact)
-    orf, pr = BH.back_half_step_ref(xa, sr, bt, active, exact)
+    ok, pk = BH.back_half_step(xa, sk, bt, active, exact, raw)
+    orf, pr = BH.back_half_step_ref(xa, sr, bt, active, exact, raw)
     torch.cuda.synchronize()
     pairs = {"out": (ok, orf), "prev3": (pk, pr),
              "store": (sk.store, sr.store),
@@ -755,13 +839,12 @@ def phase_back_half(fr: dict) -> dict:
         # state copies made before the timed window
         sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
         kernel_timing(r, functools.partial(BH.back_half_step, xa, sk, bt,
-                                           act, exact), "back_half_kernel")
+                                           act, exact))
         r["plain_ms"] = plain_ms(
             lambda: BH.back_half_step_ref(xa, sr, bt, act, exact))
         s1, r1 = clone_state(one[1]), clone_state(one[1])
         kernel_timing(r["one_slot"], functools.partial(
-            BH.back_half_step, one[0], s1, one[2], one[3], exact),
-            "back_half_kernel")
+            BH.back_half_step, one[0], s1, one[2], one[3], exact))
         r["one_slot"]["plain_ms"] = plain_ms(
             lambda: BH.back_half_step_ref(one[0], r1, one[2], one[3], exact))
         r["launch"] = FS.granule_launch_info(xa.device, exact,
@@ -777,6 +860,52 @@ def phase_back_half(fr: dict) -> dict:
         fr, functools.partial(FS.fused_granule_step, exact=True),
         functools.partial(BH.split_granule_step, exact=True),
         "phase 7 fused vs split")
+    return res
+
+
+def phase_k4_raw(fr: dict) -> dict:
+    """Phase 17's kernel part: K4's fast raw-sums instance against its
+    plain version on granule 0's fast post-antialias spectra at B, at one
+    slot and at the ragged B = 2 x grid + 3 with idle slots at the seams
+    of its slot ring (grid - 1, grid, 2 grid - 1, 2 grid, the last),
+    bitwise; timed at B and at one slot; its launch geometry."""
+    from pdmp3_tpu_torch.ops import back_half as BH
+    from pdmp3_tpu_torch.ops import dsp as D
+    from pdmp3_tpu_torch.ops import fused_step as FS
+
+    args = granule_args(fr, 0)
+    f = D.fields(args[3])
+    bt = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
+    act = fr["active"]
+    xa = D.front_half(*args[:4], 0, fr["st0"].prev_lines, False)
+    what = "phase 17: K4 fast raw sums"
+    res = compare_back_half(xa, fr["st0"], bt, act, False, what, raw=True)
+    one = (xa[:1], slot_state(fr["st0"], 1), bt[:1], act[:1])
+    res["one_slot"] = compare_back_half(*one, False, what + " one slot",
+                                        raw=True)
+    launch = FS.granule_launch_info(xa.device, back_half=True, raw=True)
+    grid = launch["grid"]
+    n = 2 * grid + 3
+    ract = act[:n].clone()
+    seams = [grid - 1, grid, 2 * grid - 1, 2 * grid, n - 1]
+    ract[seams] = 0
+    res["ragged"] = dict(batch_slots=n, idle_slots=seams, **compare_back_half(
+        xa[:n], clone_state(slot_state(fr["st0"], n)), bt[:n], ract, False,
+        f"{what} ragged B={n}", raw=True))
+    res["launch"] = launch
+    sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
+    kernel_timing(res, functools.partial(BH.back_half_step, xa, sk, bt, act,
+                                         False, True))
+    res["plain_ms"] = plain_ms(
+        lambda: BH.back_half_step_ref(xa, sr, bt, act, False, True))
+    s1, r1 = clone_state(one[1]), clone_state(one[1])
+    kernel_timing(res["one_slot"], functools.partial(
+        BH.back_half_step, one[0], s1, one[2], one[3], False, True))
+    res["one_slot"]["plain_ms"] = plain_ms(
+        lambda: BH.back_half_step_ref(one[0], r1, one[2], one[3], False,
+                                      True))
+    res.update(back_half_bound(B, int((act != 0).sum())))
+    res["one_slot_bound"] = back_half_bound(1, 1)
     return res
 
 
@@ -847,8 +976,7 @@ def phase_sweep(dev) -> dict:
     n = 1 << 24
     x = R.chunk_inputs(n, n, dev)
     res["chunk_inputs"] = n
-    kernel_timing(res, lambda: R.rounding_sweep_all(n, n, dev),
-                  "rounding_sweep_kernel")
+    kernel_timing(res, lambda: R.rounding_sweep_all(n, n, dev))
     res["plain_ms_by_construction"] = {
         name: plain_ms(functools.partial(R.PLAIN[name], x))
         for name in R.CONSTRUCTIONS}
@@ -865,37 +993,45 @@ def frame_fused_route(on: bool) -> None:
 def phase_main_path(streams: list[bytes], dev, watch: list[int],
                     exact: bool = False, family: int = 0,
                     rates: list[int] | None = None,
-                    frame_fused: bool = False) -> dict:
+                    frame_fused: bool = False, float_pcm: bool = False,
+                    timed: int = TIMED_STEPS) -> dict:
     """StreamDecoder serving at B slots: MPEG-1 fast (K1) or exact (K2),
     or an LSF pool of `family` (K3), or with frame_fused MPEG-1 fast with
-    the frame-fused opt-in set (K5); returns timings, with an exact_
-    prefix when exact, lsf{family}_ for an LSF pool and ff_ when frame
-    fused, and the PCM of the watched slots.  rates: each source
-    stream's sample rate (the LSF realtime factor's basis)."""
+    the frame-fused opt-in set (K5), or with float_pcm MPEG-1 float PCM
+    (the stage ops and K4, instance 8 fast, 7 exact), over `timed` timed
+    steps; returns timings, with an exact_ prefix when exact, lsf{family}_
+    for an LSF pool, ff_ when frame fused and float_ for float PCM, and
+    the PCM of the watched slots.  rates: each source stream's sample
+    rate (the LSF realtime factor's basis)."""
     frame_fused_route(frame_fused)
     try:
         return _main_path(streams, dev, watch, exact, family, rates,
-                          frame_fused)
+                          frame_fused, float_pcm, timed)
     finally:
         frame_fused_route(False)
 
 
-def _main_path(streams, dev, watch, exact, family, rates, frame_fused):
+def _main_path(streams, dev, watch, exact, family, rates, frame_fused,
+               float_pcm, timed):
     from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
 
     path = (f"main path (family={family}, exact={exact}, "
-            f"frame_fused={frame_fused})")
-    kernel = ("frame_fused" if frame_fused else "fused_granule"
-              + ("_lsf" if family else "") + ("_exact" if exact else ""))
+            f"frame_fused={frame_fused}, float_pcm={float_pcm})")
+    if float_pcm:
+        kernel = "back_half" if exact else "back_half_raw"
+    else:
+        kernel = ("frame_fused" if frame_fused else "fused_granule"
+                  + ("_lsf" if family else "") + ("_exact" if exact else ""))
     ngr = 1 if family else 2
     per_frame = 1 if frame_fused else ngr
-    dec = StreamDecoder(B, exact=exact, family=family, device=dev)
+    dec = StreamDecoder(B, exact=exact, family=family, float_pcm=float_pcm,
+                        device=dev)
     feeder = LoopFeeder(dec, streams)
     sel = torch.tensor(watch, device=dev)
     kept, events, feed_s, parse_s = [], [], [], []
     decoded = 0
     reset_launch_counts()
-    for step in range(WARMUP_STEPS + TIMED_STEPS):
+    for step in range(WARMUP_STEPS + timed):
         if step == WARMUP_STEPS:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -914,7 +1050,7 @@ def _main_path(streams, dev, watch, exact, family, rates, frame_fused):
         kept.append(pcm.index_select(0, sel))
         decoded += 1
     torch.cuda.synchronize()
-    loop_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    loop_ms = (time.perf_counter() - t0) / timed * 1e3
     launches = launch_counts(path, kernel)
     check(launches == per_frame * decoded,
           f"{path}: {launches} {kernel} launches for {decoded} frame steps")
@@ -927,11 +1063,11 @@ def _main_path(streams, dev, watch, exact, family, rates, frame_fused):
     if family:
         replay_ms = per_call_ms(
             lambda: decode_frame_packed_lsf(wire, state, B=B, family=family,
-                                            exact=exact), TIMED_STEPS)
+                                            exact=exact), timed)
     else:
         replay_ms = per_call_ms(
-            lambda: decode_frame_packed(wire, state, B=B, exact=exact),
-            TIMED_STEPS)
+            lambda: decode_frame_packed(wire, state, B=B, exact=exact,
+                                        float_pcm=float_pcm), timed)
 
     step_ms = float(np.median([a.elapsed_time(b)
                                for a, b in events[WARMUP_STEPS:]]))
@@ -942,14 +1078,15 @@ def _main_path(streams, dev, watch, exact, family, rates, frame_fused):
     audio_s = B * 576 * ngr / mean_rate
     pcm = torch.cat(kept, 1).cpu().numpy()   # [watched, steps*576*ngr, 2]
     check(pcm.shape == (len(watch), decoded * 576 * ngr, 2)
-          and pcm.dtype == np.int16, f"{path}: PCM {pcm.shape}")
+          and pcm.dtype == (np.float32 if float_pcm else np.int16),
+          f"{path}: PCM {pcm.shape} {pcm.dtype}")
     check(bool(pcm.any(axis=(1, 2)).all()), f"{path}: a slot is silent")
     pre = (("exact_" if exact else "") + (f"lsf{family}_" if family else "")
-           + ("ff_" if frame_fused else ""))
+           + ("ff_" if frame_fused else "") + ("float_" if float_pcm else ""))
     return {f"{pre}{k}" if k not in ("batch_slots", "steps", "_pcm")
             else k: v for k, v in {
         "batch_slots": B,
-        "steps": TIMED_STEPS,
+        "steps": timed,
         "mean_sample_rate": mean_rate,
         "step_ms": step_ms,
         "device_replay_step_ms": replay_ms,
@@ -966,6 +1103,39 @@ def _main_path(streams, dev, watch, exact, family, rates, frame_fused):
         "frame_steps": decoded,
         "_pcm": pcm,
     }.items()}
+
+
+def phase_float_pcm(streams: list[bytes], dev, watch: list[int],
+                    s16: dict) -> dict:
+    """Phase 17's routes: float-PCM serving fast and exact over
+    NEW_TIMED_STEPS steps (K4 instance 8 or 7 once per granule), each
+    watched slot against the S16 PCM of the same frames (s16[exact]:
+    phases 3 and 6): exact trunc(pcm x 32767) equal to S16, fast within
+    FLOAT_TOL of S16 / 32767, except at the wrap (S16 -32767 where float
+    PCM is at +1)."""
+    res = {}
+    for exact in (False, True):
+        r = phase_main_path(streams, dev, watch, exact, float_pcm=True,
+                            timed=NEW_TIMED_STEPS)
+        f = r.pop("_pcm")
+        ref = s16[exact][:, :f.shape[1]]
+        q = np.trunc(f.astype(np.float64) * 32767)
+        # the wrap: a sum whose x32767 escapes int32 upwards saturates at
+        # +1 in float PCM and wraps to -32767 in S16
+        wrap = (ref == -32767) & (f == 1)
+        if exact:
+            bad = (q != ref) & ~wrap
+        else:
+            bad = (np.abs(f - ref.astype(np.float32) / 32767) > FLOAT_TOL) \
+                & ~wrap
+        r["watched_samples"] = int(f.size)
+        r["wrap_samples"] = int(wrap.sum())
+        r["max_abs_vs_s16_over_32767"] = float(
+            np.abs(f - ref.astype(np.float32) / 32767)[~wrap].max())
+        check(not bad.any(), f"phase 17 exact={exact}: {int(bad.sum())} "
+                             "float samples off the S16 PCM")
+        res["exact" if exact else "fast"] = r
+    return res
 
 
 def replay_ab(streams: list[bytes], dev) -> dict:
@@ -1127,19 +1297,316 @@ def phase_profile(streams: list[bytes], dev) -> dict:
     return res
 
 
+def check_no_launches(path: str) -> None:
+    """No kernel launched since the last reset (a path of plain PyTorch
+    ops: Layer I/II synthesis, the resampler)."""
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+    check(not any(counts.values()), f"{path}: launched {counts}")
+
+
+def serve_timed(dec, feeder, sel, steps: int, path: str) -> dict:
+    """WARMUP_STEPS + steps of feed -> parse_step -> decode_step: step_ms
+    (CUDA events around decode_step, median of the timed steps),
+    loop_ms_per_step (host clock over the timed steps, one sync at the
+    end), the replay of the last uploaded wire through the pool's device
+    decode (device_replay_step_ms, per_call_ms), and the watched slots'
+    PCM (_pcm, [watched, samples, 2])."""
+    kept, events = [], []
+    for step in range(WARMUP_STEPS + steps):
+        if step == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        feeder.step()
+        check(dec.parse_step() > 0, f"{path}: step {step}: no active slot")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        pcm = dec.decode_step(fetch=False)
+        b.record()
+        events.append((a, b))
+        kept.append(pcm.index_select(0, sel))
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) / steps * 1e3
+    wire = dec._wires_t[dec._cur ^ 1].to(dec.device)
+    state = dec.state
+    replay_ms = per_call_ms(lambda: dec._decode(wire), steps)
+    dec.state = state
+    return {"steps": steps,
+            "step_ms": float(np.median([a.elapsed_time(b) for a, b
+                                        in events[WARMUP_STEPS:]])),
+            "device_replay_step_ms": replay_ms, "loop_ms_per_step": loop_ms,
+            "_pcm": torch.cat(kept, 1).cpu().numpy()}
+
+
+def phase_l12(dev) -> dict:
+    """Phase 18: Layer I/II pools at B slots, both layers and precisions,
+    NEW_TIMED_STEPS timed steps each, parsed on L12_PARSE_THREADS
+    threads; watched slots against the native
+    decoder; Layer II float PCM against its S16.  No kernel runs: the
+    synthesis is plain PyTorch (as it is XLA in the JAX package)."""
+    from pdmp3_tpu_torch import L12StreamDecoder, LoopFeeder
+
+    res = {}
+    for layer in (1, 2):
+        specs = l12_corpus(layer)
+        streams = [d for d, _ in specs]
+        watch = watched_slots(specs, [
+            ("mode", 0), ("mode", 3), ("mode", 1), ("mode", 2),
+            ("sfreq", 1), ("sfreq", 2), ("bitrate_index", 6)])
+        sel = torch.tensor(watch, device=dev)
+        pcms = {}
+        for exact in (False, True):
+            path = f"phase 18 layer {layer} exact={exact}"
+            dec = L12StreamDecoder(B, layer=layer, exact=exact,
+                                   parse_threads=L12_PARSE_THREADS,
+                                   device=dev)
+            reset_launch_counts()
+            r = serve_timed(dec, LoopFeeder(dec, streams), sel,
+                            NEW_TIMED_STEPS, path)
+            check_no_launches(path)
+            pcms[exact] = r.pop("_pcm")
+            r["vs_native"] = phase_correctness(pcms[exact], watch, specs,
+                                               exact)
+            spf = 32 * dec.S
+            r["aggregate_realtime_factor_per_chip"] = (
+                B * spf / 44100.0 / (r["step_ms"] / 1e3))
+            r["aggregate_realtime_factor_per_chip_e2e"] = (
+                B * spf / 44100.0 / (r["loop_ms_per_step"] / 1e3))
+            res[f"layer{layer}_{'exact' if exact else 'fast'}"] = r
+        if layer == 2:
+            dec = L12StreamDecoder(B, layer=2, exact=True, float_pcm=True,
+                                   parse_threads=L12_PARSE_THREADS,
+                                   device=dev)
+            r = serve_timed(dec, LoopFeeder(dec, streams), sel,
+                            NEW_TIMED_STEPS, "phase 18 layer 2 float PCM")
+            f = r.pop("_pcm")
+            d = np.abs(f - pcms[True].astype(np.float32) / 32767)
+            r["max_abs_vs_s16_over_32767"] = float(d.max())
+            check(f.dtype == np.float32 and float(d.max()) <= FLOAT_TOL,
+                  f"phase 18: float PCM {float(d.max())} off its S16")
+            res["layer2_exact_float"] = r
+    res["watched_slots_per_layer"] = len(watch)
+    res["parse_threads"] = L12_PARSE_THREADS
+    return res
+
+
+def phase_join(streams: list[bytes], dev) -> dict:
+    """Phase 19: in a serving pool (LoopFeeder over phase 3's streams,
+    JOIN_LEAD_STEPS steps served), fast and exact, the slots JOIN_SLOTS
+    joined to new 30-frame streams at JOINS (start, duration); the
+    joined slots' PCM after drop_samples equal to the same window of the
+    native decode (exact bitwise, fast within the fast contract)."""
+    from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
+    from pdmp3_tpu_torch.host import native_decode_file
+    from pdmp3_tpu_torch.testing import mp3gen
+
+    res = {}
+    for exact in (False, True):
+        path = f"phase 19 exact={exact}"
+        dec = StreamDecoder(B, exact=exact, device=dev)
+        feeder = LoopFeeder(dec, streams)
+        for _ in range(JOIN_LEAD_STEPS):
+            feeder.step()
+            check(dec.parse_step() == B, f"{path}: a slot starved")
+            dec.decode_step(fetch=False)
+        joins = []
+        for k, (slot, (t0, dur)) in enumerate(zip(JOIN_SLOTS, JOINS)):
+            data = mp3gen.make_stream(n_frames=30, seed=9900 + k,
+                                      blocks="varied", mode=1,
+                                      mode_extension=2, use_reservoir=True)
+            feeder.release(slot)
+            j = dec.join(slot, data, t0, dur)
+            check(j is not None, f"{path}: empty join window")
+            joins.append((slot, t0, data, j, []))
+        sel = torch.tensor(JOIN_SLOTS, device=dev)
+        reset_launch_counts()
+        steps = 0
+        t_start = time.perf_counter()
+        while steps < 64 and not all(
+                j.exhausted and len(got) * 1152 >= j.drop_samples
+                + j.take_samples for _, _, _, j, got in joins):
+            feeder.step()
+            for _, _, _, j, _ in joins:
+                j.pump()
+            check(dec.parse_step() > 0, f"{path}: no active slot")
+            pcm = dec.decode_step(fetch=False).index_select(0, sel).cpu()
+            for k, (slot, _, _, _, got) in enumerate(joins):
+                if dec.active[slot]:
+                    got.append(pcm[k].numpy().tobytes())
+            steps += 1
+        seconds = time.perf_counter() - t_start
+        kernel = "fused_granule_exact" if exact else "fused_granule"
+        launches = launch_counts(path, kernel)
+        check(launches == 2 * steps, f"{path}: {launches} launches for "
+                                     f"{steps} steps")
+        slots = []
+        for slot, t0, data, j, got in joins:
+            blob = b"".join(got)
+            window = blob[j.drop_samples * 4:
+                          (j.drop_samples + j.take_samples) * 4]
+            a = int(round(t0 * 44100)) * 4
+            want = native_decode_file(data)[a:a + len(window)]
+            check(len(window) == j.take_samples * 4 > 0
+                  and len(want) == len(window),
+                  f"{path}: slot {slot} window {len(window)} B")
+            lsb, frac = pcm_error(
+                torch.from_numpy(np.frombuffer(window, "<i2").copy()),
+                torch.from_numpy(np.frombuffer(want, "<i2").copy()))
+            check(window == want if exact
+                  else lsb <= MAX_LSB and frac < MAX_FRAC,
+                  f"{path}: slot {slot} {lsb} LSB on {frac:.4%} vs native")
+            slots.append({"slot": slot, "start_s": t0,
+                          "drop_samples": j.drop_samples,
+                          "take_samples": j.take_samples,
+                          "max_lsb": lsb, "frac_differing": frac})
+        res["exact" if exact else "fast"] = {
+            "steps_after_join": steps, "seconds": seconds,
+            "kernel_launches": launches, "joins": slots}
+    return res
+
+
+def phase_resample(dev) -> dict:
+    """Phase 20: StreamDecoder(resample_to=48000, sample_rate=44100) at B
+    slots on the 44.1 kHz corpus, NEW_TIMED_STEPS timed steps: each
+    step's length as the phase gives it; the watched slots within 1 LSB
+    of the same resampler run on the CPU over the same slots' S16 PCM
+    (an S16 pool fed alike); the resample step alone timed at B."""
+    from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
+    from pdmp3_tpu_torch.ops.resample import StreamResampler
+
+    specs = corpus_44k()
+    streams = [d for d, _ in specs]
+    watch = watched_slots(specs, [
+        ("blocks", "long"), ("blocks", "short"), ("blocks", "mixed"),
+        ("blocks", "varied"), ("mode", 1), ("mode", 3)])
+    sel = torch.tensor(watch, device=dev)
+    dec = StreamDecoder(B, exact=True, resample_to=48000, sample_rate=44100,
+                        device=dev)
+    s16 = StreamDecoder(B, exact=True, device=dev)
+    fr, fs = LoopFeeder(dec, streams), LoopFeeder(s16, streams)
+    cpu_rs = StreamResampler(44100, 48000, len(watch), 2, device="cpu")
+    phase, lens, worst, events = 0, [], 0, []
+    for step in range(WARMUP_STEPS + NEW_TIMED_STEPS):
+        fr.step()
+        fs.step()
+        check(dec.parse_step() == B and s16.parse_step() == B,
+              "phase 20: a slot starved")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = dec.decode_step(fetch=False)
+        b.record()
+        events.append((a, b))
+        ref = s16.decode_step(fetch=False).index_select(0, sel).cpu()
+        n_out = (1152 * 160 - phase + 146) // 147
+        phase += n_out * 147 - 1152 * 160
+        check(tuple(out.shape) == (B, n_out, 2),
+              f"phase 20: step {step} {tuple(out.shape)}, want {n_out}")
+        want = cpu_rs(ref)
+        got = out.index_select(0, sel).cpu()
+        worst = max(worst, int((got.to(torch.int32)
+                                - want.to(torch.int32)).abs().max()))
+        lens.append(n_out)
+    check(worst <= 1, f"phase 20: {worst} LSB off the CPU resampler")
+    torch.cuda.synchronize()
+    pcm = torch.zeros((B, 1152, 2), dtype=torch.int16, device=dev)
+    timing_rs = StreamResampler(44100, 48000, B, 2, device=dev)
+    return {"steps": WARMUP_STEPS + NEW_TIMED_STEPS, "n_out_per_step": lens,
+            "watched_max_lsb_vs_cpu": worst,
+            "decode_and_resample_step_ms": float(np.median(
+                [a.elapsed_time(b) for a, b in events[WARMUP_STEPS:]])),
+            "resample_step_ms": plain_ms(lambda: timing_rs(pcm))}
+
+
+def phase_files(specs: list[tuple[bytes, dict]], dev) -> dict:
+    """Phase 21: decode_files_batched over FILE_COPIES copies of phase 3's
+    streams (1,024 files), exact; gapless and window=(0.1, 0.2) on the
+    first FILE_SUBSET files; layer=2 on 64 Layer II files;
+    decode_files_scan over the 1,024 files, exact.  Every 64th file (and
+    every file of the subsets) against the native decoder, the native
+    window (metadata.decode_file_seek) or trim (decode_file_gapless)."""
+    from pdmp3_tpu_torch import decode_files_batched
+    from pdmp3_tpu_torch import metadata as MD
+    from pdmp3_tpu_torch.host import PROFILE_L12, native_decode_file
+    from pdmp3_tpu_torch.models.offline import decode_files_scan
+
+    files = [d for d, _ in specs] * FILE_COPIES
+    audio_s = sum(len(native_decode_file(d)) // (2 * (1 if sp["mode"] == 3
+                                                      else 2))
+                  / [44100, 48000, 32000][sp["sfreq"]]
+                  for d, sp in specs) * FILE_COPIES
+
+    def run(name, fn, want, every, kernel, prefix=False):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if kernel:
+            launches = launch_counts(f"phase 21 {name}", kernel)
+        else:
+            # Layer II files: plain PyTorch synthesis, no kernel
+            check_no_launches(f"phase 21 {name}")
+            launches = 0
+        checked = 0
+        for i in range(0, len(got), every):
+            w = want(i)
+            # the scan's frame count is the parse's, which may differ
+            # from the native decoder's by its last two frames: compare
+            # the aligned prefix
+            n = min(len(got[i]), len(w)) if prefix else len(w)
+            check(len(w) > 0 and got[i][:n] == w[:n]
+                  and (len(got[i]) == n if not prefix
+                       else n >= len(w) - 2 * 1152 * 2 * 2),
+                  f"phase 21 {name}: file {i} differs from native")
+            checked += 1
+        return {"files": len(got), "seconds": sec,
+                "files_per_second": len(got) / sec,
+                "kernel_launches": launches, "files_checked": checked}
+
+    res = {"files": len(files), "audio_seconds": audio_s}
+    r = run("batched", lambda: decode_files_batched(
+        files, exact=True, device=dev),
+        lambda i: native_decode_file(files[i]), 64, "fused_granule_exact")
+    r["audio_seconds_per_wall_second"] = audio_s / r["seconds"]
+    res["batched_exact"] = r
+    sub = files[:FILE_SUBSET]
+    res["batched_gapless"] = run("gapless", lambda: decode_files_batched(
+        sub, exact=True, gapless=True, device=dev),
+        lambda i: MD.decode_file_gapless(sub[i])[0], 1,
+        "fused_granule_exact")
+    res["batched_window"] = run("window", lambda: decode_files_batched(
+        sub, exact=True, window=(0.1, 0.2), device=dev),
+        lambda i: MD.decode_file_seek(sub[i], 0.1, 0.2)[0], 1,
+        "fused_granule_exact")
+    l2 = [d for d, _ in l12_corpus(2)]
+    res["batched_layer2"] = run("layer 2", lambda: decode_files_batched(
+        l2, exact=True, layer=2, device=dev),
+        lambda i: native_decode_file(l2[i], profile=PROFILE_L12), 1, None)
+    r = run("scan", lambda: decode_files_scan(files, exact=True, device=dev),
+            lambda i: native_decode_file(files[i]), 64,
+            "fused_granule_exact", prefix=True)
+    r["audio_seconds_per_wall_second"] = audio_s / r["seconds"]
+    res["scan_exact"] = r
+    return res
+
+
 def phase_correctness(pcm: np.ndarray, watch: list[int],
                       specs: list[tuple[bytes, dict]],
                       exact: bool = False) -> list[dict]:
     """Each watched slot's PCM against the native scalar decoder (with
-    PROFILE_LSF for LSF streams) over the aligned prefix (the slot keeps
-    decoding its looping stream): bitwise when exact, else the fast
-    contract."""
-    from pdmp3_tpu_torch.host import PROFILE_LSF, native_decode_file
+    PROFILE_LSF for LSF streams, PROFILE_L12 for Layer I/II ones) over
+    the aligned prefix (the slot keeps decoding its looping stream):
+    bitwise when exact, else the fast contract."""
+    from pdmp3_tpu_torch.host import (PROFILE_L12, PROFILE_LSF,
+                                      native_decode_file)
 
     out = []
     for row, slot in enumerate(watch):
         data, spec = specs[slot % len(specs)]
-        profile = PROFILE_LSF if spec.get("family") else 0
+        profile = (PROFILE_LSF if spec.get("family") else 0) | (
+            PROFILE_L12 if spec.get("layer") else 0)
         want = np.frombuffer(native_decode_file(data, profile=profile),
                              "<i2")
         got = pcm[row]
@@ -1148,8 +1615,8 @@ def phase_correctness(pcm: np.ndarray, watch: list[int],
               f"slot {slot}: {len(got)} samples for {len(want)} native")
         d = np.abs(got[:len(want)].astype(np.int32) - want.astype(np.int32))
         lsb, frac = int(d.max()), float((d != 0).mean())
-        out.append({"slot": slot, "blocks": spec["blocks"],
-                    "mode": spec["mode"],
+        out.append({"slot": slot, "blocks": spec.get("blocks"),
+                    "layer": spec.get("layer", 3), "mode": spec["mode"],
                     "mode_extension": spec.get("mode_extension", 0),
                     "sfreq": spec["sfreq"], "samples": int(len(want)),
                     "max_lsb": lsb, "frac_differing": frac})
@@ -1159,12 +1626,13 @@ def phase_correctness(pcm: np.ndarray, watch: list[int],
     return out
 
 
-def watched_slots(specs: list[tuple[bytes, dict]]) -> list[int]:
-    """One slot per (blocks, mode, sfreq) feature the phase must cover."""
-    want = [("blocks", "long"), ("blocks", "short"), ("blocks", "mixed"),
-            ("blocks", "varied"), ("mode_extension", 2),
-            ("mode_extension", 3), ("mode", 3), ("sfreq", 1),
-            ("sfreq", 2)]
+def watched_slots(specs: list[tuple[bytes, dict]], want=None) -> list[int]:
+    """One slot per (key, value) feature of `want` the phase must cover
+    (default: blocks, stereo modes and sample rates of Layer III)."""
+    want = want or [("blocks", "long"), ("blocks", "short"),
+                    ("blocks", "mixed"), ("blocks", "varied"),
+                    ("mode_extension", 2), ("mode_extension", 3),
+                    ("mode", 3), ("sfreq", 1), ("sfreq", 2)]
     slots = []
     for key, val in want:
         slots.append(next(i for i, (_, s) in enumerate(specs)
@@ -1184,6 +1652,16 @@ def launch_line(launch: dict, ptxas: list[str], kernel: str) -> str:
             f"{launch['local_bytes']} B local per thread; ptxas: {rep}")
 
 
+_LAP = [0.0]
+
+
+def lap(name: str) -> None:
+    """Record the wall seconds since the last lap as phase `name`'s."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = now - _LAP[0]
+    _LAP[0] = now
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1201,7 +1679,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
+    t0 = _LAP[0] = time.perf_counter()
     from pdmp3_tpu_torch.host import build as host_build
     from pdmp3_tpu_torch.ops import _build
     host_build.ensure_built()
@@ -1211,6 +1689,7 @@ def main() -> int:
         ptxas = _build.ptxas_summary(f.read())
     print(f"host library build {t1 - t0:.1f} s; kernel build "
           f"{time.perf_counter() - t1:.1f} s; " + " | ".join(ptxas))
+    lap("build")
 
     t0 = time.perf_counter()
     specs = corpus()
@@ -1218,11 +1697,13 @@ def main() -> int:
     print(f"corpus: {len(streams)} streams x {FRAMES_PER_STREAM} frames "
           f"in {time.perf_counter() - t0:.1f} s")
     fr = parsed_frame(streams, dev)
+    lap("corpus")
 
     k1 = phase_kernel(fr, exact=False)
     print("phase 2 K1 vs plain:", json.dumps(k1))
     print("phase 2 K1 launch:", launch_line(k1["launch"], ptxas,
                                             "fused_granule_kernel<false>"))
+    lap("phase 2")
 
     watch = watched_slots(specs)
     m = phase_main_path(streams, dev, watch)
@@ -1230,17 +1711,21 @@ def main() -> int:
           json.dumps({k: v for k, v in m.items() if k != "_pcm"}))
     slots = phase_correctness(m["_pcm"], watch, specs)
     print("phase 4 vs native:", json.dumps(slots))
+    lap("phases 3-4")
 
     k2 = phase_kernel(fr, exact=True)
     print("phase 5 K2 vs plain:", json.dumps(k2))
     print("phase 5 K2 launch:", launch_line(k2["launch"], ptxas,
                                             "fused_granule_kernel<true>"))
+    lap("phase 5")
 
     me = phase_main_path(streams, dev, watch, exact=True)
-    slots = phase_correctness(me.pop("_pcm"), watch, specs, exact=True)
+    exact_pcm = me.pop("_pcm")
+    slots = phase_correctness(exact_pcm, watch, specs, exact=True)
     me["exact_over_fast_step_ms"] = me["exact_step_ms"] / m["step_ms"]
     print("phase 6 exact main path:", json.dumps(me))
     print("phase 6 vs native (bitwise):", json.dumps(slots))
+    lap("phase 6")
 
     k4 = phase_back_half(fr)
     print("phase 7 K4 vs plain, fused vs split:", json.dumps(k4))
@@ -1249,17 +1734,26 @@ def main() -> int:
             k4["exact" if exact else "fast"]["launch"], ptxas,
             f"back_half_kernel<{str(exact).lower()},"
             f"{str(not exact).lower()}>"))
+    lap("phase 7")
+    k4r = phase_k4_raw(fr)
+    print("phase 17 K4 fast raw sums vs plain:", json.dumps(k4r))
+    print("phase 17 K4 fast raw sums launch:", launch_line(
+        k4r["launch"], ptxas, "back_half_kernel<false,false>"))
+    lap("phase 17 kernel")
     k5 = {0: phase_frame_kernel(fr)}
     print("phase 14 K5 MPEG-1 vs plain, vs two K1:", json.dumps(k5[0]))
     print("phase 14 K5 MPEG-1 launch:", launch_line(
         k5[0]["launch"], ptxas, "frame_fused_kernel<false>"))
     del fr
+    lap("phase 14 MPEG-1")
 
     api = phase_api(dev)
     print("phase 8 TorchDSP decode_file:", json.dumps(api))
+    lap("phase 8")
 
     k6 = phase_sweep(dev)
     print("phase 9 K6 sweep:", json.dumps(k6))
+    lap("phase 9")
 
     k3, lsf_serving = {}, {}
     for family in LSF_FAMILIES:
@@ -1295,8 +1789,10 @@ def main() -> int:
                   json.dumps(r))
             print(f"phase 11 vs native ({'bitwise' if exact else 'fast'}):",
                   json.dumps(slots))
+        lap(f"phases 10, 11, 14 family {family}")
     api_lsf = phase_api(dev, lsf=True)
     print("phase 12 TorchDSP decode_file on LSF:", json.dumps(api_lsf))
+    lap("phase 12")
     mf = phase_main_path(streams, dev, watch, frame_fused=True)
     check(np.array_equal(mf.pop("_pcm"), m["_pcm"]),
           "phase 15: frame-fused PCM differs from phase 3's")
@@ -1305,19 +1801,31 @@ def main() -> int:
                                          / m["loop_ms_per_step"])
     mf["replay_ab_interleaved"] = replay_ab(streams, dev)
     print("phase 15 frame-fused serving:", json.dumps(mf))
+    lap("phase 15")
     sp = phase_sparse(streams, dev, watch, m["_pcm"])
     print("phase 16 sparse frame-fused pipelined serving:", json.dumps(sp))
-    profile_kernels()
-    print("kernel device times (profiler):", json.dumps({
-        "K1": k1["kernel_ms"], "K2": k2["kernel_ms"],
-        "K3": {f"{f}_{'exact' if e else 'fast'}": r["kernel_ms"]
-               for (f, e), r in k3.items()},
-        "K4": {m: [k4[m]["kernel_ms"], k4[m]["one_slot"]["kernel_ms"]]
-               for m in ("exact", "fast")},
-        "K5": {f: r["kernel_ms"] for f, r in k5.items()},
-        "K6": k6["kernel_ms"]}))
+    lap("phase 16")
+    fp = phase_float_pcm(streams, dev, watch,
+                         {False: m["_pcm"], True: exact_pcm})
+    print("phase 17 float PCM serving:", json.dumps(fp))
+    lap("phase 17 routes")
+    l12 = phase_l12(dev)
+    print("phase 18 Layer I/II pools:", json.dumps(l12))
+    lap("phase 18")
+    joins = phase_join(streams, dev)
+    print("phase 19 mid-stream joins:", json.dumps(joins))
+    lap("phase 19")
+    rs = phase_resample(dev)
+    print("phase 20 resampler:", json.dumps(rs))
+    lap("phase 20")
+    files = phase_files(specs, dev)
+    print("phase 21 file decode:", json.dumps(files))
+    lap("phase 21")
     if args.profile:
         print("phase 13 profile:", json.dumps(phase_profile(streams, dev)))
+        lap("phase 13")
+    print("phase wall seconds:", json.dumps(
+        {**PHASE_SECONDS, "total": sum(PHASE_SECONDS.values())}))
     check("jax" not in sys.modules, "JAX was imported")
     check(not [m for m in sys.modules if m.split(".")[0] == "pdmp3_tpu"],
           "the JAX package was imported")
@@ -1364,8 +1872,13 @@ def main() -> int:
               launch=k2["launch"]),
         lsf_entry(False),
         lsf_entry(True),
-        entry("back_half", "back_half.cu", api["k4_launches"],
+        entry("back_half", "back_half.cu",
+              api["k4_launches"] + fp["exact"]["exact_float_kernel_launches"],
               max(k4e["max_abs_err"], k4f["max_abs_err"]), k4e, k4,
+              launches_by_path={
+                  "per_stream_decode_file": api["k4_launches"],
+                  "float_pcm_exact_serving":
+                  fp["exact"]["exact_float_kernel_launches"]},
               ms_fast=k4f["kernel_ms"],
               burst_ms_fast=k4f["kernel_burst_ms"],
               per_call_ms_fast=k4f["kernel_per_call_ms"],
@@ -1376,6 +1889,12 @@ def main() -> int:
                         **k4["one_slot_bound"]},
               split_step_ms={"exact": k4e["split_step_ms"],
                              "fast": k4f["split_step_ms"]}),
+        entry("back_half_raw", "back_half.cu",
+              fp["fast"]["float_kernel_launches"], k4r["max_abs_err"], k4r,
+              k4r, instance=8, launch=k4r["launch"],
+              one_slot={**k4_times(k4r["one_slot"]),
+                        **k4r["one_slot_bound"]},
+              ragged=k4r["ragged"]["batch_slots"]),
         entry("rounding_sweep", "rounding_sweep.cu", k6["launches"],
               k6["max_abs_err"], k6,
               sweep_bound(k6["chunk_inputs"], len(k6["constructions"])),

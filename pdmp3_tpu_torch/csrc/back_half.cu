@@ -1,5 +1,5 @@
 // Back half of a Layer III granule step for NVIDIA Hopper (sm_90a): K4,
-// in fast and exact precision.
+// in fast and exact precision, with quantized or raw output.
 //
 // Replaces the TPU kernel pdmp3_tpu/ops/pallas_step.py:_kernel (launched
 // by back_half_t; body _back_ch), and computes the band-12 carry that the
@@ -12,8 +12,9 @@
 // the granule body (granule_persist.cuh: imdct4, matrix4, fir3), so the
 // fast form equals K1's back half bit for bit and the exact form K2's.
 // Out [B][2][576]: the raw FIR sums in exact mode (the caller quantizes
-// through float64), the quantized samples as floats in fast mode; zeros
-// for idle slots.  prev3 [B][3]: x_time[0:3] of (ch0, subband 0) for
+// through float64) and in fast mode with raw (the float-PCM route packs
+// them as floats), else the quantized samples as floats; zeros for idle
+// slots.  prev3 [B][3]: x_time[0:3] of (ch0, subband 0) for
 // every slot, idle ones included.  State is updated in place for active
 // slots only.
 //
@@ -43,7 +44,8 @@ namespace {
 
 using namespace pdmp3;
 
-// kQuantize: fast mode's samples; without it the raw sums (exact mode)
+// kQuantize: fast mode's samples; without it the raw sums (exact mode,
+// or fast mode's float-PCM route)
 template <bool kExact, bool kQuantize>
 __global__ void __launch_bounds__(kThreads, 2)
 back_half_kernel(const float* __restrict__ xa,
@@ -56,45 +58,54 @@ back_half_kernel(const float* __restrict__ xa,
                                           prev3, image, B);
 }
 
-// persistent instances 6 (fast) and 7 (exact)
-int back_half_grid(int exact, int* grid, int* info) {
-  return exact ? persistent_grid(
-                     7, reinterpret_cast<const void*>(
-                            back_half_kernel<true, false>),
-                     SmemBack::kSmemBytes, grid, info)
-               : persistent_grid(
-                     6, reinterpret_cast<const void*>(
-                            back_half_kernel<false, true>),
-                     SmemBack::kSmemBytes, grid, info);
+// the kernel of persistent instance 6 + mode: mode 0 fast (quantized),
+// 1 exact (raw sums), 2 fast raw sums
+using BackHalfFn = void (*)(const float*, const int32_t*, const int32_t*,
+                            float*, float*, float*, float*, const float4*,
+                            int);
+BackHalfFn back_half_fn(int mode) {
+  switch (mode) {
+    case 0: return back_half_kernel<false, true>;
+    case 1: return back_half_kernel<true, false>;
+    default: return back_half_kernel<false, false>;
+  }
+}
+
+int back_half_grid(int mode, int* grid, int* info) {
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  return persistent_grid(6 + mode,
+                         reinterpret_cast<const void*>(back_half_fn(mode)),
+                         SmemBack::kSmemBytes, grid, info);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K4's launch geometry (the exact instance when exact) on the current
-// device, as pdmp3_granule_launch_info gives it.
-int pdmp3_back_half_launch_info(int exact, int* info) {
+// The launch geometry of K4's instance 6 + mode (0 fast, 1 exact, 2 fast
+// raw sums) on the current device, as pdmp3_granule_launch_info gives it.
+int pdmp3_back_half_launch_info(int mode, int* info) {
   int grid = 0;
-  return back_half_grid(exact, &grid, info);
+  return back_half_grid(mode, &grid, info);
 }
 
-// Launch the back half for B slots on `stream`; tables: the device
+// Launch the back half for B slots on `stream`: the exact instance when
+// exact, else the fast one, with raw sums when raw; tables: the device
 // pointers of fused_step.TABLES (K4 reads the shared-memory table image,
 // the last).  Returns the launch-geometry query's or cudaGetLastError()'s
 // code (0 when the launch was accepted).
 int pdmp3_back_half(const float* xa, const int32_t* bt_eff,
                     const int32_t* active, float* store, float* v,
                     float* out, float* prev3, const void* const* tables,
-                    int B, int exact, void* stream) {
+                    int B, int exact, int raw, void* stream) {
   const auto* image = static_cast<const float4*>(tables[kTables + 2]);
   auto* s = (cudaStream_t)stream;
+  const int mode = exact ? 1 : raw ? 2 : 0;
   int grid = 0;
-  const int e = back_half_grid(exact, &grid, nullptr);
+  const int e = back_half_grid(mode, &grid, nullptr);
   if (e != 0) return e;
   const int blocks = grid < B ? grid : B;
-  const auto kernel = exact ? back_half_kernel<true, false>
-                            : back_half_kernel<false, true>;
+  const BackHalfFn kernel = back_half_fn(mode);
   kernel<<<blocks, kThreads, SmemBack::kSmemBytes, s>>>(
       xa, bt_eff, active, store, v, out, prev3, image, B);
   return (int)cudaGetLastError();

@@ -152,13 +152,14 @@ int granule_grid(int instance, int* grid, int* info) {
 extern "C" {
 
 int pdmp3_frame_launch_info(int lsf, int* info);       // frame_fused.cu
-int pdmp3_back_half_launch_info(int exact, int* info);  // back_half.cu
+int pdmp3_back_half_launch_info(int mode, int* info);   // back_half.cu
 
 // The launch geometry of a persistent kernel instance on the current
 // device into info[6]: grid, blocks per SM, dynamic shared memory per
 // block (bytes), registers per thread, local memory per thread (bytes),
 // SM count.  instance: 0 K1, 1 K2, 2 K3 fast, 3 K3 exact, 4 K5 MPEG-1, 5
-// K5 LSF, 6 K4 fast, 7 K4 exact.  Returns a cudaError_t (0 on success).
+// K5 LSF, 6 K4 fast, 7 K4 exact, 8 K4 fast raw sums.  Returns a
+// cudaError_t (0 on success).
 int pdmp3_granule_launch_info(int instance, int* info) {
   if (instance < 0 || instance >= kInstances)
     return (int)cudaErrorInvalidValue;

@@ -4,7 +4,7 @@
 // launched from frame_fused.cu; and beside it persistent_back_half, the
 // same pattern over the same back-half stages (imdct4, matrix4, and
 // fir3, the FIR the body writes inline) for K4 (back_half.cu), fast and
-// exact.
+// exact, quantized or raw.
 //
 // Persistent blocks walk units: for K1-K3 a unit is one slot's granule
 // step, b = blockIdx.x + k * gridDim.x; for K5 it is one (slot, granule)
@@ -1057,8 +1057,8 @@ __device__ __forceinline__ void persistent_back_half(
 
 constexpr int kMaxDevices = 64;
 // the persistent instances: K1, K2, K3 fast, K3 exact, K5 MPEG-1, K5 LSF,
-// K4 fast, K4 exact
-constexpr int kInstances = 8;
+// K4 fast, K4 exact, K4 fast raw sums
+constexpr int kInstances = 9;
 
 // The persistent grid of one kernel instance on the current device: SM
 // count x resident blocks per SM at `smem` bytes of dynamic shared

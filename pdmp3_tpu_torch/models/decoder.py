@@ -2,7 +2,7 @@
 
 Counterpart of ``pdmp3_tpu/models/decoder.py`` for MPEG-1 (family 0) and
 the LSF families (1 MPEG-2, 2 MPEG-2.5), in fast and exact precision.
-Two routes:
+Three routes:
 
 - serving: one step decodes F frames per slot from the native
   frontend's packed int16 wire, dense (``decode_frame_packed``,
@@ -14,12 +14,17 @@ Two routes:
   ``_FRAME_FUSED`` set, as one frame step (``ops.frame_step``, K5 on
   CUDA); an LSF frame as one granule step (K3 on CUDA), whose wire has
   no granule axis and one more section, the intensity sidecar;
+- float PCM (``float_pcm=True``, MPEG-1 serving): every granule on the
+  split route with raw sums (``ops.back_half.float_granule_step``: the
+  stage-op front half, K4 instance 7 exact or 8 fast, ``float_pack``),
+  since K1, K2 and K5 quantize inside their bodies;
 - per stream: ``TorchDSP`` plugs into the port's streaming API
   (``pdmp3_tpu_torch.api``) and decodes parsed ``FrameData`` of either
   kind through ``frame_to_batches`` and ``decode_granules``, the split
-  route (stage-op front half, then the back-half kernel K4 on CUDA).
+  route (stage-op front half, then the back-half kernel K4 on CUDA), and
+  Layer I/II frames through ``models.l12.TorchL12``.
 
-Both thread the per-slot recurrent ``DecoderState`` and give the same
+All thread the per-slot recurrent ``DecoderState`` and give the same
 bits.
 
 State is kept in the canonical slot-major layout ([B,2,32,18],
@@ -36,7 +41,7 @@ import torch
 
 from .. import tables as T
 from ..ops import dsp as D
-from ..ops.back_half import split_granule_step
+from ..ops.back_half import float_granule_step, split_granule_step
 from ..ops.dsp import META_WORDS
 from ..ops.frame_step import frame_step
 from ..ops.fused_step import fused_granule_step
@@ -138,8 +143,8 @@ def frame_to_batches(fds, device="cpu") -> list[GranuleBatch]:
     sidecar from ``fd.is_eff_l``/``is_eff_s`` (illegal = 63 where the
     frame has none), every slot active."""
     if any(fd.sb_samples is not None for fd in fds):
-        raise NotImplementedError(
-            "Layer I/II frames are not ported to the PyTorch backend yet")
+        raise ValueError("Layer I/II frames carry subband samples, not "
+                         "granules: decode them with models.l12")
     family = fds[0].header.family
     if any(fd.header.family != family for fd in fds):
         raise ValueError("mixed-family batch: route streams to "
@@ -199,26 +204,29 @@ def frame_to_batches(fds, device="cpu") -> list[GranuleBatch]:
 
 
 def decode_frame_soa(ix2, scf_l2, scf_s2, meta2, active, state,
-                     bug_compat: bool = True, exact: bool = False):
+                     bug_compat: bool = True, exact: bool = False,
+                     float_pcm: bool = False):
     """Decode one frame per slot (two granule steps) from the wire's
     section tensors: ix2 int16 [2,B,2,576], scf_l2 int16 [2,B,2,22],
     scf_s2 int16 [2,B,2,39], meta2 [2,B,32], active [B].  Fast frames
     run as one frame step (K5 on CUDA) when ``_FRAME_FUSED`` is set,
-    every other frame as two granule steps (K1 / K2 on CUDA).
-    Returns (pcm int16 [B,1152,2], state updated in place)."""
-    if _FRAME_FUSED and not exact:
+    every other frame as two granule steps (K1 / K2 on CUDA); float PCM
+    as two float granule steps (stage ops + K4 with raw sums on CUDA).
+    Returns (pcm int16 [B,1152,2], or f32 [B,1152,2] in [-1, 1] with
+    float_pcm; state updated in place)."""
+    if _FRAME_FUSED and not exact and not float_pcm:
         act = active.to(torch.int32)
         return frame_step(ix2, scf_l2, scf_s2,
                           meta2.to(torch.int32).contiguous(),
                           torch.stack([act, act]), (0, 1), state,
                           bug_compat)
+    step = float_granule_step if float_pcm else fused_granule_step
     pcms = []
     for gr in range(2):
         b = _batch_from_meta(ix2[gr], scf_l2[gr], scf_s2[gr], meta2[gr],
                              active, gr)
-        pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
-                                        b.active, b.gr1, state, bug_compat,
-                                        exact)
+        pcm, state = step(b.ix, b.scf_l, b.scf_s, b.meta, b.active, b.gr1,
+                          state, bug_compat, exact)
         pcms.append(pcm)
     return torch.cat(pcms, 1), state
 
@@ -275,7 +283,8 @@ def wire_sections(buf, B: int, F: int = 1) -> dict:
         active=_active_shape(B, F)))
 
 
-def _decode_frames(w: dict, state, F: int, bug_compat: bool, exact: bool):
+def _decode_frames(w: dict, state, F: int, bug_compat: bool, exact: bool,
+                   float_pcm: bool = False):
     """decode_frame_soa over the F frames of MPEG-1 wire sections."""
     active = w["active"].view(F, -1)
     pcms = []
@@ -283,18 +292,20 @@ def _decode_frames(w: dict, state, F: int, bug_compat: bool, exact: bool):
         g = slice(2 * f, 2 * f + 2)
         pcm, state = decode_frame_soa(w["ix"][g], w["scf_l"][g],
                                       w["scf_s"][g], w["meta"][g],
-                                      active[f], state, bug_compat, exact)
+                                      active[f], state, bug_compat, exact,
+                                      float_pcm)
         pcms.append(pcm)
     return _join(pcms), state
 
 
 def decode_frame_packed(buf, state, B: int, F: int = 1,
-                        bug_compat: bool = True, exact: bool = False):
+                        bug_compat: bool = True, exact: bool = False,
+                        float_pcm: bool = False):
     """decode_frame_soa over the packed F-frame wire, on the decode
-    device.  Returns (pcm int16 [B, F*1152, 2], state updated in
-    place)."""
+    device.  Returns (pcm int16 [B, F*1152, 2], f32 with float_pcm;
+    state updated in place)."""
     return _decode_frames(wire_sections(buf, B, F), state, F, bug_compat,
-                          exact)
+                          exact, float_pcm)
 
 
 # ---------------------------------------------------------------------------
@@ -451,14 +462,15 @@ def densify(blk, ix_flat):
 
 def decode_frame_sparse(buf, state, B: int, F: int = 1,
                         cap_blocks: int | None = None,
-                        bug_compat: bool = True, exact: bool = False):
+                        bug_compat: bool = True, exact: bool = False,
+                        float_pcm: bool = False):
     """decode_frame_soa over the sparse MPEG-1 wire (buf: int16
     [sparse_layout(B, F, cap_blocks)['total']]): the same PCM and state,
     bit for bit, as the dense wire.  Returns (pcm int16 [B, F*1152, 2],
-    state updated in place)."""
+    f32 with float_pcm; state updated in place)."""
     w = sparse_sections(buf, B, F, cap_blocks)
     w["ix"] = densify(w["blk"], w["ix_flat"])
-    return _decode_frames(w, state, F, bug_compat, exact)
+    return _decode_frames(w, state, F, bug_compat, exact, float_pcm)
 
 
 def decode_frame_lsf_sparse(buf, state, B: int, family: int, F: int = 1,
@@ -480,9 +492,10 @@ class TorchDSP:
     port's streaming API (``pdmp3_tpu_torch.api.PDMP3`` / ``decode_file``)
     can decode on the port's backend:
     ``decode_file(data, dsp=TorchDSP(device=...))``, with ``lsf=True``
-    for MPEG-2/2.5 streams.  Counterpart of the JAX package's JaxDSP for
-    Layer III frames of every family (Layer I/II frames raise
-    NotImplementedError)."""
+    for MPEG-2/2.5 streams and ``layers12=True`` for Layer I/II ones.
+    Counterpart of the JAX package's JaxDSP: Layer III frames of every
+    family on the split route, Layer I/II frames through a lazily made
+    ``models.l12.TorchL12``."""
 
     def __init__(self, exact: bool = True, bug_compat: bool = True, *,
                  device):
@@ -490,14 +503,23 @@ class TorchDSP:
         self.bug_compat = bug_compat
         self.device = torch.device(device)
         self.state = init_state(1, self.device)
+        self._l12 = None   # the Layer I/II adapter, made at first use
 
     def reset(self) -> None:
         self.state = init_state(1, self.device)
+        if self._l12 is not None:
+            self._l12.reset()
 
     def decode_frame(self, fd) -> np.ndarray:
         """Packed PCM words uint32 [2,576] like the reference's
         ``id->out`` (pdmp3.c:129): left in the high half.  LSF frames
-        fill row 0 only (one granule per frame), like OracleDSP."""
+        fill row 0 only (one granule per frame), like OracleDSP; Layer I
+        frames the first 384 words."""
+        if fd.sb_samples is not None:
+            if self._l12 is None:
+                from .l12 import TorchL12
+                self._l12 = TorchL12(self.exact, device=self.device)
+            return self._l12.decode_frame(fd)
         out = np.zeros((2, 576), np.uint32)
         for gr, batch in enumerate(frame_to_batches([fd], self.device)):
             pcm, self.state = decode_granules(batch, self.state, self.exact,

@@ -1,0 +1,180 @@
+"""Batched Layer I/II decode: the polyphase synthesis of requantized
+subband samples (the reference rejects layer != 3, pdmp3.c:1240/1312).
+
+Counterpart of ``pdmp3_tpu/models/l12.py``.  The native frontend (or
+``frontend.py``) parses AND requantizes a Layer I/II frame, so the
+device step is the synthesis filterbank alone:
+
+    sb_samples f32 [B, 2, S, 32]  ->  synthesis  ->  PCM [B, S*32, 2]
+
+with S = 12 (Layer I) or 36 (Layer II) time steps per frame and the same
+per-slot v_blocks FIFO as Layer III (``ops.dsp.subband_synthesis``
+takes any S).  One layer per batch, as one family per LSF pool.
+
+The JAX package runs this step as XLA ops with no Pallas kernel, so here
+it is plain PyTorch on every device.  Exact form sums the matrixing
+sequentially from the first product (``dsp._dot_seq``, no matmul, whose
+reduction order the library chooses) and quantizes through float64: it
+is bitwise equal to the oracle's synthesis.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import dsp as D
+
+
+@dataclass
+class L12State:
+    """Per-slot recurrent synthesis state (the reference's function-static
+    v_vec, pdmp3.c:1983, per stream here)."""
+    v_blocks: torch.Tensor    # f32 [B,2,15,64] polyphase FIFO, oldest first
+
+
+def init_l12_state(batch_size: int, device="cpu") -> L12State:
+    return L12State(v_blocks=torch.zeros((batch_size, 2, 15, 64),
+                                         dtype=torch.float32, device=device))
+
+
+def l12_state_from_jax(v_blocks, device="cpu") -> L12State:
+    """L12State from the JAX package's (numpy [B,2,15,64], e.g. a
+    checkpoint its L12StreamDecoder saved)."""
+    return L12State(v_blocks=torch.from_numpy(
+        np.array(v_blocks, dtype=np.float32, order="C")).to(device))
+
+
+def decode_l12_frames(sb_samples, nch, active, state: L12State,
+                      exact: bool = True, float_pcm: bool = False):
+    """One batched Layer I/II frame step.
+
+    sb_samples f32 [B,2,S,32] requantized subband samples (S = 12 Layer
+    I, 36 Layer II); nch int [B]; active int [B] (0 = idle slot: silent
+    PCM, state frozen).  Returns (pcm int16 [B, S*32, 2], or f32 in
+    [-1, 1] with float_pcm, and the new L12State)."""
+    x_time = sb_samples.transpose(-1, -2)                # [B,2,32,S]
+    sums, new_v = D.subband_synthesis(x_time, state.v_blocks, exact)
+    active = active.to(torch.int32)
+    nch = nch.to(torch.int32)
+    if float_pcm:
+        pcm = D.float_pack(sums, nch, active)
+    else:
+        pcm = D.pack(D.quantize(sums, exact), nch, active)
+    act = (active != 0)[:, None, None, None]
+    return pcm, L12State(v_blocks=torch.where(act, new_v, state.v_blocks))
+
+
+def batch_from_frames(fds: list, layer: int
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-stream FrameData (None for a starved slot) as the step's
+    (sb_samples f32 [B,2,S,32], nch int32 [B], active int32 [B])."""
+    S = l12_steps(layer)
+    B = len(fds)
+    sb = np.zeros((B, 2, S, 32), np.float32)
+    nch = np.ones(B, np.int32)
+    active = np.zeros(B, np.int32)
+    for b, fd in enumerate(fds):
+        if fd is None or fd.sb_samples is None:
+            continue
+        if fd.sb_samples.shape[1] != S:
+            raise ValueError(f"slot {b}: {fd.sb_samples.shape[1]} steps "
+                             f"in a Layer {layer} batch (S = {S})")
+        sb[b] = fd.sb_samples
+        nch[b] = fd.header.nch
+        active[b] = 1
+    return sb, nch, active
+
+
+class TorchL12:
+    """Per-stream Layer I/II adapter with the OracleDSP.decode_frame
+    interface: packed PCM uint32 [2, 576] per frame (Layer I fills the
+    first 384 words, Layer II all 1152).  Counterpart of JaxL12."""
+
+    def __init__(self, exact: bool = True, *, device):
+        self.exact = exact
+        self.device = torch.device(device)
+        self.state = init_l12_state(1, self.device)
+
+    def reset(self) -> None:
+        self.state = init_l12_state(1, self.device)
+
+    def decode_frame(self, fd) -> np.ndarray:
+        if fd.sb_samples is None:
+            raise ValueError("TorchL12 decodes Layer I/II frames")
+        S = fd.sb_samples.shape[1]
+        sb = torch.from_numpy(np.ascontiguousarray(
+            fd.sb_samples[None], np.float32)).to(self.device)
+        nch = torch.tensor([fd.header.nch], dtype=torch.int32,
+                           device=self.device)
+        act = torch.ones(1, dtype=torch.int32, device=self.device)
+        pcm, self.state = decode_l12_frames(sb, nch, act, self.state,
+                                            self.exact)
+        pcm = pcm[0].cpu().numpy()                        # [S*32, 2]
+        left = pcm[:, 0].astype(np.uint16).astype(np.uint32)
+        right = pcm[:, 1].astype(np.uint16).astype(np.uint32)
+        out = np.zeros(1152, np.uint32)
+        out[:S * 32] = (left << 16) | right
+        return out.reshape(2, 576)
+
+
+# ---------------------------------------------------------------------------
+# The Layer I/II pool wire (the native packer pdmp3_parse_step_wire_l12):
+# sb f32 [F,B,2,S,32], meta int16 [F,B,4] {nch, rate / 25, layer,
+# family}, active int16 [B] for F = 1, else [F,B].  The port packs the
+# three sections into one byte buffer, each 16-byte aligned, so a step
+# is one upload.
+# ---------------------------------------------------------------------------
+
+def l12_steps(layer: int) -> int:
+    """Synthesis time steps S of a Layer I (12) or II (36) frame."""
+    if layer not in (1, 2):
+        raise ValueError(f"layer must be 1 or 2, got {layer!r}")
+    return 12 if layer == 1 else 36
+
+
+def l12_layout(B: int, layer: int, F: int = 1) -> dict:
+    """Byte offsets of the sections of the packed Layer I/II wire: name
+    -> (offset, bytes), plus 'total'."""
+    S = l12_steps(layer)
+    off, pos = {}, 0
+    for name, n in (("sb", F * B * 2 * S * 32 * 4), ("meta", F * B * 4 * 2),
+                    ("active", F * B * 2)):
+        off[name] = (pos, n)
+        pos += -(-n // 16) * 16
+    off["total"] = pos
+    return off
+
+
+def l12_sections(buf, B: int, layer: int, F: int = 1) -> dict:
+    """Views of the packed Layer I/II wire (uint8 [l12_layout(B, layer,
+    F)['total']], host or device) by section: sb f32 [F,B,2,S,32], meta
+    int16 [F,B,4], active int16 [B] for F = 1, else [F,B]."""
+    off = l12_layout(B, layer, F)
+    if buf.dtype != torch.uint8 or tuple(buf.shape) != (off["total"],):
+        raise ValueError(f"wire must be uint8 [{off['total']}], got "
+                         f"{buf.dtype} {tuple(buf.shape)}")
+    S = l12_steps(layer)
+
+    def sec(name, dtype, shape):
+        o, n = off[name]
+        return buf[o:o + n].view(dtype).view(shape)
+    return {"sb": sec("sb", torch.float32, (F, B, 2, S, 32)),
+            "meta": sec("meta", torch.int16, (F, B, 4)),
+            "active": sec("active", torch.int16, (B,) if F == 1 else (F, B))}
+
+
+def decode_l12_wire(buf, state: L12State, B: int, layer: int, F: int = 1,
+                    exact: bool = True, float_pcm: bool = False):
+    """decode_l12_frames over the F frames of the packed Layer I/II wire.
+    Returns (pcm int16 [B, F*S*32, 2], f32 with float_pcm; the new
+    L12State)."""
+    w = l12_sections(buf, B, layer, F)
+    active = w["active"].view(F, B)
+    pcms = []
+    for f in range(F):
+        pcm, state = decode_l12_frames(w["sb"][f], w["meta"][f, :, 0],
+                                       active[f], state, exact, float_pcm)
+        pcms.append(pcm)
+    return (pcms[0] if F == 1 else torch.cat(pcms, 1)), state

@@ -130,8 +130,8 @@ def load() -> C.CDLL:
         # 10 operand pointers, the table array, B, ng, parities,
         # bug_compat, lsf
         "pdmp3_frame_fused": [ptr] * 11 + [i32] * 5 + [ptr],
-        # 7 operand pointers, the table array, B, exact
-        "pdmp3_back_half": [ptr] * 8 + [i32] * 2 + [ptr],
+        # 7 operand pointers, the table array, B, exact, raw
+        "pdmp3_back_half": [ptr] * 8 + [i32] * 3 + [ptr],
         # instance, the int[6] out array
         "pdmp3_granule_launch_info": [i32, ptr],
         # base, out, n, row stride

@@ -6,9 +6,16 @@ it.
 ``_back_ch``, K4): hybrid synthesis, frequency inversion, polyphase
 synthesis and, in fast mode, the quantize, from post-antialias spectra.
 In exact mode it returns the raw FIR sums for the caller's float64
-quantize.  Its ``prev3`` output is the band-12 carry, x_time[0:3] of
+quantize, and with ``raw=True`` in fast mode too (the float-PCM route,
+``float_granule_step``, packs them as floats).  Its ``prev3`` output is the band-12 carry, x_time[0:3] of
 (ch0, subband 0), which the JAX package recomputes beside its kernel
 (``_prev3``).
+
+``float_granule_step`` is the float-PCM route of the JAX package's
+``decode_granules(float_pcm=True)`` (``pdmp3_tpu/models/decoder.py``):
+the stage-op front half, ``back_half_step(raw=True)``, ``dsp.float_pack``
+and the ``prev_lines`` latch.  K1, K2 and K5 quantize inside their
+bodies, so float PCM takes this split route on the card.
 
 ``split_granule_step`` is the split exact route of
 ``decode_granules_pallas`` (``pallas_step.py:1636-1666``), and in fast
@@ -21,9 +28,10 @@ for bit; it is the route of the per-stream ``models.decoder.TorchDSP``.
 ``back_half_step`` has two implementations: the plain PyTorch version
 ``back_half_step_ref`` (the stage ops of ``ops/dsp.py``), taken for CPU
 tensors, and the CUDA kernel ``csrc/back_half.cu``, launched for CUDA
-tensors: persistent instances 6 (fast) and 7 (exact) of the granule
-body's pattern (``fused_step.granule_launch_info(device, exact,
-back_half=True)``), over the same back-half stages as K1 and K2.  Its
+tensors: persistent instances 6 (fast), 7 (exact) and 8 (fast, raw
+sums) of the granule body's pattern (``fused_step.granule_launch_info(
+device, exact, back_half=True, raw=...)``), over the same back-half
+stages as K1 and K2.  Its
 bulk copies need 16-byte aligned xa, bt_eff, store, v_blocks and out;
 ``check_bulk_alignment`` raises otherwise.
 """
@@ -38,13 +46,16 @@ from .fused_step import (_check, check_bulk_alignment, check_operands,
                          check_state, commit_state, latch_prev, table_ptrs)
 from .rounding import qz_f64
 
-# Launches of the CUDA kernel since the last reset.
+# Launches of the CUDA kernel since the last reset: instances 6 (fast) and
+# 7 (exact), and apart from them instance 8 (fast, raw sums).
 LAUNCHES = 0
+LAUNCHES_RAW = 0
 
 _F32 = torch.float32
 
 
-def back_half_step(xa, state, bt_eff, active, exact: bool):
+def back_half_step(xa, state, bt_eff, active, exact: bool,
+                   raw: bool = False):
     """Back half for B slots.
 
     xa f32 [B,2,32,18] post-antialias spectra; state (store f32
@@ -54,18 +65,19 @@ def back_half_step(xa, state, bt_eff, active, exact: bool):
     long subbands of a mixed block); active int32 [B].
 
     Returns (out f32 [B,2,576], prev3 f32 [B,3]): out holds the raw FIR
-    sums in exact mode and the quantized samples as floats in fast mode,
-    zeros for idle slots; prev3 is x_time[0:3] of (ch0, subband 0) for
-    every slot.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
-    global LAUNCHES
+    sums in exact mode, and in fast mode with raw (the bits fast mode
+    quantizes), else the quantized samples as floats; zeros for idle
+    slots; prev3 is x_time[0:3] of (ch0, subband 0) for every slot.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (instance 7 when exact, else 8 with raw, else 6)."""
+    global LAUNCHES, LAUNCHES_RAW
     B = xa.shape[0]
     check_operands(xa.device, ("xa", xa, (B, 2, 32, 18), _F32),
                    ("bt_eff", bt_eff, (B, 2, 32), torch.int32),
                    ("active", active, (B,), torch.int32))
     check_state(state, B, xa.device)
     if xa.device.type == "cpu":
-        return back_half_step_ref(xa, state, bt_eff, active, exact)
+        return back_half_step_ref(xa, state, bt_eff, active, exact, raw)
     if xa.device.type != "cuda":
         raise ValueError(f"no back half for {xa.device}")
     from . import _build
@@ -82,15 +94,20 @@ def back_half_step(xa, state, bt_eff, active, exact: bool):
                                   state.v_blocks, out, prev3)]
     stream = torch.cuda.current_stream(xa.device).cuda_stream
     rc = lib.pdmp3_back_half(*ptr, table_ptrs(xa.device), B,
-                             int(bool(exact)), C.c_void_p(stream))
+                             int(bool(exact)), int(bool(raw)),
+                             C.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("back_half launch failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())
-    LAUNCHES += 1
+    if raw and not exact:
+        LAUNCHES_RAW += 1
+    else:
+        LAUNCHES += 1
     return out, prev3
 
 
-def back_half_step_ref(xa, state, bt_eff, active, exact: bool):
+def back_half_step_ref(xa, state, bt_eff, active, exact: bool,
+                       raw: bool = False):
     """Plain PyTorch version of back_half_step (same arguments, same
     in-place update, same summation order as the kernel)."""
     x_time, new_store = D.hybrid_synthesis(xa, state.store, bt_eff, exact)
@@ -98,9 +115,23 @@ def back_half_step_ref(xa, state, bt_eff, active, exact: bool):
     sums, new_v = D.subband_synthesis(x_time, state.v_blocks, exact)
     sums = torch.where((active != 0)[:, None, None, None], sums,
                        torch.zeros_like(sums))
-    out = sums.reshape(-1, 2, 576) if exact else D.quantize(sums, False)
+    out = (sums.reshape(-1, 2, 576) if exact or raw
+           else D.quantize(sums, False))
     commit_state(state, active, new_store, new_v)
     return out, x_time[:, 0, 0, 0:3].contiguous()
+
+
+def _split_back_half(ix, scf_l, scf_s, meta, active, gr1, state,
+                     bug_compat, exact, family, is_pos, raw):
+    """The split route up to the pack: the stage-op front half and
+    back_half_step.  Returns (out, prev3, nch)."""
+    _check(ix, scf_l, scf_s, meta, active, gr1, state, family, is_pos)
+    f = D.fields(meta)
+    xa = D.front_half(ix, scf_l, scf_s, meta, gr1, state.prev_lines,
+                      exact, bug_compat, family, is_pos)
+    bt_eff = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
+    out, prev3 = back_half_step(xa, state, bt_eff, active, exact, raw)
+    return out, prev3, f.nch
 
 
 def split_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
@@ -110,12 +141,24 @@ def split_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
     families included) and the same bits as
     fused_step.fused_granule_step, with the back half as its own kernel
     (K4) on CUDA tensors."""
-    _check(ix, scf_l, scf_s, meta, active, gr1, state, family, is_pos)
-    f = D.fields(meta)
-    xa = D.front_half(ix, scf_l, scf_s, meta, gr1, state.prev_lines,
-                      exact, bug_compat, family, is_pos)
-    bt_eff = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
-    out, prev3 = back_half_step(xa, state, bt_eff, active, exact)
-    pcm = D.pack(qz_f64(out) if exact else out, f.nch, active)
+    out, prev3, nch = _split_back_half(ix, scf_l, scf_s, meta, active, gr1,
+                                       state, bug_compat, exact, family,
+                                       is_pos, False)
+    pcm = D.pack(qz_f64(out) if exact else out, nch, active)
+    latch_prev(state, active, gr1, prev3)
+    return pcm, state
+
+
+def float_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
+                       bug_compat: bool = True, exact: bool = False):
+    """One MPEG-1 granule step with float PCM: split_granule_step's
+    contract, but the raw FIR sums (K4 instance 7 exact, 8 fast, on CUDA
+    tensors) packed by dsp.float_pack, f32 [B,576,2] in [-1, 1], zeros
+    for idle slots.  Float PCM serves MPEG-1 pools only, as in the JAX
+    package."""
+    out, prev3, nch = _split_back_half(ix, scf_l, scf_s, meta, active, gr1,
+                                       state, bug_compat, exact, 0, None,
+                                       True)
+    pcm = D.float_pack(out.view(-1, 2, 18, 32), nch, active)
     latch_prev(state, active, gr1, prev3)
     return pcm, state

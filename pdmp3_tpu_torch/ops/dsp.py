@@ -336,30 +336,34 @@ def freq_invert(x_time):
 
 
 def subband_synthesis(x_time, v_blocks, exact: bool):
-    """Polyphase synthesis (pdmp3.c:1983-2014): NWIN matrixing of the 18
+    """Polyphase synthesis (pdmp3.c:1983-2014): NWIN matrixing of the S
     time steps into the FIFO, then the 16-tap D-window FIR over the
-    33-block sliding window (15 carried + 18 new blocks).
+    (15 + S)-block sliding window (15 carried + S new blocks).  S is 18
+    for a Layer III granule, 12 for a Layer I frame and 36 for a Layer
+    II one (``models.l12``).
 
-    x_time f32 [B,2,32,18] (frequency-inverted); v_blocks [B,2,15,64],
-    oldest first.  Returns (sums [B,2,18,32], new_v_blocks)."""
+    x_time f32 [B,2,32,S] (frequency-inverted for Layer III); v_blocks
+    [B,2,15,64], oldest first.  Returns (sums [B,2,S,32],
+    new_v_blocks)."""
     c = device_consts(str(x_time.device))
+    S = x_time.shape[-1]
     dot = _dot_seq if exact else _dot_tree
-    nb = dot(x_time.transpose(-1, -2), c["nwin"].T)      # [B,2,18,64]
-    blocks = torch.cat([v_blocks, nb], 2)                # [B,2,33,64]
+    nb = dot(x_time.transpose(-1, -2), c["nwin"].T)      # [B,2,S,64]
+    blocks = torch.cat([v_blocks, nb], 2)                # [B,2,15+S,64]
     acc = torch.zeros_like(nb[..., :32])
     for j in range(16):
         half = 32 * (j & 1)
-        acc = acc + c["synth_d"][j] * blocks[:, :, 15 - j:33 - j,
+        acc = acc + c["synth_d"][j] * blocks[:, :, 15 - j:15 + S - j,
                                              half:half + 32]
-    return acc, blocks[:, :, 18:]
+    return acc, blocks[:, :, S:]
 
 
 def quantize(sums, exact: bool):
     """x32767, truncate toward zero, clip to +-32767; NaN and values
     outside int32 become -32767 (pdmp3.c:2028-2031).  Exact form rounds
-    through f64 (rounding.qz_f64).  sums f32 [..., 18, 32] -> f32
-    [..., 576] sample values."""
-    s = sums.reshape(*sums.shape[:-2], 576)
+    through f64 (rounding.qz_f64).  sums f32 [..., S, 32] -> f32
+    [..., S*32] sample values."""
+    s = sums.reshape(*sums.shape[:-2], -1)
     if exact:
         return qz_f64(s)
     scaled = s * device_consts(str(s.device))["k32767"]
@@ -375,6 +379,23 @@ def pack(q, nch, active):
     left = q[:, 0]
     right = torch.where((nch <= 1)[:, None], left, q[:, 1])
     pcm = torch.stack([left, right], -1).to(torch.int16)
+    return torch.where((active != 0)[:, None, None], pcm,
+                       torch.zeros_like(pcm))
+
+
+def float_pack(sums, nch, active):
+    """Float PCM (the JAX package's dsp.float_pack, a serving option
+    beyond the reference's S16 sink): the synthesis sums f32 [B,2,S,32]
+    clipped to [-1, 1], NaN to -1, interleaved as f32 [B,S*32,2], mono
+    (nch <= 1) duplicating L, idle slots silent.  trunc(pcm * 32767)
+    is the S16 sample except where |sum * 32767| escapes int32, which
+    S16 wraps to -32767 (cvttsd2si) and float saturates."""
+    x = sums.reshape(sums.shape[0], 2, -1)
+    x = torch.where(torch.isnan(x), torch.full_like(x, -1.0),
+                    x.clamp(-1.0, 1.0))
+    left = x[:, 0]
+    right = torch.where((nch <= 1)[:, None], left, x[:, 1])
+    pcm = torch.stack([left, right], -1)
     return torch.where((active != 0)[:, None, None], pcm,
                        torch.zeros_like(pcm))
 

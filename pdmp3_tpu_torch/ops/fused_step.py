@@ -97,36 +97,41 @@ def check_bulk_alignment(**operands) -> None:
 
 
 def launch_instance(exact: bool = False, family: int = 0,
-                    frame: bool = False, back_half: bool = False) -> int:
+                    frame: bool = False, back_half: bool = False,
+                    raw: bool = False) -> int:
     """The persistent kernel instance of pdmp3_granule_launch_info: 0 K1,
     1 K2, 2 K3 fast, 3 K3 exact (family 1 or 2), 4 K5 MPEG-1, 5 K5 LSF
-    (frame; fast only), 6 K4 fast, 7 K4 exact (back_half; K4 takes
-    post-antialias spectra of any family, so no family).  ValueError for
-    any other combination."""
+    (frame; fast only), 6 K4 fast, 7 K4 exact, 8 K4 fast raw sums
+    (back_half; K4 takes post-antialias spectra of any family, so no
+    family; exact K4 always returns raw sums).  ValueError for any other
+    combination."""
     if family not in (0, 1, 2):
         raise ValueError(f"family must be 0, 1 or 2, got {family!r}")
     if frame and exact:
         raise ValueError("K5, the frame kernel, is fast only")
     if back_half and (frame or family):
         raise ValueError("K4, the back half, takes no frame and no family")
+    if raw and not back_half:
+        raise ValueError("raw sums come from K4, the back half, only")
     if back_half:
-        return 6 + int(exact)
+        return 7 if exact else 8 if raw else 6
     if frame:
         return 4 + (family != 0)
     return 2 * (family != 0) + int(exact)
 
 
 def granule_launch_info(device, exact: bool = False, family: int = 0,
-                        frame: bool = False, back_half: bool = False
-                        ) -> dict:
+                        frame: bool = False, back_half: bool = False,
+                        raw: bool = False) -> dict:
     """The launch geometry of the persistent kernel that runs a step of
     `family` in that precision (K1, K2 or K3; K5 when frame; K4 when
-    back_half) on a CUDA device, from the kernel library: the persistent
+    back_half, instance 8 with raw) on a CUDA device, from the kernel
+    library: the persistent
     grid (SM count x resident blocks per SM; min(B, grid) blocks launch),
     blocks per SM, dynamic shared memory per block, registers and local
     (spill) bytes per thread, SM count.  The arguments are checked
     (launch_instance) before the library is loaded."""
-    instance = launch_instance(exact, family, frame, back_half)
+    instance = launch_instance(exact, family, frame, back_half, raw)
     from . import _build
 
     lib = _build.load()

@@ -14,7 +14,8 @@ Builds both checkouts' kernel libraries, then:
    same synthetic operands, each kernel three ways
    (``pdmp3_tpu_torch/timing.py``, this checkout's copy for both
    trees): ``ms``, its device time per launch
-   from torch.profiler; ``burst_ms``, CUDA events around a burst of 25
+   from CUDA events around replays of a CUDA graph of 25 calls;
+   ``burst_ms``, CUDA events around a burst of 25
    back-to-back calls over the calls, median of 5 bursts; ``per_call_ms``,
    events around one call, launcher included, median of 25; and K1
    against K5 at ng = 1 (the same granule with the state in K5's state
@@ -106,27 +107,24 @@ def time_kernels(tree: str) -> dict:
     dev = torch.device("cuda")
     ops = synthetic_operands(dev)
 
-    def times(fn, kernel):
-        return T.kernel_times(fn, kernel, LAUNCHES)
+    def times(fn):
+        return T.kernel_times(fn, LAUNCHES)
 
     res = {}
     for exact in (False, True):
         st = init_state(B, dev)
         res["k2" if exact else "k1"] = times(
-            lambda: FS.fused_granule_step(*ops, 0, st, exact=exact),
-            "fused_granule_kernel")
+            lambda: FS.fused_granule_step(*ops, 0, st, exact=exact))
     for family in (1, 2):
         lops, ip = synthetic_lsf_operands(dev, family)
         for exact in (False, True):
             st = init_state(B, dev)
             res[f"k3_f{family}_{'exact' if exact else 'fast'}"] = times(
                 lambda: FS.fused_granule_step(*lops, 0, st, exact=exact,
-                                              family=family, is_pos=ip),
-                "fused_granule_lsf_kernel")
+                                              family=family, is_pos=ip))
     f2 = [torch.stack([o, o]) for o in ops]
     st = init_state(B, dev)
-    res["k5_ng2"] = times(lambda: FR.frame_step(*f2, (0, 1), st),
-                          "frame_fused_kernel")
+    res["k5_ng2"] = times(lambda: FR.frame_step(*f2, (0, 1), st))
     res.update(k1_vs_k5_ng1(ops, init_state(B, dev), init_state(B, dev),
                             T.per_call_ms))
     f = D.fields(ops[3])
@@ -137,21 +135,19 @@ def time_kernels(tree: str) -> dict:
         mode = "exact" if exact else "fast"
         st = init_state(B, dev)
         res[f"k4_{mode}"] = times(
-            lambda: BH.back_half_step(xa, st, bt, ops[4], exact),
-            "back_half_kernel")
+            lambda: BH.back_half_step(xa, st, bt, ops[4], exact))
         st1 = init_state(1, dev)
         one = (xa[:1], st1, bt[:1].contiguous(), ops[4][:1])
         res[f"k4_{mode}_one_slot"] = times(
-            lambda: BH.back_half_step(*one, exact), "back_half_kernel")
+            lambda: BH.back_half_step(*one, exact))
     n = 1 << 24
     if hasattr(R, "rounding_sweep_all"):
-        res["k6"] = times(lambda: R.rounding_sweep_all(n, n, dev),
-                          "rounding_sweep_kernel")
+        res["k6"] = times(lambda: R.rounding_sweep_all(n, n, dev))
         res["k6_ms_per_chunk"] = res["k6"]["ms"]
     else:  # an older tree: one launch per construction
         res["k6_single"] = {
-            c: times(lambda: R.rounding_sweep_step(c, n, n, dev),
-                     "rounding_sweep_kernel") for c in R.CONSTRUCTIONS}
+            c: times(lambda: R.rounding_sweep_step(c, n, n, dev))
+            for c in R.CONSTRUCTIONS}
         res["k6_ms_per_chunk"] = sum(r["ms"] for r in
                                      res["k6_single"].values())
     return res

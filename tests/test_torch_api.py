@@ -112,8 +112,9 @@ def test_frame_to_batches_equals_native_wire():
 def test_frame_to_batches_rejects_other_families():
     """LSF frames are ported (tests/test_torch_lsf.py), but one batch
     holds one family: a batch mixing MPEG-1 and LSF frames raises
-    ValueError; Layer I/II frames are not ported and raise
-    NotImplementedError."""
+    ValueError; Layer I/II frames carry no granules and raise ValueError
+    there, while TorchDSP decodes them through models.l12
+    (tests/test_torch_l12.py): silent subband samples, silent PCM."""
     fd = _frames_of(_stream("long"))[0]
     lsf = copy.deepcopy(fd)
     lsf.header.family = 1
@@ -121,7 +122,8 @@ def test_frame_to_batches_rejects_other_families():
         TM.frame_to_batches([fd, lsf])
     l12 = copy.deepcopy(fd)
     l12.sb_samples = np.zeros((2, 12, 32), np.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         TM.frame_to_batches([l12])
-    with pytest.raises(NotImplementedError):
-        TorchDSP(device="cpu").decode_frame(l12)
+    out = TorchDSP(device="cpu").decode_frame(l12)
+    assert out.shape == (2, 576) and out.dtype == np.uint32
+    assert not out.any()

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports names JAX or the JAX package, the port runs in
 an interpreter that cannot import either, and its copies of the JAX
 package's JAX-free layers (tables, the native host library, the stream
-generator) give the same numbers and bytes as the originals.
+generator, the metadata layer, the WAV writer) give the same numbers
+and bytes as the originals.
 
 Tolerance: none; every comparison is equality.
 """
@@ -145,6 +146,15 @@ def test_host_sources_are_copies(rel):
     its handle blobs (checkpoints) and its output are the JAX package's."""
     assert filecmp.cmp(REPO / "pdmp3_tpu/host" / rel,
                        REPO / "pdmp3_tpu_torch/host" / rel, shallow=False)
+
+
+@pytest.mark.parametrize("rel", ["metadata.py", "utils/wav.py"])
+def test_jax_free_modules_are_copies(rel):
+    """The stream metadata layer (tags, frame index, seek plans, gapless
+    bounds) and the WAV writer are byte-identical copies: their lazy
+    imports (tables, frontend, host) resolve to the port's own copies."""
+    assert filecmp.cmp(REPO / "pdmp3_tpu" / rel,
+                       REPO / "pdmp3_tpu_torch" / rel, shallow=False)
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))

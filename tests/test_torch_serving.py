@@ -229,10 +229,14 @@ def test_cuda_exact_serving_with_device_behind_host(corpus):
         _check_vs_native(data, _slot_pcm(gsteps, s), s == MONO, exact=True)
 
 
-@pytest.mark.parametrize("kw", [dict(float_pcm=True),
+@pytest.mark.parametrize("kw", [dict(float_pcm=True, family=1),
                                 dict(resample_to=48000)])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+    """Every option of the JAX StreamDecoder is ported
+    (tests/test_torch_float_pcm.py, tests/test_torch_resample.py); the
+    combinations the JAX package refuses raise ValueError: float PCM on
+    an LSF pool, resample_to without sample_rate."""
+    with pytest.raises(ValueError):
         StreamDecoder(2, device="cpu", **kw)
 
 
