@@ -7,10 +7,11 @@ Layer III decoding through ``pdmp3_tpu_torch`` at B = 8192 stream slots,
 fast and exact, MPEG-1 and the LSF families MPEG-2 and MPEG-2.5, one
 granule per launch and one frame per launch, dense and sparse wire, S16
 and float PCM; Layer I/II pools, mid-stream joins, the resampler and
-batched and offline file decode, in twenty phases; any failure exits
-non-zero.  The kernels are built here
-from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
-``pdmp3_tpu_torch/host/src``.
+batched and offline file decode; sharded pools over shards of the card,
+two processes serving one pool over torch.distributed, and the entry
+step, in twenty-three phases; any failure exits non-zero.  The kernels
+are built here from ``pdmp3_tpu_torch/csrc`` and the port's native host
+library from ``pdmp3_tpu_torch/host/src``.
 
 1. the card's name and power limit, then a check that CUDA is visible;
 2. K1, the fast granule kernel, against its plain PyTorch version on the
@@ -105,7 +106,32 @@ from ``pdmp3_tpu_torch/csrc`` and the port's native host library from
     64 of them and layer=2 on 64 Layer II files; ``decode_files_scan``
     over the 1,024 files, exact; every 64th file (every file of the
     64-file runs) bitwise against the native decoder, its window or
-    trim; files and audio seconds per wall second.
+    trim; files and audio seconds per wall second;
+22. sharded serving: ``ShardedStreamDecoder(8192, make_mesh(["cuda:0"]
+    * 2), ...)`` MPEG-1 fast (K1) and exact (K2) on phase 3's streams,
+    MPEG-2 exact (K3) on phase 11's family-1 streams, and
+    ``ShardedL12StreamDecoder`` Layer II exact on phase 18's, each in
+    lockstep with the unsharded pool fed alike (``LoopFeeder``), the
+    pool that steps first alternating: every step's PCM bitwise equal to
+    the unsharded pool's, the kernel launched per frame step twice per
+    shard (MPEG-1) or once (MPEG-2), the watched slots against the
+    native decoder; step_ms, device_replay_step_ms and loop_ms_per_step
+    of both pools (each pool's step between two synchronisations); and
+    ``decode_granules_sharded`` on a parsed granule at B with a random
+    state: PCM and state bitwise the unsharded K1 step's, the same
+    clipped count;
+23. two processes: two spawned ranks on cuda:0 joined by gloo over
+    localhost TCP, each ``MultiHostStreamDecoder(8192, device="cuda:0",
+    exact=True)`` over its 4,096 slots with half the host's cores as
+    parse threads, stepped until ``global_active`` reads 0: K2 twice per
+    step, the watched slots bitwise against the native decoder, each
+    rank's loop ms per step (the ranks time-slice one card); a rank that
+    fails or outlives its timeout fails the run, and the others are
+    killed;
+24. the entry step: ``entry.entry("cuda")``'s step launches K1 once and
+    equals its plain version bitwise; ``entry.dryrun_multichip(4,
+    "cuda")`` (MPEG-1, MPEG-2 and Layer II over four shards of the card
+    against their unsharded steps) passes.
 
 Each phase's wall seconds are printed before the kernels' line.
 
@@ -222,6 +248,18 @@ JOIN_LEAD_STEPS = 2
 # phase 21: copies of phase 3's streams, and the subset size
 FILE_COPIES = 16
 FILE_SUBSET = 64
+# phase 18 and 22's watched Layer I/II features
+L12_FEATURES = [("mode", 0), ("mode", 3), ("mode", 1), ("mode", 2),
+                ("sfreq", 1), ("sfreq", 2), ("bitrate_index", 6)]
+# phase 22: shards of the card in the mesh, and each pool's parse threads
+# per native call (a sharded pool makes one call per shard)
+SHARDS = 2
+SHARDED_PARSE_THREADS = 8
+# phase 23: processes on the card, and the seconds they may take
+RANKS = 2
+RANK_TIMEOUT_S = 300
+# phase 24: shards of dryrun_multichip's mesh
+DRYRUN_SHARDS = 4
 # wall seconds per phase (phase name -> seconds)
 PHASE_SECONDS = {}
 
@@ -1350,9 +1388,7 @@ def phase_l12(dev) -> dict:
     for layer in (1, 2):
         specs = l12_corpus(layer)
         streams = [d for d, _ in specs]
-        watch = watched_slots(specs, [
-            ("mode", 0), ("mode", 3), ("mode", 1), ("mode", 2),
-            ("sfreq", 1), ("sfreq", 2), ("bitrate_index", 6)])
+        watch = watched_slots(specs, L12_FEATURES)
         sel = torch.tensor(watch, device=dev)
         pcms = {}
         for exact in (False, True):
@@ -1592,6 +1628,315 @@ def phase_files(specs: list[tuple[bytes, dict]], dev) -> dict:
     return res
 
 
+def sharded_route(path: str, specs: list[tuple[bytes, dict]], dev,
+                  watch: list[int], pools: dict, kernel: str | None,
+                  per_frame: int, exact: bool) -> dict:
+    """One route of phase 22: the sharded and the unsharded pool
+    (pools["sharded"], pools["unsharded"]) fed alike by LoopFeeder from
+    `specs`, WARMUP_STEPS + NEW_TIMED_STEPS steps in lockstep, the pool
+    that goes first alternating step by step.  Each pool's step (feed,
+    parse, decode) runs between two synchronisations: loop_ms_per_step is
+    its host-clock time, step_ms CUDA events around decode_step.  Every
+    step's PCM must be bitwise equal between the pools; `kernel`
+    (None: no kernel) launches per_frame times per shard and step; the
+    watched slots of the sharded pool against the native decoder; the
+    replay of each pool's last wire, interleaved (sharded, unsharded,
+    unsharded, sharded)."""
+    from pdmp3_tpu_torch import LoopFeeder
+
+    streams = [d for d, _ in specs]
+    feeders = {k: LoopFeeder(d, streams) for k, d in pools.items()}
+    shards = {"sharded": len(pools["sharded"].pools), "unsharded": 1}
+    sel = torch.tensor(watch, device=dev)
+    events = {k: [] for k in pools}
+    loop_s = {k: [] for k in pools}
+    launches = {k: 0 for k in pools}
+    kept = []
+    steps = WARMUP_STEPS + NEW_TIMED_STEPS
+    for step in range(steps):
+        order = sorted(pools, reverse=step % 2 == 1)
+        out = {}
+        for k in order:
+            dec = pools[k]
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feeders[k].step()
+            check(dec.parse_step() == B, f"{path} {k}: a slot starved")
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            pcm = dec.decode_step(fetch=False)
+            b.record()
+            torch.cuda.synchronize()
+            loop_s[k].append(time.perf_counter() - t0)
+            events[k].append((a, b))
+            if kernel is None:
+                check_no_launches(f"{path} {k}")
+            else:
+                launches[k] += launch_counts(f"{path} {k}", kernel)
+            out[k] = torch.cat(pcm) if isinstance(pcm, list) else pcm
+        check(torch.equal(out["sharded"], out["unsharded"]),
+              f"{path}: step {step}: the sharded PCM differs from the "
+              "unsharded pool's")
+        kept.append(out["sharded"].index_select(0, sel))
+    for k in pools:
+        check(launches[k] == per_frame * shards[k] * steps * (kernel
+                                                              is not None),
+              f"{path} {k}: {launches[k]} {kernel} launches for {steps} "
+              f"steps over {shards[k]} shards")
+
+    def replay(k):
+        dec = pools[k]
+        parts = getattr(dec, "pools", [dec])
+        wires = [p._wires_t[p._cur ^ 1].to(dev) for p in parts]
+        return per_call_ms(lambda: [p._decode(w)
+                                    for p, w in zip(parts, wires)], steps)
+    replay_ms = {k: [] for k in pools}
+    for k in ("sharded", "unsharded", "unsharded", "sharded"):
+        replay_ms[k].append(replay(k))
+    res = {"steps": steps, "shards": shards["sharded"],
+           "kernel": kernel, "launches": launches,
+           "vs_native": phase_correctness(torch.cat(kept, 1).cpu().numpy(),
+                                          watch, specs, exact)}
+    for k in pools:
+        res[k] = {
+            "step_ms": float(np.median([a.elapsed_time(b) for a, b
+                                        in events[k][WARMUP_STEPS:]])),
+            "device_replay_step_ms": float(np.mean(replay_ms[k])),
+            "loop_ms_per_step": float(np.mean(loop_s[k][WARMUP_STEPS:]))
+            * 1e3}
+    res["sharded_over_unsharded_loop_ms"] = (
+        res["sharded"]["loop_ms_per_step"]
+        / res["unsharded"]["loop_ms_per_step"])
+    return res
+
+
+def phase_sharded(specs: list[tuple[bytes, dict]],
+                  lsf_specs: list[tuple[bytes, dict]], dev,
+                  watch: list[int]) -> dict:
+    """Phase 22: serving over a mesh of SHARDS shards of the card against
+    the unsharded pool (sharded_route), MPEG-1 fast (K1) and exact (K2)
+    on phase 3's corpus, MPEG-2 exact (K3) on phase 11's family-1 corpus
+    and Layer II exact (plain synthesis) on phase 18's; then
+    decode_granules_sharded on phase 2's kind of frame (idle slots, a
+    random state) against the unsharded K1 step: PCM bitwise and the
+    same clipped count."""
+    from pdmp3_tpu_torch import (L12StreamDecoder, ShardedL12StreamDecoder,
+                                 ShardedStreamDecoder, StreamDecoder,
+                                 make_mesh)
+
+    mesh = make_mesh([dev] * SHARDS)
+    l2specs = l12_corpus(2)
+    threads = SHARDED_PARSE_THREADS
+
+    def layer3(exact, family=0):
+        return {"sharded": ShardedStreamDecoder(
+                    B, mesh, exact=exact, family=family,
+                    parse_threads=threads),
+                "unsharded": StreamDecoder(B, exact=exact, family=family,
+                                           parse_threads=threads,
+                                           device=dev)}
+    routes = {
+        "mpeg1_fast": (specs, watch, lambda: layer3(False),
+                       "fused_granule", 2, False),
+        "mpeg1_exact": (specs, watch, lambda: layer3(True),
+                        "fused_granule_exact", 2, True),
+        "mpeg2_exact": (lsf_specs, watched_slots(lsf_specs),
+                        lambda: layer3(True, 1), "fused_granule_lsf_exact",
+                        1, True),
+        "layer2_exact": (l2specs, watched_slots(l2specs, L12_FEATURES),
+                         lambda: {
+                             "sharded": ShardedL12StreamDecoder(
+                                 B, 2, mesh, exact=True,
+                                 parse_threads=threads),
+                             "unsharded": L12StreamDecoder(
+                                 B, layer=2, exact=True,
+                                 parse_threads=threads, device=dev)},
+                         None, 0, True)}
+    res = {"mesh": [str(d) for d in mesh.devices],
+           "parse_threads": threads}
+    for name, (sp, w, make, kernel, per_frame, exact) in routes.items():
+        res[name] = sharded_route(f"phase 22 {name}", sp, dev, w, make(),
+                                  kernel, per_frame, exact)
+    res["clipped"] = sharded_clipped([d for d, _ in specs], mesh, dev)
+    return res
+
+
+def sharded_clipped(streams: list[bytes], mesh, dev) -> dict:
+    """decode_granules_sharded over `mesh` on granule 0 of a parsed frame
+    at B (INACTIVE slots idle, a random state) against the unsharded K1
+    step: PCM and state bitwise, the clipped counts equal (and not 0:
+    the random state drives samples to the rails)."""
+    from pdmp3_tpu_torch import decode_granules_sharded
+    from pdmp3_tpu_torch.models.decoder import GranuleBatch
+    from pdmp3_tpu_torch.ops.fused_step import fused_granule_step
+    from pdmp3_tpu_torch.parallel import place_batch, place_state
+
+    fr = parsed_frame(streams, dev)
+    args = granule_args(fr, 0)
+    reset_launch_counts()
+    pcms, states, clipped = decode_granules_sharded(
+        place_batch(GranuleBatch(*args), mesh), place_state(fr["st0"], mesh),
+        mesh)
+    launches = launch_counts("phase 22 decode_granules_sharded",
+                             "fused_granule")
+    check(launches == mesh.size, f"phase 22: {launches} K1 launches for "
+                                 f"{mesh.size} shards")
+    pcm, st = fused_granule_step(*args, clone_state(fr["st0"]))
+    check(torch.equal(torch.cat(pcms), pcm),
+          "phase 22: decode_granules_sharded PCM differs from unsharded")
+    for name in ("store", "v_blocks", "prev_lines"):
+        check(torch.equal(torch.cat([getattr(s, name) for s in states])
+                          .view(torch.int32),
+                          getattr(st, name).view(torch.int32)),
+              f"phase 22: decode_granules_sharded {name} differs")
+    want = int(((pcm == 32767) | (pcm == -32767)).sum())
+    check(int(clipped) == want > 0,
+          f"phase 22: clipped {int(clipped)}, unsharded PCM {want}")
+    return {"clipped": int(clipped), "launches": launches}
+
+
+def rank_main(rank: int, port: int, specs: list[tuple[bytes, dict]],
+              watch: list[int], threads: int, dev, out_path: str) -> None:
+    """One rank of phase 23 (a spawned process): a gloo group of RANKS
+    ranks over localhost TCP, MultiHostStreamDecoder(B, exact=True) on
+    the card `dev` over this rank's B / RANKS slots, each fed its stream once
+    (topped up as its ring frees), stepped until global_active reads 0;
+    K2 twice per step; the watched slots bitwise against the native
+    decoder; its results as JSON in out_path."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pdmp3_tpu_torch import MultiHostStreamDecoder
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=RANKS,
+        rank=rank, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        dec = MultiHostStreamDecoder(B, device=dev, exact=True,
+                                     parse_threads=threads)
+        data = [specs[(rank * dec.n + s) % len(specs)][0]
+                for s in range(dec.n)]
+        fed = [0] * dec.n
+        sel = torch.tensor(watch, device=dev)
+        kept, steps = [], 0
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            for s in range(dec.n):
+                if fed[s] < len(data[s]):
+                    n = min(dec.inbuf_free(s), len(data[s]) - fed[s])
+                    check(dec.feed(s, data[s][fed[s]:fed[s] + n]) == 0,
+                          f"phase 23 rank {rank}: feed of slot {s} failed")
+                    fed[s] += n
+            if dec.global_active(dec.parse_step()) == 0:
+                break
+            kept.append(dec.decode_step(fetch=False).index_select(0, sel))
+            steps += 1
+            check(steps <= 2 * FRAMES_PER_STREAM,
+                  f"phase 23 rank {rank}: the streams did not end")
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) / steps * 1e3
+        launches = launch_counts(f"phase 23 rank {rank}",
+                                 "fused_granule_exact")
+        check(launches == 2 * steps, f"phase 23 rank {rank}: {launches} "
+                                     f"K2 launches for {steps} steps")
+        # local slot s serves stream (rank * n + s) % 64 == s % 64
+        slots = phase_correctness(torch.cat(kept, 1).cpu().numpy(), watch,
+                                  specs, exact=True)
+        with open(out_path, "w") as f:
+            json.dump({"rank": rank, "slots": dec.n, "steps": steps,
+                       "parse_threads": threads, "launches": launches,
+                       "loop_ms_per_step": loop_ms, "vs_native": slots}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ranks(specs: list[tuple[bytes, dict]], watch: list[int],
+                dev) -> dict:
+    """Phase 23: RANKS spawned processes on the card `dev` (rank_main),
+    each with half the host's cores as parse threads.  A rank that exits
+    non-zero or is alive after RANK_TIMEOUT_S fails the phase, and every
+    rank still running is killed."""
+    import multiprocessing
+    import os
+    import socket
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    threads = max(1, (os.cpu_count() or RANKS) // RANKS)
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(RANKS)]
+        procs = [ctx.Process(target=rank_main, args=(
+            r, port, specs, watch, threads, dev, outs[r]))
+            for r in range(RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            while (any(p.is_alive() for p in procs)
+                   and time.perf_counter() - t0 < RANK_TIMEOUT_S
+                   and all(p.exitcode in (None, 0) for p in procs)):
+                time.sleep(0.1)
+        finally:
+            alive = [p for p in procs if p.is_alive()]
+            for p in alive:
+                p.kill()
+            for p in procs:
+                p.join()
+        check(not alive and all(p.exitcode == 0 for p in procs),
+              f"phase 23: rank exit codes {[p.exitcode for p in procs]} "
+              f"after {time.perf_counter() - t0:.1f} s")
+        ranks = []
+        for o in outs:
+            with open(o) as f:
+                ranks.append(json.load(f))
+    return {"ranks": ranks, "seconds": time.perf_counter() - t0,
+            "note": "both ranks time-slice one card: correctness and the "
+                    "host side, not multi-GPU throughput"}
+
+
+def phase_entry(dev) -> dict:
+    """Phase 24: entry("cuda")'s step launches K1 once and equals its
+    plain version bitwise (PCM and state); dryrun_multichip over
+    DRYRUN_SHARDS shards of the card passes, with K1 and K3 (fast) once
+    per shard and once unsharded."""
+    from pdmp3_tpu_torch.entry import dryrun_multichip, entry
+    from pdmp3_tpu_torch.ops.fused_step import fused_granule_step_ref
+
+    step, (batch, state) = entry("cuda")
+    ref = clone_state(state)
+    reset_launch_counts()
+    pcm, state = step(batch, state)
+    check(launch_counts("phase 24 entry", "fused_granule") == 1,
+          "phase 24: the entry step did not launch K1 once")
+    want, ref = fused_granule_step_ref(batch.ix, batch.scf_l, batch.scf_s,
+                                       batch.meta, batch.active, batch.gr1,
+                                       ref, exact=False)
+    check(torch.equal(pcm, want) and bool(pcm.any()),
+          "phase 24: the entry step's PCM differs from its plain version")
+    for name in ("store", "v_blocks", "prev_lines"):
+        check(torch.equal(getattr(state, name).view(torch.int32),
+                          getattr(ref, name).view(torch.int32)),
+              f"phase 24: the entry step's {name} differs")
+    reset_launch_counts()
+    dryrun_multichip(DRYRUN_SHARDS, "cuda")
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()
+              if getattr(mod, attr)}
+    want_counts = {"fused_granule": DRYRUN_SHARDS + 1,
+                   "fused_granule_lsf": DRYRUN_SHARDS + 1}
+    check(counts == want_counts, f"phase 24: dryrun_multichip launched "
+                                 f"{counts}, want {want_counts}")
+    return {"entry_pcm_shape": list(pcm.shape), "entry_k1_launches": 1,
+            "dryrun_shards": DRYRUN_SHARDS, "dryrun_launches": counts}
+
+
 def phase_correctness(pcm: np.ndarray, watch: list[int],
                       specs: list[tuple[bytes, dict]],
                       exact: bool = False) -> list[dict]:
@@ -1755,10 +2100,10 @@ def main() -> int:
     print("phase 9 K6 sweep:", json.dumps(k6))
     lap("phase 9")
 
-    k3, lsf_serving = {}, {}
+    k3, lsf_serving, lsf_specs = {}, {}, {}
     for family in LSF_FAMILIES:
         t0 = time.perf_counter()
-        lspecs = lsf_corpus(family)
+        lspecs = lsf_specs[family] = lsf_corpus(family)
         lstreams = [s for s, _ in lspecs]
         print(f"LSF family {family} corpus: {len(lstreams)} streams x "
               f"{FRAMES_PER_STREAM} frames in "
@@ -1821,6 +2166,25 @@ def main() -> int:
     files = phase_files(specs, dev)
     print("phase 21 file decode:", json.dumps(files))
     lap("phase 21")
+    sh = phase_sharded(specs, lsf_specs[1], dev, watch)
+    print("phase 22 sharded serving:", json.dumps(sh))
+    lap("phase 22")
+    rk = phase_ranks(specs, watch, dev)
+    print("phase 23 two processes on one card:", json.dumps(rk))
+    lap("phase 23")
+    en = phase_entry(dev)
+    print("phase 24 entry step and dry run:", json.dumps(en))
+    lap("phase 24")
+    # phases 22-24's launches of K1, K2 and K3
+    more = {
+        "fused_granule": sum(sh["mpeg1_fast"]["launches"].values())
+        + sh["clipped"]["launches"] + en["entry_k1_launches"]
+        + en["dryrun_launches"]["fused_granule"],
+        "fused_granule_exact": sum(sh["mpeg1_exact"]["launches"].values())
+        + sum(r["launches"] for r in rk["ranks"]),
+        "fused_granule_lsf": en["dryrun_launches"]["fused_granule_lsf"],
+        "fused_granule_lsf_exact":
+        sum(sh["mpeg2_exact"]["launches"].values())}
     if args.profile:
         print("phase 13 profile:", json.dumps(phase_profile(streams, dev)))
         lap("phase 13")
@@ -1848,10 +2212,12 @@ def main() -> int:
             f: lsf_serving[(f, exact)][f"{pre}lsf{f}_kernel_launches"]
             for f in LSF_FAMILIES}
         r1 = k3[(1, exact)]
-        return entry(name, "fused_granule.cu", sum(by_family.values()),
+        return entry(name, "fused_granule.cu",
+                     sum(by_family.values()) + more[name],
                      max(k3[(f, exact)]["pcm_max_lsb"]
                          for f in LSF_FAMILIES), r1, r1,
                      launch=r1["launch"], launches_by_family=by_family,
+                     launches_phases_22_24=more[name],
                      ms_by_family={f: k3[(f, exact)]["kernel_ms"]
                                    for f in LSF_FAMILIES},
                      plain_ms_by_family={f: k3[(f, exact)]["plain_ms"]
@@ -1863,13 +2229,16 @@ def main() -> int:
                 "plain_ms": r["plain_ms"]}
     k4e, k4f = k4["exact"], k4["fast"]
     print(json.dumps({"kernels": [
-        entry("fused_granule", "fused_granule.cu", m["kernel_launches"],
+        entry("fused_granule", "fused_granule.cu",
+              m["kernel_launches"] + more["fused_granule"],
               k1["pcm_max_lsb"], k1, k1, launch=k1["launch"],
+              launches_phases_22_24=more["fused_granule"],
               k5_ng1_ms=k5[0]["ng1_ab_interleaved"]["k5_ng1_ms"],
               k1_over_k5_ng1=k5[0]["ng1_ab_interleaved"]["k1_over_k5_ng1"]),
         entry("fused_granule_exact", "fused_granule.cu",
-              me["exact_kernel_launches"], k2["pcm_max_lsb"], k2, k2,
-              launch=k2["launch"]),
+              me["exact_kernel_launches"] + more["fused_granule_exact"],
+              k2["pcm_max_lsb"], k2, k2, launch=k2["launch"],
+              launches_phases_22_24=more["fused_granule_exact"]),
         lsf_entry(False),
         lsf_entry(True),
         entry("back_half", "back_half.cu",

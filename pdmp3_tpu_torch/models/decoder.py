@@ -83,7 +83,8 @@ class DecoderState:
     prev_lines: torch.Tensor  # f32 [B,3] band-12 carry
 
 
-def init_state(batch_size: int, device="cpu") -> DecoderState:
+def init_state(batch_size: int, device) -> DecoderState:
+    """Zero state for batch_size slots on ``device``."""
     return DecoderState(
         store=torch.zeros((batch_size, 2, 32, 18), dtype=torch.float32,
                           device=device),
@@ -93,10 +94,10 @@ def init_state(batch_size: int, device="cpu") -> DecoderState:
                                device=device))
 
 
-def state_from_jax(store, v_blocks, prev_lines, device="cpu"
-                   ) -> DecoderState:
+def state_from_jax(store, v_blocks, prev_lines, device) -> DecoderState:
     """DecoderState from the JAX package's canonical state (numpy arrays
-    [B,2,32,18], [B,2,15,64], [B,3]), e.g. a checkpoint it saved."""
+    [B,2,32,18], [B,2,15,64], [B,3]), e.g. a checkpoint it saved, on
+    ``device``."""
     def t(a):
         return torch.from_numpy(
             np.array(a, dtype=np.float32, order="C")).to(device)
@@ -104,10 +105,10 @@ def state_from_jax(store, v_blocks, prev_lines, device="cpu"
                         prev_lines=t(prev_lines))
 
 
-def state_from_pallas(store_t, v_t, prev_lines, device="cpu"
-                      ) -> DecoderState:
+def state_from_pallas(store_t, v_t, prev_lines, device) -> DecoderState:
     """DecoderState from the JAX Pallas kernel's feature-major state
-    (numpy store_t [2,18,32,B], v_t [2,15,64,B], prev_lines [B,3])."""
+    (numpy store_t [2,18,32,B], v_t [2,15,64,B], prev_lines [B,3]), on
+    ``device``."""
     return state_from_jax(np.asarray(store_t).transpose(3, 0, 2, 1),
                           np.asarray(v_t).transpose(3, 0, 1, 2),
                           prev_lines, device)
@@ -133,7 +134,7 @@ def decode_granules(batch: GranuleBatch, state: DecoderState,
                               bug_compat, exact, batch.family, batch.is_pos)
 
 
-def frame_to_batches(fds, device="cpu") -> list[GranuleBatch]:
+def frame_to_batches(fds, device) -> list[GranuleBatch]:
     """One parsed Layer III frame per slot
     (``pdmp3_tpu_torch.frontend.FrameData``), all of one family, as the
     frame's granule steps' wire-form batches on ``device`` (two for

@@ -34,14 +34,15 @@ class L12State:
     v_blocks: torch.Tensor    # f32 [B,2,15,64] polyphase FIFO, oldest first
 
 
-def init_l12_state(batch_size: int, device="cpu") -> L12State:
+def init_l12_state(batch_size: int, device) -> L12State:
+    """Zero synthesis FIFO for batch_size slots on ``device``."""
     return L12State(v_blocks=torch.zeros((batch_size, 2, 15, 64),
                                          dtype=torch.float32, device=device))
 
 
-def l12_state_from_jax(v_blocks, device="cpu") -> L12State:
+def l12_state_from_jax(v_blocks, device) -> L12State:
     """L12State from the JAX package's (numpy [B,2,15,64], e.g. a
-    checkpoint its L12StreamDecoder saved)."""
+    checkpoint its L12StreamDecoder saved), on ``device``."""
     return L12State(v_blocks=torch.from_numpy(
         np.array(v_blocks, dtype=np.float32, order="C")).to(device))
 

@@ -92,10 +92,13 @@ def back_half_step(xa, state, bt_eff, active, exact: bool,
                          out=out)
     ptr = [t.data_ptr() for t in (xa, bt_eff, active, state.store,
                                   state.v_blocks, out, prev3)]
-    stream = torch.cuda.current_stream(xa.device).cuda_stream
-    rc = lib.pdmp3_back_half(*ptr, table_ptrs(xa.device), B,
-                             int(bool(exact)), int(bool(raw)),
-                             C.c_void_p(stream))
+    # launched on the operands' device (the C entry point uses the
+    # current one)
+    with torch.cuda.device(xa.device):
+        stream = torch.cuda.current_stream(xa.device).cuda_stream
+        rc = lib.pdmp3_back_half(*ptr, table_ptrs(xa.device), B,
+                                 int(bool(exact)), int(bool(raw)),
+                                 C.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("back_half launch failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())

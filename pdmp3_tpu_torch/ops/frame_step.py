@@ -111,10 +111,13 @@ def frame_step(ix, scf_l, scf_s, meta, active, parities, state,
         ix, scf_l, scf_s, meta, active, is_pos if family else None,
         state.store, state.v_blocks, state.prev_lines, pcm)]
     bits = sum(int(p) << g for g, p in enumerate(parities))
-    stream = torch.cuda.current_stream(ix.device).cuda_stream
-    rc = lib.pdmp3_frame_fused(*ptr, table_ptrs(ix.device, family), B, ng,
-                               bits, int(bool(bug_compat)), int(family != 0),
-                               C.c_void_p(stream))
+    # launched on the operands' device (the C entry point uses the
+    # current one)
+    with torch.cuda.device(ix.device):
+        stream = torch.cuda.current_stream(ix.device).cuda_stream
+        rc = lib.pdmp3_frame_fused(*ptr, table_ptrs(ix.device, family), B,
+                                   ng, bits, int(bool(bug_compat)),
+                                   int(family != 0), C.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("frame_fused launch failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())

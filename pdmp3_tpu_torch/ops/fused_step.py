@@ -230,11 +230,14 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
     ptr = [None if t is None else t.data_ptr() for t in (
         ix, scf_l, scf_s, meta, active, is_pos if family else None,
         state.store, state.v_blocks, state.prev_lines, pcm)]
-    stream = torch.cuda.current_stream(ix.device).cuda_stream
-    rc = lib.pdmp3_fused_granule(*ptr, table_ptrs(ix.device, family), B,
-                                 int(gr1), int(bool(bug_compat)),
-                                 int(bool(exact)), int(family != 0),
-                                 C.c_void_p(stream))
+    # the C entry point launches on the current device: make it the
+    # operands' (its stream and per-device launch cache are that device's)
+    with torch.cuda.device(ix.device):
+        stream = torch.cuda.current_stream(ix.device).cuda_stream
+        rc = lib.pdmp3_fused_granule(*ptr, table_ptrs(ix.device, family),
+                                     B, int(gr1), int(bool(bug_compat)),
+                                     int(bool(exact)), int(family != 0),
+                                     C.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("fused_granule launch failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())

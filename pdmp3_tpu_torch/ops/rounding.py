@@ -104,9 +104,11 @@ def rounding_sweep_all(base: int, n: int, device) -> torch.Tensor:
     lib = _build.load()
     ld = row_stride(n)
     out = torch.empty((len(CONSTRUCTIONS), ld), dtype=_F32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.pdmp3_rounding_sweep(base, out.data_ptr(), n, ld,
-                                  C.c_void_p(stream))
+    # launched on `device` (the C entry point uses the current one)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pdmp3_rounding_sweep(base, out.data_ptr(), n, ld,
+                                      C.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("rounding_sweep launch failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())

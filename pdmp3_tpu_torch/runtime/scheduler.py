@@ -134,8 +134,10 @@ class _Pool:
         host = self._wires_t[self._cur][:self._upload_len()]
         if self.device.type == "cuda":
             wire = host.to(self.device, non_blocking=True)
+            # the fence goes on the stream the upload went to (the
+            # pool's device, which need not be the current one)
             ev = torch.cuda.Event()
-            ev.record()
+            ev.record(torch.cuda.current_stream(self.device))
             self._uploaded[self._cur] = ev
         else:
             wire = host
@@ -182,7 +184,7 @@ class _Pool:
         if self._drain_stream is None:
             self._drain_stream = torch.cuda.Stream(self.device)
         computed = torch.cuda.Event()
-        computed.record()
+        computed.record(torch.cuda.current_stream(pcm.device))
         host = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
         self._drain_stream.wait_event(computed)
         with torch.cuda.stream(self._drain_stream):

@@ -95,7 +95,7 @@ def test_frame_to_batches_equals_native_wire():
         feeder.step()
         assert dec.parse_step() == B
         w = TM.wire_sections(torch.from_numpy(dec.wire.copy()), B)
-        batches = TM.frame_to_batches([fds[t] for fds in per_stream])
+        batches = TM.frame_to_batches([fds[t] for fds in per_stream], "cpu")
         for gr, b in enumerate(batches):
             assert b.gr1 == gr and b.active.tolist() == [1] * B
             assert torch.equal(b.ix, w["ix"][gr])
@@ -119,11 +119,11 @@ def test_frame_to_batches_rejects_other_families():
     lsf = copy.deepcopy(fd)
     lsf.header.family = 1
     with pytest.raises(ValueError):
-        TM.frame_to_batches([fd, lsf])
+        TM.frame_to_batches([fd, lsf], "cpu")
     l12 = copy.deepcopy(fd)
     l12.sb_samples = np.zeros((2, 12, 32), np.float32)
     with pytest.raises(ValueError):
-        TM.frame_to_batches([l12])
+        TM.frame_to_batches([l12], "cpu")
     out = TorchDSP(device="cpu").decode_frame(l12)
     assert out.shape == (2, 576) and out.dtype == np.uint32
     assert not out.any()

@@ -36,7 +36,7 @@ def test_decode_frame_packed_matches_jax_pallas():
     B = len(streams)
     dec = StreamDecoder(B, device="cpu")   # only its native parse is used
     feeder = LoopFeeder(dec, streams)
-    st = TM.init_state(B)
+    st = TM.init_state(B, "cpu")
     pst = PSF.init_pallas_state(B)
     for _ in range(4):
         feeder.step()
@@ -51,7 +51,7 @@ def test_decode_frame_packed_matches_jax_pallas():
 
 
 def test_decode_frame_packed_rejects_wrong_wire():
-    st = TM.init_state(2)
+    st = TM.init_state(2, "cpu")
     total = TM.soa_layout(2)["total"]
     with pytest.raises(ValueError):
         TM.decode_frame_packed(torch.zeros(total - 2, dtype=torch.int16),
@@ -67,13 +67,13 @@ def test_state_from_pallas_and_from_jax_round_trip():
     store = rng.standard_normal((B, 2, 32, 18)).astype(np.float32)
     v = rng.standard_normal((B, 2, 15, 64)).astype(np.float32)
     prev = rng.standard_normal((B, 3)).astype(np.float32)
-    canon = TM.state_from_jax(store, v, prev)
+    canon = TM.state_from_jax(store, v, prev, "cpu")
     pst = PSF.state_to_pallas(JM.DecoderState(
         store=jnp.asarray(store), v_blocks=jnp.asarray(v),
         prev_lines=jnp.asarray(prev)))
     from_p = TM.state_from_pallas(np.asarray(pst.store_t),
                                   np.asarray(pst.v_t),
-                                  np.asarray(pst.prev_lines))
+                                  np.asarray(pst.prev_lines), "cpu")
     for s in (canon, from_p):
         np.testing.assert_array_equal(s.store.numpy(), store)
         np.testing.assert_array_equal(s.v_blocks.numpy(), v)
@@ -89,7 +89,7 @@ def test_state_from_pallas_and_from_jax_round_trip():
 
 
 def test_init_state_shapes():
-    s = TM.init_state(3)
+    s = TM.init_state(3, "cpu")
     assert s.store.shape == (3, 2, 32, 18)
     assert s.v_blocks.shape == (3, 2, 15, 64)
     assert s.prev_lines.shape == (3, 3)

@@ -63,7 +63,7 @@ def test_exact_step_matches_jax_exact_routes(route, bug_compat):
     B = len(frames)
     pst = PSF.init_pallas_state(B)
     xst = JM.init_state(B)
-    st = init_state(B)
+    st = init_state(B, "cpu")
     for t in range(3):
         for batch in JM.frame_to_batches([fr[t] for fr in frames]):
             pp, pst = PSF.decode_granules_pallas(
@@ -115,7 +115,7 @@ def test_band12_zero_bits_fixture_exact():
         fds.append(fd)
     assert len(fds) >= 2
     pst = PSF.init_pallas_state(1)
-    st = init_state(1)
+    st = init_state(1, "cpu")
     seen_zero = False
     for fd in fds:
         for batch in JM.frame_to_batches([fd]):

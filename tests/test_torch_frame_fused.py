@@ -52,7 +52,8 @@ def _random_states(B, seed):
         store_t=rng.randn(2, 18, 32, B).astype(np.float32),
         v_t=rng.randn(2, 15, 64, B).astype(np.float32),
         prev_lines=rng.randn(B, 3).astype(np.float32))
-    return pst, state_from_pallas(pst.store_t, pst.v_t, pst.prev_lines)
+    return pst, state_from_pallas(pst.store_t, pst.v_t, pst.prev_lines,
+                                  "cpu")
 
 
 def _clone(st):
@@ -91,7 +92,7 @@ def test_frame_step_bitwise_equals_granule_chain(steps):
     """One frame per call (parities (0, 1)) over 3 frames from a zero
     state: PCM [B, 1152, 2] and all state bitwise the chain's."""
     B = steps[0][0].ix.shape[0]
-    sf, sg = TM.init_state(B), TM.init_state(B)
+    sf, sg = TM.init_state(B, "cpu"), TM.init_state(B, "cpu")
     for t, frame in enumerate(steps):
         ops, parities, _ = _stack(frame)
         assert parities == (0, 1)
@@ -164,7 +165,8 @@ def test_decode_frame_soa_routes(steps, monkeypatch, ff):
     frames; exact frames stay per granule under the opt-in."""
     monkeypatch.setattr(TM, "_FRAME_FUSED", ff)
     B = steps[0][0].ix.shape[0]
-    st, sg, pst = TM.init_state(B), TM.init_state(B), PSF.init_pallas_state(B)
+    st, sg = TM.init_state(B, "cpu"), TM.init_state(B, "cpu")
+    pst = PSF.init_pallas_state(B)
     n0 = FR.LAUNCHES_FRAME
     for t, frame in enumerate(steps):
         ops, parities, _ = _stack(frame)
@@ -177,7 +179,7 @@ def test_decode_frame_soa_routes(steps, monkeypatch, ff):
                                            block_lanes=8)
         assert_pcm_contract(p.numpy(), np.asarray(pj), f"frame {t}")
         assert_state_close(st, pst, f"frame {t}")
-    se, sx = TM.init_state(B), TM.init_state(B)
+    se, sx = TM.init_state(B, "cpu"), TM.init_state(B, "cpu")
     ops, parities, _ = _stack(steps[0])
     pe, se = TM.decode_frame_soa(*ops[:4], ops[4][0], se, exact=True)
     for g in (0, 1):
@@ -198,9 +200,9 @@ def test_lsf_frame_step(family, family_frames):  # noqa: F811
           for t in range(2)]
     ops, parities, is_pos = _stack(jb, family)
     assert parities == (0, 0)
-    pf, sf = FR.frame_step(*ops, parities, TM.init_state(B), family=family,
-                           is_pos=is_pos)
-    pg, sg = _chain(ops, parities, TM.init_state(B), family, is_pos)
+    pf, sf = FR.frame_step(*ops, parities, TM.init_state(B, "cpu"),
+                           family=family, is_pos=is_pos)
+    pg, sg = _chain(ops, parities, TM.init_state(B, "cpu"), family, is_pos)
     assert pf.shape == (B, 2 * 576, 2)
     assert_bitwise(pf, sf, pg, sg)
     pj, pst = PSF.decode_frames_pallas(tuple(jb), PSF.init_pallas_state(B),
@@ -218,9 +220,9 @@ def test_decode_frames_stacks_batches(steps):
     granule batches equals frame_step on the stacked operands."""
     batches = _port_batches(steps[0])
     B = batches[0].ix.shape[0]
-    pd, sd = FR.decode_frames(batches, TM.init_state(B), (0, 1))
+    pd, sd = FR.decode_frames(batches, TM.init_state(B, "cpu"), (0, 1))
     ops, parities, _ = _stack(steps[0])
-    pf, sf = FR.frame_step(*ops, parities, TM.init_state(B))
+    pf, sf = FR.frame_step(*ops, parities, TM.init_state(B, "cpu"))
     assert_bitwise(pd, sd, pf, sf)
 
 
@@ -231,9 +233,9 @@ def test_desynchronised_gr1_raises(steps):
     batches = _port_batches(steps[0])
     B = batches[0].ix.shape[0]
     with pytest.raises(ValueError, match="parity"):
-        FR.decode_frames(batches, TM.init_state(B), (0, 0))
+        FR.decode_frames(batches, TM.init_state(B, "cpu"), (0, 0))
     with pytest.raises(ValueError, match="parity"):
-        FR.decode_frames(batches[::-1], TM.init_state(B), (0, 1))
+        FR.decode_frames(batches[::-1], TM.init_state(B, "cpu"), (0, 1))
 
 
 @pytest.mark.parametrize("bad", ["parity_value", "parity_count", "lsf_gr1",
@@ -253,7 +255,7 @@ def test_frame_step_rejects_malformed_operands(steps, bad):
     else:
         ops[3] = ops[3].to(torch.int16)
     with pytest.raises(ValueError):
-        FR.frame_step(*ops, parities, TM.init_state(B), **kw)
+        FR.frame_step(*ops, parities, TM.init_state(B, "cpu"), **kw)
 
 
 @pytest.mark.cuda

@@ -82,7 +82,7 @@ def test_ref_matches_jax_pallas_over_6_granules(bug_compat):
     frames = _frames(3)
     B = len(frames)
     pst = PSF.init_pallas_state(B)
-    st = init_state(B)
+    st = init_state(B, "cpu")
     for t in range(3):
         for batch in JM.frame_to_batches([frames[b][t] for b in range(B)]):
             pj, pst = PSF.decode_granules_pallas(
@@ -146,7 +146,7 @@ def test_band12_zero_bits_prev_lines_bit_pattern():
         fds.append(fd)
     assert len(fds) >= 2
     pst = PSF.init_pallas_state(1)
-    st = init_state(1)
+    st = init_state(1, "cpu")
     seen_zero = False
     for fd in fds:
         for batch in JM.frame_to_batches([fd]):
@@ -167,7 +167,7 @@ def test_step_rejects_malformed_operands(bad):
     frames = _frames(1)
     batch = JM.frame_to_batches([frames[b][0] for b in range(2)])[0]
     ix, scf_l, scf_s, meta, act, gr1 = wire_from_batch(batch)
-    st = init_state(2)
+    st = init_state(2, "cpu")
     if bad == "ix_dtype":
         ix = ix.to(torch.int32)
     elif bad == "meta_shape":
@@ -440,3 +440,67 @@ def test_k1_ragged_batches_and_idle_seams_on_cuda(n, pattern):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     check_ragged_seams(n, pattern, exact=False)
+
+
+# ---- several devices: shards of one card, and a second card ----
+
+def _clone(st):
+    return DecoderState(*(getattr(st, k).clone()
+                          for k in ("store", "v_blocks", "prev_lines")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True], ids=["fast", "exact"])
+def test_sharded_on_one_card_on_cuda(exact):
+    """decode_granules_sharded over two shards of one card (K1, or K2
+    when exact, once per shard) against the unsharded kernel step on the
+    same card, over granule 0 then 1: PCM, state and the clipped count
+    bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pdmp3_tpu_torch.models.decoder import GranuleBatch
+    from pdmp3_tpu_torch.parallel import (decode_granules_sharded,
+                                          make_mesh, place_batch,
+                                          place_state)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh([dev, dev])
+    grans, st = tiled_operands(2 * 37, dev)
+    shards = place_state(_clone(st), mesh)
+    attr = "LAUNCHES_EXACT" if exact else "LAUNCHES"
+    for ix, scf_l, scf_s, meta, act, gr1 in grans:
+        batch = GranuleBatch(ix, scf_l, scf_s, meta, act, gr1)
+        n0 = getattr(FS, attr)
+        pcms, shards, clipped = decode_granules_sharded(
+            place_batch(batch, mesh), shards, mesh, exact=exact)
+        assert getattr(FS, attr) == n0 + 2
+        pk, st = FS.fused_granule_step(ix, scf_l, scf_s, meta, act, gr1, st,
+                                       exact=exact)
+        assert torch.equal(torch.cat(pcms), pk) and pk.any()
+        for name in ("store", "v_blocks", "prev_lines"):
+            got = torch.cat([getattr(s, name) for s in shards])
+            assert torch.equal(got.view(torch.int32),
+                               getattr(st, name).view(torch.int32)), name
+        assert int(clipped) == int(((pk == 32767) | (pk == -32767)).sum())
+
+
+@pytest.mark.cuda
+def test_k1_on_a_device_that_is_not_current_on_cuda():
+    """K1 on operands on cuda:1 while cuda:0 is the current device: the
+    wrapper launches under the operands' device guard, so the step runs
+    on cuda:1 and is bitwise its plain version there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        grans, sk = tiled_operands(300, dev)
+        sr = _clone(sk)
+        for ops in grans:
+            n0 = FS.LAUNCHES
+            pk, sk = FS.fused_granule_step(*ops, sk)
+            assert FS.LAUNCHES == n0 + 1 and pk.device == dev
+            pr, sr = FS.fused_granule_step_ref(*ops, sr)
+            assert torch.equal(pk, pr) and pk.any()
+            for name in ("store", "v_blocks", "prev_lines"):
+                assert torch.equal(getattr(sk, name).view(torch.int32),
+                                   getattr(sr, name).view(torch.int32)), name
+        assert torch.cuda.current_device() == 0

@@ -119,7 +119,7 @@ def test_l12_batched_equals_per_stream():
     streams.append(_frames(mp3gen.make_l12_stream(
         layer=2, n_frames=2, seed=9, mode=3, bitrate_index=8)))
     B = len(streams)
-    state = L.init_l12_state(B)
+    state = L.init_l12_state(B, "cpu")
     got = [[] for _ in range(B)]
     for t in range(max(len(s) for s in streams)):
         fds = [s[t] if t < len(s) else None for s in streams]

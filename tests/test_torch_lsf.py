@@ -237,7 +237,7 @@ def test_lsf_fast_step_matches_jax_pallas(family, family_frames):
     streams = family_frames[family]
     B = len(streams)
     pst = PSF.init_pallas_state(B)
-    st = init_state(B)
+    st = init_state(B, "cpu")
     for t in range(N_FRAMES):
         batch = JM.frame_to_batches([fds[t] for fds in streams])[0]
         pj, pst = PSF.decode_granules_pallas(batch, pst, exact=False,
@@ -265,7 +265,7 @@ def test_lsf_exact_step_matches_jax_exact_routes(family, route,
     B = len(streams)
     xst = JM.init_state(B)
     pst = PSF.init_pallas_state(B)
-    st = init_state(B)
+    st = init_state(B, "cpu")
     for t in range(N_FRAMES):
         batch = JM.frame_to_batches([fds[t] for fds in streams])[0]
         px, xst = JM.decode_granules(batch, xst, exact=True, family=family)
@@ -303,7 +303,7 @@ def test_lsf_step_rejects_malformed_operands(bad, family_frames):
     else:
         kw["is_pos"] = ip[:, :61].contiguous()
     with pytest.raises(ValueError):
-        FS.fused_granule_step(*ops, init_state(ops[0].shape[0]), **kw)
+        FS.fused_granule_step(*ops, init_state(ops[0].shape[0], "cpu"), **kw)
 
 
 # ---- serving -------------------------------------------------------------
@@ -440,7 +440,7 @@ def test_lsf_frame_to_batches_equals_native_wire():
         assert dec.parse_step() == B
         w = TM.wire_sections_lsf(torch.from_numpy(dec.wire.copy()), B)
         w = {k: v if k == "active" else v[0] for k, v in w.items()}
-        (b,) = TM.frame_to_batches([fds[t] for fds in per])
+        (b,) = TM.frame_to_batches([fds[t] for fds in per], "cpu")
         assert b.gr1 == 0 and b.family == 1
         assert torch.equal(b.ix, w["ix"])
         np.testing.assert_array_equal(b.meta.numpy(),

@@ -2,8 +2,9 @@
 ``chip_smoke.py`` imports names JAX or the JAX package, the port runs in
 an interpreter that cannot import either, and its copies of the JAX
 package's JAX-free layers (tables, the native host library, the stream
-generator, the metadata layer, the WAV writer) give the same numbers
-and bytes as the originals.
+generator, the metadata layer, the WAV writer, the run-time
+configuration, the debug dumps) give the same numbers and bytes as the
+originals.
 
 Tolerance: none; every comparison is equality.
 """
@@ -148,11 +149,13 @@ def test_host_sources_are_copies(rel):
                        REPO / "pdmp3_tpu_torch/host" / rel, shallow=False)
 
 
-@pytest.mark.parametrize("rel", ["metadata.py", "utils/wav.py"])
+@pytest.mark.parametrize("rel", ["metadata.py", "utils/wav.py",
+                                 "utils/config.py", "utils/dumps.py"])
 def test_jax_free_modules_are_copies(rel):
     """The stream metadata layer (tags, frame index, seek plans, gapless
-    bounds) and the WAV writer are byte-identical copies: their lazy
-    imports (tables, frontend, host) resolve to the port's own copies."""
+    bounds), the WAV writer, the run-time configuration and the debug
+    dumps are byte-identical copies: their imports (tables, frontend,
+    host) resolve to the port's own copies."""
     assert filecmp.cmp(REPO / "pdmp3_tpu" / rel,
                        REPO / "pdmp3_tpu_torch" / rel, shallow=False)
 
