@@ -9,7 +9,11 @@ granule per launch and one frame per launch, dense and sparse wire, S16
 and float PCM; Layer I/II pools, mid-stream joins, the resampler and
 batched and offline file decode; sharded pools over shards of the card,
 two processes serving one pool over torch.distributed, and the entry
-step, in twenty-three phases; any failure exits non-zero.  The kernels
+step; then the port's tools (``pdmp3_tpu_torch/tools/``) at their real
+sizes: the serving diff, the 102,400-slot scale simulation, the wire
+profile, a four-rank soak, the parse sweep, the resample sweep and the
+differential soak; thirty phases in all, and any failure exits
+non-zero.  The kernels
 are built here from ``pdmp3_tpu_torch/csrc`` and the port's native host
 library from ``pdmp3_tpu_torch/host/src``.
 
@@ -131,7 +135,40 @@ library from ``pdmp3_tpu_torch/host/src``.
 24. the entry step: ``entry.entry("cuda")``'s step launches K1 once and
     equals its plain version bitwise; ``entry.dryrun_multichip(4,
     "cuda")`` (MPEG-1, MPEG-2 and Layer II over four shards of the card
-    against their unsharded steps) passes.
+    against their unsharded steps) passes;
+25. the serving diff (``tools.serving_diff``): 512 random MPEG-1 streams
+    (the JAX tool's generator and seed base) drip-fed into
+    ``SparseStreamDecoder(512)``, fast (K1) then exact (K2), each stream
+    against native (and the reference binary where it builds): exact 0
+    LSB on every stream, fast <= 1 LSB on < 1%, each kernel twice per
+    step;
+26. the scale simulation (``tools.scale_sim``): ``BASELINE.json``
+    configs[4]'s 100k-stream step at 102,400 slots over 8 shards of the
+    card, 3 timed K1 steps on every shard, slots 0-3, B/2, B/2+1, B-4
+    and B-1 bitwise against a 4-slot decode; step ms (CUDA events) and
+    peak memory;
+27. the wire profile (``tools.wire_profile``): dense against sparse
+    wire at B on phase 3's streams, parse / upload / decode / drain per
+    step, wire bytes, the sparse bucket trajectory and two alternating
+    trials of the pipelined loop;
+28. a multi-process soak round (``tools.multihost_soak``) whose draw
+    gives four spawned ranks on the card, exact (K2), every slot bitwise
+    against native; a failed or late rank kills the others and fails
+    the run;
+29. the parse sweep (``tools.parse_scaling``): the native parse
+    benchmark at 8,192 slots, 1 s at 1, 2, 4, ... threads up to the
+    host's cores, its stage split, the serving loop's parse rate, and
+    the cores that feed the card at phase 2's K1 rate;
+30. the resample sweep (``tools.resample_sweep``): every pair on the
+    card at >= 85 dB passband SNR, with its ripple;
+31. the differential soak (``tools.soak``): 64 format-matrix streams,
+    native against the oracle (and the reference where it builds),
+    every 16th stream also ``TorchDSP(exact=True)`` on the card (K4).
+
+The trace tools (``tools.drain_trace``, ``tools.kernel_trace``) and the
+fuzzer (``tools.fuzz``) run as their own commands, not here: a
+``torch.profiler`` session in a process that has run other work loses
+launches on this card.
 
 Each phase's wall seconds are printed before the kernels' line.
 
@@ -260,6 +297,26 @@ RANKS = 2
 RANK_TIMEOUT_S = 300
 # phase 24: shards of dryrun_multichip's mesh
 DRYRUN_SHARDS = 4
+# phases 25-31 run the port's tools (pdmp3_tpu_torch/tools/): the serving
+# diff's streams and seed base, the scale simulation's slots, shards and
+# steps (BASELINE.json configs[4]), the wire profile's blocked steps,
+# pipelined seconds and alternating trials, the multi-process soak's
+# ranks, the parse sweep's slots and seconds per thread count, and the
+# soak's streams and TorchDSP cadence
+DIFF_STREAMS = 512
+DIFF_SEED_BASE = 300000
+SCALE_SLOTS = 102400
+SCALE_SHARDS = 8
+SCALE_STEPS = 3
+WIRE_STEPS = 8
+WIRE_E2E_S = 2.0
+WIRE_TRIALS = 2
+WIRE_TRIAL_S = 1.5
+SOAK_RANKS = 4
+PARSE_SLOTS = 8192
+PARSE_SECONDS = 1.0
+SOAK_STREAMS = 64
+SOAK_TORCH_EVERY = 16
 # wall seconds per phase (phase name -> seconds)
 PHASE_SECONDS = {}
 
@@ -269,32 +326,27 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def _counters() -> dict:
-    """kernel name -> (module, attribute) of its wrapper's launch count."""
-    from pdmp3_tpu_torch.ops import back_half as BH
-    from pdmp3_tpu_torch.ops import frame_step as FR
-    from pdmp3_tpu_torch.ops import fused_step as FS
-    from pdmp3_tpu_torch.ops import rounding as R
-    return {"fused_granule": (FS, "LAUNCHES"),
-            "fused_granule_exact": (FS, "LAUNCHES_EXACT"),
-            "fused_granule_lsf": (FS, "LAUNCHES_LSF"),
-            "fused_granule_lsf_exact": (FS, "LAUNCHES_LSF_EXACT"),
-            "back_half": (BH, "LAUNCHES"),
-            "back_half_raw": (BH, "LAUNCHES_RAW"),
-            "rounding_sweep": (R, "LAUNCHES"),
-            "frame_fused": (FR, "LAUNCHES_FRAME"),
-            "frame_fused_lsf": (FR, "LAUNCHES_FRAME_LSF")}
-
-
 def reset_launch_counts() -> None:
-    for mod, attr in _counters().values():
+    from pdmp3_tpu_torch.tools import counters
+
+    for mod, attr in counters().values():
         setattr(mod, attr, 0)
+
+
+def launched() -> dict:
+    """The launches since the last reset, by kernel, only those with
+    any."""
+    from pdmp3_tpu_torch.tools import launches
+
+    return {k: n for k, n in launches().items() if n}
 
 
 def launch_counts(path: str, kernel: str) -> int:
     """The launches of `kernel` since the last reset; every other kernel
     must have launched no time on the path."""
-    counts = {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+    from pdmp3_tpu_torch.tools import launches
+
+    counts = launches()
     others = {k: n for k, n in counts.items() if k != kernel and n}
     check(not others, f"{path}: launched {others} beside {kernel}")
     return counts[kernel]
@@ -1338,7 +1390,9 @@ def phase_profile(streams: list[bytes], dev) -> dict:
 def check_no_launches(path: str) -> None:
     """No kernel launched since the last reset (a path of plain PyTorch
     ops: Layer I/II synthesis, the resampler)."""
-    counts = {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+    from pdmp3_tpu_torch.tools import launches
+
+    counts = launches()
     check(not any(counts.values()), f"{path}: launched {counts}")
 
 
@@ -1927,14 +1981,137 @@ def phase_entry(dev) -> dict:
               f"phase 24: the entry step's {name} differs")
     reset_launch_counts()
     dryrun_multichip(DRYRUN_SHARDS, "cuda")
-    counts = {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()
-              if getattr(mod, attr)}
+    counts = launched()
     want_counts = {"fused_granule": DRYRUN_SHARDS + 1,
                    "fused_granule_lsf": DRYRUN_SHARDS + 1}
     check(counts == want_counts, f"phase 24: dryrun_multichip launched "
                                  f"{counts}, want {want_counts}")
     return {"entry_pcm_shape": list(pcm.shape), "entry_k1_launches": 1,
             "dryrun_shards": DRYRUN_SHARDS, "dryrun_launches": counts}
+
+
+def phase_serving_diff(dev) -> dict:
+    """Phase 25: tools.serving_diff over DIFF_STREAMS random streams, fast
+    (K1) then exact (K2) through SparseStreamDecoder, each stream against
+    native (and the reference where it builds): exact 0 LSB, fast <= 1
+    LSB on < 1%, each kernel twice per step (the tool checks all of
+    it)."""
+    from pdmp3_tpu_torch.tools import serving_diff
+
+    reset_launch_counts()
+    res = serving_diff.run(DIFF_STREAMS, DIFF_SEED_BASE, dev)
+    ran = launched()
+    check(res["exact"]["native"]["worst_lsb"] == 0
+          and res["fast"]["native"]["worst_lsb"] <= MAX_LSB,
+          f"phase 25: {res}")
+    check(ran == {"fused_granule": 2 * res["fast"]["steps"],
+                  "fused_granule_exact": 2 * res["exact"]["steps"]},
+          f"phase 25: launched {ran}")
+    return {**res, "launches": ran}
+
+
+def phase_scale_sim(dev) -> dict:
+    """Phase 26: tools.scale_sim at SCALE_SLOTS slots over SCALE_SHARDS
+    shards of the card, SCALE_STEPS timed steps of K1 on every shard;
+    every slot's PCM and state bitwise against the plain version on the
+    four archetypes, tiled (the tool checks)."""
+    from pdmp3_tpu_torch.tools import scale_sim
+
+    reset_launch_counts()
+    res = scale_sim.run(SCALE_SLOTS, SCALE_SHARDS, SCALE_STEPS, dev)
+    ran = launched()
+    # the warm-up and timed steps on every shard
+    want = (SCALE_STEPS + 1) * SCALE_SHARDS
+    check(ran == {"fused_granule": want}, f"phase 26: launched {ran}, "
+                                          f"want {want} K1")
+    return {**res, "launches": ran}
+
+
+def phase_wire_profile(streams: list[bytes], dev) -> dict:
+    """Phase 27: tools.wire_profile, dense against sparse wire at B on
+    phase 3's streams: stages, bytes, buckets, WIRE_TRIALS alternating
+    trials of the pipelined loop; K1 twice per decode step the tool
+    ran."""
+    from pdmp3_tpu_torch.tools import wire_profile
+
+    reset_launch_counts()
+    res = wire_profile.run(streams, B, WIRE_STEPS, WIRE_E2E_S, WIRE_TRIALS,
+                           WIRE_TRIAL_S, dev)
+    ran = launched()
+    want = {"fused_granule": 2 * res["decode_steps"]}
+    check(ran == want, f"phase 27: launched {ran}, want {want}")
+    return {**res, "launches": ran}
+
+
+def phase_multihost_soak() -> dict:
+    """Phase 28: one tools.multihost_soak round whose draw gives
+    SOAK_RANKS ranks, spawned on the card, exact (K2), every slot
+    bitwise against native; a rank that fails or outlives RANK_TIMEOUT_S
+    fails the run, the others killed (the tool checks)."""
+    from pdmp3_tpu_torch.tools import multihost_soak
+
+    seed = multihost_soak.seed_with_procs(SOAK_RANKS)
+    res = multihost_soak.run_round(seed, "cuda", RANK_TIMEOUT_S)
+    check(res["ok"] and res["procs"] == SOAK_RANKS, f"phase 28: {res}")
+    # each rank counts its own launches (its own process): K2 twice per
+    # step with an active local slot, and nothing else
+    for r in res["ranks"]:
+        want = {"fused_granule_exact": 2 * r["steps_with_work"]}
+        check(r["steps_with_work"] > 0 and r["launches"] == want,
+              f"phase 28: rank {r['rank']} launched {r['launches']}, "
+              f"want {want}")
+    ran = sum(r["launches"]["fused_granule_exact"] for r in res["ranks"])
+    return {**res, "launches": {"fused_granule_exact": ran}}
+
+
+def phase_parse_scaling(dev, k1_ms: float) -> dict:
+    """Phase 29: tools.parse_scaling at PARSE_SLOTS slots, PARSE_SECONDS
+    per thread count (1, 2, 4, ... up to the host's cores), the stage
+    split, the serving loop's parse, and cores_to_saturate_card from
+    phase 2's K1 device time."""
+    import os
+
+    from pdmp3_tpu_torch.tools import parse_scaling
+
+    reset_launch_counts()
+    res = parse_scaling.run(
+        PARSE_SLOTS, PARSE_SECONDS,
+        parse_scaling.thread_counts(os.cpu_count() or 1), 1, dev,
+        k1_device_ms=k1_ms)
+    check_no_launches("phase 29")
+    check(res["cores_to_saturate_card"] is not None
+          and res["per_core_frames_per_sec"] > 0, f"phase 29: {res}")
+    return res
+
+
+def phase_resample_sweep(dev) -> dict:
+    """Phase 30: tools.resample_sweep over every pair on the card, each
+    at >= 85 dB passband SNR (the tool checks)."""
+    from pdmp3_tpu_torch.tools import resample_sweep
+
+    reset_launch_counts()
+    res = resample_sweep.run(resample_sweep.PAIRS, dev)
+    check_no_launches("phase 30")
+    check(res["worst_snr_db"] >= resample_sweep.BAR_DB, f"phase 30: {res}")
+    return res
+
+
+def phase_soak(dev) -> dict:
+    """Phase 31: tools.soak over SOAK_STREAMS format-matrix streams,
+    native and oracle (and the reference where it builds), every
+    SOAK_TORCH_EVERY-th stream also TorchDSP(exact) on the card (K4)."""
+    import tempfile
+
+    from pdmp3_tpu_torch.tools import soak
+
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = soak.run(0, SOAK_STREAMS, "mpeg1", SOAK_TORCH_EVERY, dev, tmp)
+    ran = launched()
+    check(not res["failures"] and res["tally"]["ok"] > 0, f"phase 31: "
+          f"{res['failures'][:3]}")
+    check(set(ran) == {"back_half"}, f"phase 31: launched {ran}")
+    return {**res, "launches": ran}
 
 
 def phase_correctness(pcm: np.ndarray, watch: list[int],
@@ -2175,6 +2352,33 @@ def main() -> int:
     en = phase_entry(dev)
     print("phase 24 entry step and dry run:", json.dumps(en))
     lap("phase 24")
+    sd = phase_serving_diff(dev)
+    print("phase 25 serving diff:", json.dumps(sd))
+    lap("phase 25")
+    sc = phase_scale_sim(dev)
+    print("phase 26 scale simulation:", json.dumps(sc))
+    lap("phase 26")
+    wp = phase_wire_profile(streams, dev)
+    print("phase 27 wire profile:", json.dumps(wp))
+    lap("phase 27")
+    mh = phase_multihost_soak()
+    print("phase 28 multi-process soak:", json.dumps(mh))
+    lap("phase 28")
+    ps = phase_parse_scaling(dev, k1["kernel_ms"])
+    print("phase 29 parse scaling:", json.dumps(ps))
+    lap("phase 29")
+    rsw = phase_resample_sweep(dev)
+    print("phase 30 resample sweep:", json.dumps(rsw))
+    lap("phase 30")
+    so = phase_soak(dev)
+    print("phase 31 soak:", json.dumps(so))
+    lap("phase 31")
+    # phases 25-31's launches of K1, K2 and K4
+    tools_k1 = sum(r["launches"].get("fused_granule", 0)
+                   for r in (sd, sc, wp))
+    tools_k2 = (sd["launches"]["fused_granule_exact"]
+                + mh["launches"]["fused_granule_exact"])
+    tools_k4 = so["launches"]["back_half"]
     # phases 22-24's launches of K1, K2 and K3
     more = {
         "fused_granule": sum(sh["mpeg1_fast"]["launches"].values())
@@ -2230,24 +2434,29 @@ def main() -> int:
     k4e, k4f = k4["exact"], k4["fast"]
     print(json.dumps({"kernels": [
         entry("fused_granule", "fused_granule.cu",
-              m["kernel_launches"] + more["fused_granule"],
+              m["kernel_launches"] + more["fused_granule"] + tools_k1,
               k1["pcm_max_lsb"], k1, k1, launch=k1["launch"],
               launches_phases_22_24=more["fused_granule"],
+              launches_phases_25_31=tools_k1,
               k5_ng1_ms=k5[0]["ng1_ab_interleaved"]["k5_ng1_ms"],
               k1_over_k5_ng1=k5[0]["ng1_ab_interleaved"]["k1_over_k5_ng1"]),
         entry("fused_granule_exact", "fused_granule.cu",
-              me["exact_kernel_launches"] + more["fused_granule_exact"],
+              me["exact_kernel_launches"] + more["fused_granule_exact"]
+              + tools_k2,
               k2["pcm_max_lsb"], k2, k2, launch=k2["launch"],
-              launches_phases_22_24=more["fused_granule_exact"]),
+              launches_phases_22_24=more["fused_granule_exact"],
+              launches_phases_25_31=tools_k2),
         lsf_entry(False),
         lsf_entry(True),
         entry("back_half", "back_half.cu",
-              api["k4_launches"] + fp["exact"]["exact_float_kernel_launches"],
+              api["k4_launches"] + fp["exact"]["exact_float_kernel_launches"]
+              + tools_k4,
               max(k4e["max_abs_err"], k4f["max_abs_err"]), k4e, k4,
               launches_by_path={
                   "per_stream_decode_file": api["k4_launches"],
                   "float_pcm_exact_serving":
-                  fp["exact"]["exact_float_kernel_launches"]},
+                  fp["exact"]["exact_float_kernel_launches"],
+                  "soak_torch_dsp_phase_31": tools_k4},
               ms_fast=k4f["kernel_ms"],
               burst_ms_fast=k4f["kernel_burst_ms"],
               per_call_ms_fast=k4f["kernel_per_call_ms"],

@@ -13,7 +13,7 @@ import ctypes as C
 
 import numpy as np
 
-from .build import ensure_built
+from .build import cli_bin, ensure_built
 
 _lib = None
 
@@ -230,3 +230,7 @@ def native_decode_file(data: bytes, chunk: int = 4096,
             pos += chunk
     return b"".join(out)
 
+
+def cli_path() -> str:
+    """The port's native ``pdmp3`` CLI, built on first use."""
+    return cli_bin()

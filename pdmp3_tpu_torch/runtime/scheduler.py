@@ -131,16 +131,27 @@ class _Pool:
         was active."""
         if not self.active.any():
             return None
+        pcm = self.advance(self.upload())
+        return pcm.cpu().numpy() if fetch else pcm
+
+    def upload(self):
+        """A step's first part: the current buffer's parsed wire on the
+        pool's device (on CUDA an asynchronous copy, fenced so the host
+        writes that buffer again only once the copy has read it)."""
         host = self._wires_t[self._cur][:self._upload_len()]
-        if self.device.type == "cuda":
-            wire = host.to(self.device, non_blocking=True)
-            # the fence goes on the stream the upload went to (the
-            # pool's device, which need not be the current one)
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            self._uploaded[self._cur] = ev
-        else:
-            wire = host
+        if self.device.type != "cuda":
+            return host
+        wire = host.to(self.device, non_blocking=True)
+        # the fence goes on the stream the upload went to (the pool's
+        # device, which need not be the current one)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self._uploaded[self._cur] = ev
+        return wire
+
+    def advance(self, wire):
+        """A step's second part: decode `wire` (``upload``'s) and move
+        the pool to the next step; the step's PCM as a device tensor."""
         pcm, self.state = self._decode(wire)
         # swap to the other wire buffer for the next parse; carry this
         # step's active/meta over so post-decode queries keep working.
@@ -154,7 +165,7 @@ class _Pool:
         self.meta[:] = meta
         if self._resampler is not None:
             pcm = self._resampler(pcm)
-        return pcm.cpu().numpy() if fetch else pcm
+        return pcm
 
     def decode_step_pipelined(self):
         """decode_step with an asynchronous PCM drain: decodes this step,

@@ -2,7 +2,7 @@
 tests/test_jax_decoder.py (CONFIGS: 8 frames, seed 2): the per-stream
 route ``decode_file(stream, dsp=TorchDSP(...))`` on the CPU.
 
-- exact: byte-equal to ``pdmp3_tpu.testing.golden.reference_decode``;
+- exact: byte-equal to the port's ``testing.golden.reference_decode``;
 - fast: the fast contract, at most 1 LSB on fewer than 1% of samples
   (tests/test_jax_decoder.py:41-43).
 
@@ -15,10 +15,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from pdmp3_tpu.testing import golden
 from pdmp3_tpu_torch import TorchDSP
 from pdmp3_tpu_torch.api import decode_file
-from pdmp3_tpu_torch.testing import mp3gen
+from pdmp3_tpu_torch.testing import golden, mp3gen
 from test_jax_decoder import CONFIGS
 
 

@@ -141,23 +141,40 @@ def test_tables_copy_equals_the_jax_package_tables():
 @pytest.mark.parametrize("rel", ["include/pdmp3.h", "src/internal.h",
                                  "src/gen_tables.inc", "src/tables.cc",
                                  "src/frame.cc", "src/dsp.cc",
-                                 "src/api.cc"])
+                                 "src/api.cc", "src/main.cc",
+                                 "src/selftest.cc", "src/parsebench.cc",
+                                 "src/fuzz_main.cc"])
 def test_host_sources_are_copies(rel):
-    """The port's host library is built from byte-identical sources, so
-    its handle blobs (checkpoints) and its output are the JAX package's."""
+    """The port's host library and its drivers (the CLI, the threaded
+    selftest, the parse benchmark, the fuzzer) are built from
+    byte-identical sources, so its handle blobs (checkpoints) and its
+    output are the JAX package's."""
     assert filecmp.cmp(REPO / "pdmp3_tpu/host" / rel,
                        REPO / "pdmp3_tpu_torch/host" / rel, shallow=False)
 
 
 @pytest.mark.parametrize("rel", ["metadata.py", "utils/wav.py",
-                                 "utils/config.py", "utils/dumps.py"])
+                                 "utils/config.py", "utils/dumps.py",
+                                 "testing/signals.py",
+                                 "testing/mpg123ref.py"])
 def test_jax_free_modules_are_copies(rel):
     """The stream metadata layer (tags, frame index, seek plans, gapless
-    bounds), the WAV writer, the run-time configuration and the debug
-    dumps are byte-identical copies: their imports (tables, frontend,
+    bounds), the WAV writer, the run-time configuration, the debug
+    dumps, the program material for real encoders and the libmpg123
+    binding are byte-identical copies: their imports (tables, frontend,
     host) resolve to the port's own copies."""
     assert filecmp.cmp(REPO / "pdmp3_tpu" / rel,
                        REPO / "pdmp3_tpu_torch" / rel, shallow=False)
+
+
+@pytest.mark.parametrize("name", ["av_oracle.c", "av_encode.c",
+                                  "av_encmux.c", "av_remux.c"])
+def test_av_sources_are_copies(name):
+    """The port's libav helpers (testing/avref.py) build from
+    byte-identical copies of the JAX package's tools/av_*.c."""
+    assert filecmp.cmp(REPO / "tools" / name,
+                       REPO / "pdmp3_tpu_torch/testing/csrc" / name,
+                       shallow=False)
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))
