@@ -12,8 +12,8 @@ two processes serving one pool over torch.distributed, and the entry
 step; then the port's tools (``pdmp3_tpu_torch/tools/``) at their real
 sizes: the serving diff, the 102,400-slot scale simulation, the wire
 profile, a four-rank soak, the parse sweep, the resample sweep and the
-differential soak; thirty phases in all, and any failure exits
-non-zero.  The kernels
+differential soak; then float PCM of the LSF families at the model
+level; thirty-one phases in all, and any failure exits non-zero.  The kernels
 are built here from ``pdmp3_tpu_torch/csrc`` and the port's native host
 library from ``pdmp3_tpu_torch/host/src``.
 
@@ -120,10 +120,13 @@ library from ``pdmp3_tpu_torch/host/src``.
     the unsharded pool's, the kernel launched per frame step twice per
     shard (MPEG-1) or once (MPEG-2), the watched slots against the
     native decoder; step_ms, device_replay_step_ms and loop_ms_per_step
-    of both pools (each pool's step between two synchronisations); and
-    ``decode_granules_sharded`` on a parsed granule at B with a random
-    state: PCM and state bitwise the unsharded K1 step's, the same
-    clipped count;
+    of both pools (each pool's step between two synchronisations); then
+    both pools on ``decode_step_pipelined`` in lockstep, every returned
+    step and the ``drain_pending`` flush bitwise equal, the launches
+    checked, and each pool's free-running pipelined and synchronous
+    loops timed in alternation; and ``decode_granules_sharded`` on a
+    parsed granule at B with a random state: PCM and state bitwise the
+    unsharded K1 step's, the same clipped count;
 23. two processes: two spawned ranks on cuda:0 joined by gloo over
     localhost TCP, each ``MultiHostStreamDecoder(8192, device="cuda:0",
     exact=True)`` over its 4,096 slots with half the host's cores as
@@ -163,7 +166,18 @@ library from ``pdmp3_tpu_torch/host/src``.
     card at >= 85 dB passband SNR, with its ripple;
 31. the differential soak (``tools.soak``): 64 format-matrix streams,
     native against the oracle (and the reference where it builds),
-    every 16th stream also ``TorchDSP(exact=True)`` on the card (K4).
+    every 16th stream also ``TorchDSP(exact=True)`` on the card (K4);
+32. LSF float PCM, per family and precision: K4 with raw sums (instance
+    7 exact, 8 fast) against its plain version on one natively parsed
+    LSF step's post-antialias spectra at B, at one slot and at the
+    ragged B = 2 x grid + 3 with idle slots at the seams of its slot
+    ring, bitwise, timed; then ``StreamDecoder(8192, family=f, exact=e)`` on phase
+    11's corpus, 2 warm-up and 10 timed steps, each step's uploaded
+    wire through ``decode_frame_packed_lsf(float_pcm=True)`` on a state
+    of its own (K4 once a step) before ``pool.advance`` decodes it with
+    K3 (once a step): every slot's trunc(pcm x 32767) equal to the S16
+    PCM (exact) or within 1.001/32767 of S16 / 32767 (fast), but at the
+    wrap; the float step and the S16 step timed with CUDA events.
 
 The trace tools (``tools.drain_trace``, ``tools.kernel_trace``) and the
 fuzzer (``tools.fuzz``) run as their own commands, not here: a
@@ -953,12 +967,16 @@ def phase_back_half(fr: dict) -> dict:
     return res
 
 
-def phase_k4_raw(fr: dict) -> dict:
-    """Phase 17's kernel part: K4's fast raw-sums instance against its
-    plain version on granule 0's fast post-antialias spectra at B, at one
-    slot and at the ragged B = 2 x grid + 3 with idle slots at the seams
-    of its slot ring (grid - 1, grid, 2 grid - 1, 2 grid, the last),
-    bitwise; timed at B and at one slot; its launch geometry."""
+def phase_k4_raw(fr: dict, exact: bool = False, family: int = 0,
+                 phase: str = "phase 17") -> dict:
+    """K4 with raw sums (instance 8 fast, 7 exact) against its plain
+    version (back_half_step_ref(raw=True)) on granule 0's post-antialias
+    spectra of a parsed frame (an LSF frame's through the family's front
+    half: LSF gains, the intensity sidecar, full-spectrum MS) at B, at
+    one slot and at the ragged B = 2 x grid + 3 with idle slots at the
+    seams of its slot ring (grid - 1, grid, 2 grid - 1, 2 grid, the
+    last), bitwise; timed at B and at one slot; its launch geometry.
+    Phase 17's kernel part (MPEG-1, fast) and phase 32's."""
     from pdmp3_tpu_torch.ops import back_half as BH
     from pdmp3_tpu_torch.ops import dsp as D
     from pdmp3_tpu_torch.ops import fused_step as FS
@@ -967,32 +985,34 @@ def phase_k4_raw(fr: dict) -> dict:
     f = D.fields(args[3])
     bt = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
     act = fr["active"]
-    xa = D.front_half(*args[:4], 0, fr["st0"].prev_lines, False)
-    what = "phase 17: K4 fast raw sums"
-    res = compare_back_half(xa, fr["st0"], bt, act, False, what, raw=True)
+    xa = D.front_half(*args[:4], 0, fr["st0"].prev_lines, exact, True,
+                      family, fr["is_pos"])
+    what = f"{phase}: K4 " + ("exact" if exact else "fast raw sums")
+    res = compare_back_half(xa, fr["st0"], bt, act, exact, what, raw=True)
     one = (xa[:1], slot_state(fr["st0"], 1), bt[:1], act[:1])
-    res["one_slot"] = compare_back_half(*one, False, what + " one slot",
+    res["one_slot"] = compare_back_half(*one, exact, what + " one slot",
                                         raw=True)
-    launch = FS.granule_launch_info(xa.device, back_half=True, raw=True)
+    launch = FS.granule_launch_info(xa.device, exact, back_half=True,
+                                    raw=True)
     grid = launch["grid"]
     n = 2 * grid + 3
     ract = act[:n].clone()
     seams = [grid - 1, grid, 2 * grid - 1, 2 * grid, n - 1]
     ract[seams] = 0
     res["ragged"] = dict(batch_slots=n, idle_slots=seams, **compare_back_half(
-        xa[:n], clone_state(slot_state(fr["st0"], n)), bt[:n], ract, False,
+        xa[:n], clone_state(slot_state(fr["st0"], n)), bt[:n], ract, exact,
         f"{what} ragged B={n}", raw=True))
     res["launch"] = launch
     sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
     kernel_timing(res, functools.partial(BH.back_half_step, xa, sk, bt, act,
-                                         False, True))
+                                         exact, True))
     res["plain_ms"] = plain_ms(
-        lambda: BH.back_half_step_ref(xa, sr, bt, act, False, True))
+        lambda: BH.back_half_step_ref(xa, sr, bt, act, exact, True))
     s1, r1 = clone_state(one[1]), clone_state(one[1])
     kernel_timing(res["one_slot"], functools.partial(
-        BH.back_half_step, one[0], s1, one[2], one[3], False, True))
+        BH.back_half_step, one[0], s1, one[2], one[3], exact, True))
     res["one_slot"]["plain_ms"] = plain_ms(
-        lambda: BH.back_half_step_ref(one[0], r1, one[2], one[3], False,
+        lambda: BH.back_half_step_ref(one[0], r1, one[2], one[3], exact,
                                       True))
     res.update(back_half_bound(B, int((act != 0).sum())))
     res["one_slot_bound"] = back_half_bound(1, 1)
@@ -1226,6 +1246,95 @@ def phase_float_pcm(streams: list[bytes], dev, watch: list[int],
                              "float samples off the S16 PCM")
         res["exact" if exact else "fast"] = r
     return res
+
+
+def phase_lsf_float_pcm(lspecs: list[tuple[bytes, dict]], dev,
+                        family: int) -> dict:
+    """Phase 32 for one LSF family, fast and exact: K4's raw sums against
+    their plain version on the family's spectra (phase_k4_raw), then the
+    float LSF route at B beside the K3 pool (lsf_float_route)."""
+    streams = [d for d, _ in lspecs]
+    fr = parsed_frame(streams, dev, family)
+    res = {"exact" if exact else "fast": {"k4": phase_k4_raw(
+        fr, exact, family, f"phase 32 family {family}")}
+        for exact in (False, True)}
+    del fr
+    for exact in (False, True):
+        res["exact" if exact else "fast"].update(
+            lsf_float_route(streams, dev, family, exact))
+    return res
+
+
+def lsf_float_route(streams: list[bytes], dev, family: int,
+                    exact: bool) -> dict:
+    """The float LSF route at B beside the S16 pool: a StreamDecoder of
+    the family (K3) fed by LoopFeeder, WARMUP_STEPS + NEW_TIMED_STEPS
+    steps; each step's uploaded wire goes through
+    decode_frame_packed_lsf(float_pcm=True) on a state of its own (the
+    stage ops and K4, instance 7 exact or 8 fast, once a step) before
+    pool.advance decodes it with K3.  Every slot's float PCM against the
+    step's S16 PCM: exact trunc(pcm x 32767) equal, fast within FLOAT_TOL
+    of S16 / 32767, except at the wrap; both steps timed with CUDA events
+    on the uploaded wire."""
+    from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
+    from pdmp3_tpu_torch.models.decoder import (decode_frame_packed_lsf,
+                                                init_state,
+                                                wire_sections_lsf)
+
+    path = f"phase 32 family {family} exact={exact}"
+    k4 = "back_half" if exact else "back_half_raw"
+    k3 = "fused_granule_lsf" + ("_exact" if exact else "")
+    pool = StreamDecoder(B, family=family, exact=exact, device=dev)
+    feeder = LoopFeeder(pool, streams)
+    state = init_state(B, dev)
+    off = torch.zeros((), dtype=torch.int64, device=dev)
+    wraps = torch.zeros((), dtype=torch.int64, device=dev)
+    worst = torch.zeros((), dtype=torch.float32, device=dev)
+    events = []
+    steps = WARMUP_STEPS + NEW_TIMED_STEPS
+    reset_launch_counts()
+    for step in range(steps):
+        feeder.step()
+        check(pool.parse_step() == B, f"{path}: step {step}: a slot "
+                                      "starved")
+        wire = pool.upload()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        pf, state = decode_frame_packed_lsf(wire, state, B=B, family=family,
+                                            exact=exact, float_pcm=True)
+        ev[1].record()
+        pi = pool.advance(wire)
+        ev[2].record()
+        events.append(ev)
+        idle = wire_sections_lsf(wire, B)["active"] == 0
+        ref = pi.to(torch.int32)
+        # the wrap: a sum whose x32767 escapes int32 upwards saturates at
+        # +1 in float PCM and wraps to -32767 in S16
+        wrap = (ref == -32767) & (pf == 1)
+        d = (pf - ref.to(torch.float32) / 32767).abs()
+        if exact:
+            bad = torch.trunc(pf.double() * 32767).to(torch.int32) != ref
+        else:
+            bad = d > FLOAT_TOL
+        off += (bad & ~wrap).sum() + pf[idle].ne(0).sum() + \
+            pi[idle].ne(0).sum()
+        wraps += wrap.sum()
+        worst = torch.maximum(worst, d.masked_fill(wrap, 0).max())
+    torch.cuda.synchronize()
+    ran = launched()
+    check(ran == {k4: steps, k3: steps},
+          f"{path}: launched {ran}, want {k4} and {k3} {steps} times each")
+    check(int(off) == 0, f"{path}: {int(off)} float samples off the S16 "
+                         "PCM (or an idle slot audible)")
+    timed = events[WARMUP_STEPS:]
+    float_ms = float(np.median([e[0].elapsed_time(e[1]) for e in timed]))
+    s16_ms = float(np.median([e[1].elapsed_time(e[2]) for e in timed]))
+    return {"steps": NEW_TIMED_STEPS, "float_step_ms": float_ms,
+            "s16_step_ms": s16_ms, "float_over_s16_step": float_ms / s16_ms,
+            "compared_samples": steps * B * 576 * 2,
+            "wrap_samples": int(wraps),
+            "max_abs_vs_s16_over_32767": float(worst),
+            "launches": ran}
 
 
 def replay_ab(streams: list[bytes], dev) -> dict:
@@ -1695,7 +1804,9 @@ def sharded_route(path: str, specs: list[tuple[bytes, dict]], dev,
     (None: no kernel) launches per_frame times per shard and step; the
     watched slots of the sharded pool against the native decoder; the
     replay of each pool's last wire, interleaved (sharded, unsharded,
-    unsharded, sharded)."""
+    unsharded, sharded).  Then the pipelined drain (sharded_pipelined):
+    the pools in lockstep on decode_step_pipelined, and the free-running
+    loops timed."""
     from pdmp3_tpu_torch import LoopFeeder
 
     streams = [d for d, _ in specs]
@@ -1707,6 +1818,23 @@ def sharded_route(path: str, specs: list[tuple[bytes, dict]], dev,
     launches = {k: 0 for k in pools}
     kept = []
     steps = WARMUP_STEPS + NEW_TIMED_STEPS
+
+    def step_launches(k: str) -> int:
+        """The launches of `kernel` by pool k since the last reset."""
+        if kernel is None:
+            check_no_launches(f"{path} {k}")
+            return 0
+        return launch_counts(f"{path} {k}", kernel)
+
+    def check_launches(what: str, counts: dict, n_steps: int) -> None:
+        for k in pools:
+            want = per_frame * shards[k] * n_steps * (kernel is not None)
+            check(counts[k] == want,
+                  f"{path} {k} {what}: {counts[k]} {kernel} launches for "
+                  f"{n_steps} steps over {shards[k]} shards")
+            launches[k] += counts[k]
+
+    counts = {k: 0 for k in pools}
     for step in range(steps):
         order = sorted(pools, reverse=step % 2 == 1)
         out = {}
@@ -1725,20 +1853,13 @@ def sharded_route(path: str, specs: list[tuple[bytes, dict]], dev,
             torch.cuda.synchronize()
             loop_s[k].append(time.perf_counter() - t0)
             events[k].append((a, b))
-            if kernel is None:
-                check_no_launches(f"{path} {k}")
-            else:
-                launches[k] += launch_counts(f"{path} {k}", kernel)
+            counts[k] += step_launches(k)
             out[k] = torch.cat(pcm) if isinstance(pcm, list) else pcm
         check(torch.equal(out["sharded"], out["unsharded"]),
               f"{path}: step {step}: the sharded PCM differs from the "
               "unsharded pool's")
         kept.append(out["sharded"].index_select(0, sel))
-    for k in pools:
-        check(launches[k] == per_frame * shards[k] * steps * (kernel
-                                                              is not None),
-              f"{path} {k}: {launches[k]} {kernel} launches for {steps} "
-              f"steps over {shards[k]} shards")
+    check_launches("synchronous", counts, steps)
 
     def replay(k):
         dec = pools[k]
@@ -1763,6 +1884,106 @@ def sharded_route(path: str, specs: list[tuple[bytes, dict]], dev,
     res["sharded_over_unsharded_loop_ms"] = (
         res["sharded"]["loop_ms_per_step"]
         / res["unsharded"]["loop_ms_per_step"])
+    res["pipelined"] = sharded_pipelined(path, pools, feeders, step_launches,
+                                         check_launches)
+    return res
+
+
+def sharded_pipelined(path: str, pools: dict, feeders: dict, step_launches,
+                      check_launches) -> dict:
+    """Phase 22's pipelined drain for one route: both pools on
+    decode_step_pipelined in lockstep over WARMUP_STEPS + NEW_TIMED_STEPS
+    steps (the pool that goes first alternating), every call's PCM (the
+    previous step's; None first) and drain_pending's flush bitwise equal
+    between them, the launches checked; then each pool's free-running
+    loop of NEW_TIMED_STEPS steps, pipelined (one drain_pending at its
+    end) and synchronous (decode_step, which fetches every shard), in
+    the order sharded pipelined, sharded synchronous, unsharded
+    pipelined, unsharded synchronous and back: loop_ms_per_step on the
+    host clock from a synchronisation to the last PCM on the host, and
+    the part of it spent in parse_step; and host_concat_ms, the host
+    time of joining the shards' PCM into one new array (median of 5)."""
+    steps = WARMUP_STEPS + NEW_TIMED_STEPS
+    counts = {k: 0 for k in pools}
+    for step in range(steps + 1):
+        out = {}
+        for k in sorted(pools, reverse=step % 2 == 1):
+            reset_launch_counts()
+            if step < steps:
+                feeders[k].step()
+                check(pools[k].parse_step() == B,
+                      f"{path} {k} pipelined: a slot starved")
+                out[k] = pools[k].decode_step_pipelined()
+            else:
+                out[k] = pools[k].drain_pending()
+                check(pools[k].drain_pending() is None,
+                      f"{path} {k}: a second drain returned PCM")
+            counts[k] += step_launches(k)
+        if step == 0:
+            check(out["sharded"] is None and out["unsharded"] is None,
+                  f"{path}: the first pipelined call returned PCM")
+            continue
+        check(out["sharded"] is not None and np.array_equal(
+            out["sharded"], out["unsharded"]),
+            f"{path}: pipelined call {step} (the flush at {steps}): the "
+            "sharded PCM differs from the unsharded pool's")
+    check_launches("pipelined", counts, steps)
+    # the host copy that joins the shards' PCM (np.concatenate into a new
+    # array, as the sharded pool's fetch does), on the flush's halves
+    parts = np.array_split(out["sharded"], len(pools["sharded"].pools))
+    concat_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.concatenate(parts)
+        concat_s.append(time.perf_counter() - t0)
+
+    def loop(k: str, pipelined: bool) -> tuple[float, float]:
+        """(loop ms, of which parse_step ms) per step."""
+        dec = pools[k]
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        parse_s = 0.0
+        t0 = time.perf_counter()
+        for _ in range(NEW_TIMED_STEPS):
+            feeders[k].step()
+            t1 = time.perf_counter()
+            check(dec.parse_step() == B, f"{path} {k}: a slot starved")
+            parse_s += time.perf_counter() - t1
+            if pipelined:
+                dec.decode_step_pipelined()
+            else:
+                dec.decode_step()
+        if pipelined:
+            dec.drain_pending()
+        loop_s = time.perf_counter() - t0
+        timed[k] += step_launches(k)
+        return (loop_s / NEW_TIMED_STEPS * 1e3,
+                parse_s / NEW_TIMED_STEPS * 1e3)
+
+    timed = {k: 0 for k in pools}
+    order = [(k, p) for k in ("sharded", "unsharded") for p in (True, False)]
+    ms = {kp: [] for kp in order}
+    parse_ms = {kp: [] for kp in order}
+    for kp in order + order[::-1]:
+        loop_ms, p_ms = loop(*kp)
+        ms[kp].append(loop_ms)
+        parse_ms[kp].append(p_ms)
+    check_launches("timed loops", timed, 4 * NEW_TIMED_STEPS)
+    res = {"lockstep_calls": steps + 1, "steps_per_loop": NEW_TIMED_STEPS,
+           "trials": 2, "host_concat_ms": float(np.median(concat_s)) * 1e3,
+           "pcm_bytes_per_step": int(out["sharded"].nbytes)}
+    for k in pools:
+        res[k] = {"pipelined_loop_ms_per_step": ms[(k, True)],
+                  "sync_loop_ms_per_step": ms[(k, False)],
+                  "pipelined_parse_ms_per_step": parse_ms[(k, True)],
+                  "sync_parse_ms_per_step": parse_ms[(k, False)]}
+    mean = {kp: float(np.mean(v)) for kp, v in ms.items()}
+    res["sharded_over_unsharded_pipelined"] = (
+        mean[("sharded", True)] / mean[("unsharded", True)])
+    res["sharded_over_unsharded_sync"] = (
+        mean[("sharded", False)] / mean[("unsharded", False)])
+    res["sharded_pipelined_over_sync"] = (
+        mean[("sharded", True)] / mean[("sharded", False)])
     return res
 
 
@@ -2373,6 +2594,16 @@ def main() -> int:
     so = phase_soak(dev)
     print("phase 31 soak:", json.dumps(so))
     lap("phase 31")
+    lf = {}
+    for family in LSF_FAMILIES:
+        lf[family] = phase_lsf_float_pcm(lsf_specs[family], dev, family)
+        print(f"phase 32 LSF float PCM family {family}:",
+              json.dumps(lf[family]))
+    lap("phase 32")
+    # phase 32's K4 launches (instance 7 exact, 8 fast)
+    lf_k4 = {exact: sum(lf[f]["exact" if exact else "fast"]["launches"][
+        "back_half" if exact else "back_half_raw"] for f in LSF_FAMILIES)
+        for exact in (True, False)}
     # phases 25-31's launches of K1, K2 and K4
     tools_k1 = sum(r["launches"].get("fused_granule", 0)
                    for r in (sd, sc, wp))
@@ -2416,12 +2647,16 @@ def main() -> int:
             f: lsf_serving[(f, exact)][f"{pre}lsf{f}_kernel_launches"]
             for f in LSF_FAMILIES}
         r1 = k3[(1, exact)]
+        # phase 32's pools decode every step with K3 beside the float route
+        beside = sum(lf[f]["exact" if exact else "fast"]["launches"][name]
+                     for f in LSF_FAMILIES)
         return entry(name, "fused_granule.cu",
-                     sum(by_family.values()) + more[name],
+                     sum(by_family.values()) + more[name] + beside,
                      max(k3[(f, exact)]["pcm_max_lsb"]
                          for f in LSF_FAMILIES), r1, r1,
                      launch=r1["launch"], launches_by_family=by_family,
                      launches_phases_22_24=more[name],
+                     launches_phase_32=beside,
                      ms_by_family={f: k3[(f, exact)]["kernel_ms"]
                                    for f in LSF_FAMILIES},
                      plain_ms_by_family={f: k3[(f, exact)]["plain_ms"]
@@ -2450,13 +2685,18 @@ def main() -> int:
         lsf_entry(True),
         entry("back_half", "back_half.cu",
               api["k4_launches"] + fp["exact"]["exact_float_kernel_launches"]
-              + tools_k4,
-              max(k4e["max_abs_err"], k4f["max_abs_err"]), k4e, k4,
+              + tools_k4 + lf_k4[True],
+              max(k4e["max_abs_err"], k4f["max_abs_err"],
+                  *(lf[f]["exact"]["k4"]["max_abs_err"]
+                    for f in LSF_FAMILIES)), k4e, k4,
               launches_by_path={
                   "per_stream_decode_file": api["k4_launches"],
                   "float_pcm_exact_serving":
                   fp["exact"]["exact_float_kernel_launches"],
-                  "soak_torch_dsp_phase_31": tools_k4},
+                  "soak_torch_dsp_phase_31": tools_k4,
+                  "lsf_float_pcm_phase_32": lf_k4[True]},
+              ms_lsf_by_family={f: lf[f]["exact"]["k4"]["kernel_ms"]
+                                for f in LSF_FAMILIES},
               ms_fast=k4f["kernel_ms"],
               burst_ms_fast=k4f["kernel_burst_ms"],
               per_call_ms_fast=k4f["kernel_per_call_ms"],
@@ -2468,8 +2708,16 @@ def main() -> int:
               split_step_ms={"exact": k4e["split_step_ms"],
                              "fast": k4f["split_step_ms"]}),
         entry("back_half_raw", "back_half.cu",
-              fp["fast"]["float_kernel_launches"], k4r["max_abs_err"], k4r,
+              fp["fast"]["float_kernel_launches"] + lf_k4[False],
+              max(k4r["max_abs_err"], *(lf[f]["fast"]["k4"]["max_abs_err"]
+                                        for f in LSF_FAMILIES)), k4r,
               k4r, instance=8, launch=k4r["launch"],
+              launches_by_path={
+                  "float_pcm_fast_serving":
+                  fp["fast"]["float_kernel_launches"],
+                  "lsf_float_pcm_phase_32": lf_k4[False]},
+              ms_lsf_by_family={f: lf[f]["fast"]["k4"]["kernel_ms"]
+                                for f in LSF_FAMILIES},
               one_slot={**k4_times(k4r["one_slot"]),
                         **k4r["one_slot_bound"]},
               ragged=k4r["ragged"]["batch_slots"]),

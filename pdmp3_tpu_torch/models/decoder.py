@@ -14,10 +14,12 @@ Three routes:
   ``_FRAME_FUSED`` set, as one frame step (``ops.frame_step``, K5 on
   CUDA); an LSF frame as one granule step (K3 on CUDA), whose wire has
   no granule axis and one more section, the intensity sidecar;
-- float PCM (``float_pcm=True``, MPEG-1 serving): every granule on the
-  split route with raw sums (``ops.back_half.float_granule_step``: the
-  stage-op front half, K4 instance 7 exact or 8 fast, ``float_pack``),
-  since K1, K2 and K5 quantize inside their bodies;
+- float PCM (``float_pcm=True``: MPEG-1 serving, and every family in
+  ``decode_granules``, ``decode_frame_lsf_soa`` and
+  ``decode_frame_packed_lsf``): every granule on the split route with raw
+  sums (``ops.back_half.float_granule_step``: the stage-op front half, K4
+  instance 7 exact or 8 fast, ``float_pack``), since K1, K2, K3 and K5
+  quantize inside their bodies;
 - per stream: ``TorchDSP`` plugs into the port's streaming API
   (``pdmp3_tpu_torch.api``) and decodes parsed ``FrameData`` of either
   kind through ``frame_to_batches`` and ``decode_granules``, the split
@@ -124,14 +126,23 @@ def _batch_from_meta(ix, scf_l, scf_s, meta, active, gr: int
 
 
 def decode_granules(batch: GranuleBatch, state: DecoderState,
-                    exact: bool = True, bug_compat: bool = True):
+                    exact: bool = True, bug_compat: bool = True,
+                    float_pcm: bool = False, family: int | None = None):
     """One batched granule step on the split route
     (ops.back_half.split_granule_step): the stage-op front half, the back
     half (K4 on CUDA) and the pack.  Returns (pcm int16 [B,576,2], state
-    updated in place); the same bits as the fused step."""
-    return split_granule_step(batch.ix, batch.scf_l, batch.scf_s,
-                              batch.meta, batch.active, batch.gr1, state,
-                              bug_compat, exact, batch.family, batch.is_pos)
+    updated in place); the same bits as the fused step.  float_pcm=True
+    returns f32 [B,576,2] in [-1, 1] instead, zeros for idle slots
+    (ops.back_half.float_granule_step: K4's raw sums, dsp.float_pack), in
+    every family.  The batch carries its family; ``family``, the JAX
+    package's argument, must equal it when given (ValueError)."""
+    if family is not None and family != batch.family:
+        raise ValueError(f"family={family!r} but the batch is of family "
+                         f"{batch.family!r}")
+    step = float_granule_step if float_pcm else split_granule_step
+    return step(batch.ix, batch.scf_l, batch.scf_s, batch.meta,
+                batch.active, batch.gr1, state, bug_compat, exact,
+                batch.family, batch.is_pos)
 
 
 def frame_to_batches(fds, device) -> list[GranuleBatch]:
@@ -339,34 +350,37 @@ def wire_sections_lsf(buf, B: int, F: int = 1) -> dict:
 
 def decode_frame_lsf_soa(ix, scf_l, scf_s, meta, is_pos, active, state,
                          family: int, bug_compat: bool = True,
-                         exact: bool = False):
+                         exact: bool = False, float_pcm: bool = False):
     """Decode F LSF frames per slot, ONE granule step (a granule-0 step)
     each, from the wire's section tensors: ix int16 [F,B,2,576], scf_l
     int16 [F,B,2,22], scf_s int16 [F,B,2,39], meta [F,B,32], is_pos int16
-    [F,B,64], active [F,B]; family 1 or 2.  Returns (pcm int16
-    [B, F*576, 2], state updated in place)."""
+    [F,B,64], active [F,B]; family 1 or 2.  Each step is the fused one
+    (K3 on CUDA), or with float_pcm a float granule step (stage ops + K4
+    with raw sums on CUDA).  Returns (pcm int16 [B, F*576, 2], or f32 in
+    [-1, 1] with float_pcm; state updated in place)."""
     if family not in (1, 2):
         raise ValueError(f"LSF family must be 1 or 2, got {family!r}")
+    step = float_granule_step if float_pcm else fused_granule_step
     pcms = []
     for f in range(ix.shape[0]):
         b = _batch_from_meta(ix[f], scf_l[f], scf_s[f], meta[f], active[f],
                              0)
-        pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
-                                        b.active, 0, state, bug_compat,
-                                        exact, family, is_pos[f])
+        pcm, state = step(b.ix, b.scf_l, b.scf_s, b.meta, b.active, 0,
+                          state, bug_compat, exact, family, is_pos[f])
         pcms.append(pcm)
     return _join(pcms), state
 
 
 def decode_frame_packed_lsf(buf, state, B: int, family: int, F: int = 1,
-                            bug_compat: bool = True, exact: bool = False):
+                            bug_compat: bool = True, exact: bool = False,
+                            float_pcm: bool = False):
     """decode_frame_lsf_soa over the packed F-frame LSF wire, on the
-    decode device.  Returns (pcm int16 [B, F*576, 2], state updated in
-    place)."""
+    decode device.  Returns (pcm int16 [B, F*576, 2], f32 with float_pcm;
+    state updated in place)."""
     w = wire_sections_lsf(buf, B, F)
     return decode_frame_lsf_soa(w["ix"], w["scf_l"], w["scf_s"], w["meta"],
                                 w["is_pos"], w["active"].view(F, B), state,
-                                family, bug_compat, exact)
+                                family, bug_compat, exact, float_pcm)
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,12 @@ quantize, and with ``raw=True`` in fast mode too (the float-PCM route,
 (``_prev3``).
 
 ``float_granule_step`` is the float-PCM route of the JAX package's
-``decode_granules(float_pcm=True)`` (``pdmp3_tpu/models/decoder.py``):
-the stage-op front half, ``back_half_step(raw=True)``, ``dsp.float_pack``
-and the ``prev_lines`` latch.  K1, K2 and K5 quantize inside their
-bodies, so float PCM takes this split route on the card.
+``decode_granules(float_pcm=True)`` (``pdmp3_tpu/models/decoder.py``),
+for every family: the stage-op front half (the LSF families' gains,
+intensity sidecar and full-spectrum MS included),
+``back_half_step(raw=True)``, ``dsp.float_pack`` and the ``prev_lines``
+latch.  K1, K2, K3 and K5 quantize inside their bodies, so float PCM
+takes this split route on the card.
 
 ``split_granule_step`` is the split exact route of
 ``decode_granules_pallas`` (``pallas_step.py:1636-1666``), and in fast
@@ -153,15 +155,17 @@ def split_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
 
 
 def float_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
-                       bug_compat: bool = True, exact: bool = False):
-    """One MPEG-1 granule step with float PCM: split_granule_step's
-    contract, but the raw FIR sums (K4 instance 7 exact, 8 fast, on CUDA
-    tensors) packed by dsp.float_pack, f32 [B,576,2] in [-1, 1], zeros
-    for idle slots.  Float PCM serves MPEG-1 pools only, as in the JAX
+                       bug_compat: bool = True, exact: bool = False,
+                       family: int = 0, is_pos=None):
+    """One granule step with float PCM: split_granule_step's contract
+    (the LSF families included), but the raw FIR sums (K4 instance 7
+    exact, 8 fast, on CUDA tensors) packed by dsp.float_pack, f32
+    [B,576,2] in [-1, 1], zeros for idle slots.  Every family takes it
+    here; only the serving pools keep float PCM to MPEG-1, as in the JAX
     package."""
     out, prev3, nch = _split_back_half(ix, scf_l, scf_s, meta, active, gr1,
-                                       state, bug_compat, exact, 0, None,
-                                       True)
+                                       state, bug_compat, exact, family,
+                                       is_pos, True)
     pcm = D.float_pack(out.view(-1, 2, 18, 32), nch, active)
     latch_prev(state, active, gr1, prev3)
     return pcm, state

@@ -16,8 +16,10 @@ The surface is the pool's, over global slots: ``feed``,
 ``parse_step`` parses every shard (one native call each) and sums their
 counts; ``active`` and ``meta`` are global snapshots; ``decode_step``
 launches every shard's step before it reads any PCM on the host;
-checkpoints are the canonical unsharded layout, so one resumes in an
-unsharded pool (of this port or of the JAX package) and back.  ``n``
+``decode_step_pipelined`` / ``drain_pending`` return the previous step's
+PCM, each shard's copied by its own pool's drain; checkpoints are the
+canonical unsharded layout, so one resumes in an unsharded pool (of this
+port or of the JAX package) and back.  ``n``
 and ``_handle_arr`` span every shard's handles in slot order, so
 ``LoopFeeder`` feeds a sharded pool as it feeds any pool.
 
@@ -55,6 +57,9 @@ class _ShardedPool:
         self._handle_arr = (C.c_void_p * n_slots)(
             *[h._h for h in self.handles])
         self._views = None
+        # the pipelined drain: per shard, its pool's copy of the previous
+        # step's PCM in flight
+        self._pending = None
 
     def _route(self, slot: int):
         """(the slot's pool, its slot there)."""
@@ -122,6 +127,32 @@ class _ShardedPool:
         if not fetch:
             return pcms
         return np.concatenate([pcm.cpu().numpy() for pcm in pcms])
+
+    def decode_step_pipelined(self):
+        """decode_step with an asynchronous PCM drain (the pools'
+        contract): decodes this step on every shard, starts the copy of
+        each shard's PCM to the host without waiting for it, and returns
+        the PREVIOUS step's PCM as numpy [B, ...] in slot order (None on
+        the first call or after a step in which no shard was active).
+        Each shard's copy is its own pool's: on CUDA a side stream of the
+        shard's device into pinned host memory."""
+        pcms = self.decode_step(fetch=False)
+        prev = self._pending
+        self._pending = None if pcms is None else [
+            p._drain(pcm) for p, pcm in zip(self.pools, pcms)]
+        return self._fetch(prev)
+
+    def drain_pending(self):
+        """The last pipelined step's PCM (the flush at the end of the
+        streams), or None."""
+        prev, self._pending = self._pending, None
+        return self._fetch(prev)
+
+    def _fetch(self, pending):
+        if pending is None:
+            return None
+        return np.concatenate([p._fetch(x)
+                               for p, x in zip(self.pools, pending)])
 
     # ---- checkpoint/resume, in the canonical unsharded layout ----
 

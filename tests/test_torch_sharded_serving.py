@@ -2,9 +2,11 @@
 on 4 CPU shards: against the port's unsharded pools, the JAX package's
 sharded pools on 4 devices of its CPU mesh (tests/conftest.py; the
 fused Pallas kernel in interpret mode for Layer III) and the native
-scalar decoder, on the same feed schedule; LoopFeeder and a mid-stream
-join on a sharded pool; checkpoints across sharded, unsharded and JAX
-pools.
+scalar decoder, on the same feed schedule; the pipelined drain
+(``decode_step_pipelined``, ``drain_pending``) against the unsharded
+pools' and the JAX sharded pools' inherited one; LoopFeeder and a
+mid-stream join on a sharded pool; checkpoints across sharded, unsharded
+and JAX pools.
 
 Tolerance: exact mode bitwise (PCM every step, and the canonical
 checkpoint: handle blobs and state); fast mode bitwise against the
@@ -183,6 +185,131 @@ def test_sharded_l12_pool_equals_unsharded_and_jax(layer):
         _assert_ckpt_equal(decs[0].save_checkpoint(), d.save_checkpoint())
     _check_vs_native(sharded, streams, True, layer=layer,
                      nch=[decs[0].nch(s) for s in range(B)])
+
+
+def _pipelined(decs, max_steps=40):
+    """Parse and decode_step_pipelined every pool in lockstep until none
+    has an active slot, then drain_pending twice: per pool, what each
+    call returned, the flush last.  Every pool must count the same active
+    slots; the first call returns None, and so does the second drain."""
+    out = [[] for _ in decs]
+    for _ in range(max_steps):
+        n = [d.parse_step() for d in decs]
+        assert len(set(n)) == 1, n
+        if n[0] == 0:
+            break
+        for k, d in enumerate(decs):
+            out[k].append(d.decode_step_pipelined())
+            # the JAX sharded Layer III pool decodes from zero-copy views
+            # of a wire buffer that it does not swap: its step must end
+            # before the next parse writes that buffer (else it reads
+            # the next frame's wire on a loaded CPU)
+            jax.block_until_ready(getattr(d, "_pending_pcm", None))
+    else:
+        raise AssertionError("the pools did not drain")
+    for k, d in enumerate(decs):
+        out[k].append(d.drain_pending())
+        assert out[k][0] is None and d.drain_pending() is None
+    return out
+
+
+def _assert_pipelined_equal(a, b):
+    assert len(a) == len(b) > 2
+    for k, (pa, pb) in enumerate(zip(a[1:], b[1:])):
+        np.testing.assert_array_equal(np.asarray(pa).view(np.int16),
+                                      np.asarray(pb).view(np.int16),
+                                      err_msg=f"call {k + 1}")
+
+
+def _l12_streams(layer: int) -> list[bytes]:
+    """16 Layer I/II streams whose lengths grow by shard (3 frames in
+    shard 0, 6 in shard 3), stereo with every third mono."""
+    return [mp3gen.make_l12_stream(layer=layer, n_frames=3 + i // 4,
+                                   seed=500 + i, bitrate_index=12,
+                                   mode=3 if i % 3 == 2 else 0)
+            for i in range(B)]
+
+
+def _pipelined_pools(route: str) -> tuple[list, list[bytes]]:
+    """The sharded pool, the port's unsharded pool and, in exact mode,
+    the JAX package's sharded pool of a route, and its streams."""
+    jmesh = jax_make_mesh(jax.devices()[:SHARDS])
+    if route.startswith("layer2"):
+        fl = route == "layer2_float"
+        return [ShardedL12StreamDecoder(B, 2, MESH, exact=True,
+                                        float_pcm=fl),
+                L12StreamDecoder(B, layer=2, exact=True, float_pcm=fl,
+                                 device="cpu"),
+                JaxShardedL12(B, layer=2, mesh=jmesh, exact=True,
+                              float_pcm=fl)], _l12_streams(2)
+    family = int(route.startswith("mpeg2"))
+    exact = route.endswith("exact")
+    decs = [ShardedStreamDecoder(B, MESH, exact=exact, parse_threads=1,
+                                 family=family),
+            StreamDecoder(B, exact=exact, family=family, device="cpu")]
+    if exact:
+        decs.append(JaxSharded(B, mesh=jmesh, exact=True, parse_threads=1,
+                               kernel="pallas", family=family))
+    return decs, _layer3_streams(family)
+
+
+@pytest.mark.parametrize("route", ["mpeg1_fast", "mpeg1_exact",
+                                   "mpeg2_exact", "layer2_exact",
+                                   "layer2_float"])
+def test_sharded_pipelined_drain_equals_unsharded_and_jax(route):
+    """decode_step_pipelined / drain_pending of the sharded pools over 4
+    CPU shards whose shards idle one after another: every call's PCM
+    (the previous step's, None first) and the flush bitwise equal to the
+    port's unsharded pool's pipelined drain and, in exact mode, to the
+    JAX package's sharded pool's (inherited from its unsharded pool);
+    the pipelined PCM is the synchronous decode_step's one step late,
+    and the idle shard's slots are silent in the flush."""
+    decs, streams = _pipelined_pools(route)
+    for s, data in enumerate(streams):
+        for d in decs:
+            assert d.feed(s, data) == 0
+    outs = _pipelined(decs)
+    for other in outs[1:]:
+        _assert_pipelined_equal(outs[0], other)
+    sync, _ = _pipelined_pools(route)
+    sync = sync[0]
+    for s, data in enumerate(streams):
+        sync.feed(s, data)
+    _assert_pipelined_equal(outs[0], [None] + [p for p, _ in
+                                               _lockstep([sync])[0]])
+    assert not outs[0][-1][:B // SHARDS].any() and outs[0][-1].any()
+
+
+def test_sharded_pipelined_idle_step_and_idle_shards():
+    """Streams in shards 0 and 2 only: the pipelined call after a step
+    returns that step's PCM with the idle shards' slots zero, bitwise the
+    unsharded pool's; a step with no active slot returns the last PCM and
+    leaves nothing pending (the next call and drain_pending return
+    None); the pools' drain copies run per shard."""
+    streams = _layer3_streams(0)
+    decs = [ShardedStreamDecoder(B, MESH, exact=True, parse_threads=1),
+            StreamDecoder(B, exact=True, device="cpu")]
+    fed = [s for s in range(B) if (s // (B // SHARDS)) % 2 == 0]
+    for s in fed:
+        for d in decs:
+            d.feed(s, streams[s])
+    outs = [[], []]
+    while True:
+        n = [d.parse_step() for d in decs]
+        assert n[0] == n[1]
+        for k, d in enumerate(decs):
+            outs[k].append(d.decode_step_pipelined())
+        if n[0] == 0:
+            break
+    assert outs[0][0] is None and len(outs[0]) > 3
+    _assert_pipelined_equal(outs[0], outs[1])
+    q = B // SHARDS
+    for p in outs[0][1:]:
+        assert p.shape == (B, 1152, 2)
+        assert not p[q:2 * q].any() and not p[3 * q:].any()
+    for d in decs:
+        assert d.decode_step_pipelined() is None
+        assert d.drain_pending() is None
 
 
 def test_idle_shards_decode_to_silence():
