@@ -13,7 +13,9 @@ step; then the port's tools (``pdmp3_tpu_torch/tools/``) at their real
 sizes: the serving diff, the 102,400-slot scale simulation, the wire
 profile, a four-rank soak, the parse sweep, the resample sweep and the
 differential soak; then float PCM of the LSF families at the model
-level; thirty-one phases in all, and any failure exits non-zero.  The kernels
+level; then the port's bench (``pdmp3_tpu_torch.bench``) at
+turned-down sizes; thirty-two phases in all, and any failure exits
+non-zero.  The kernels
 are built here from ``pdmp3_tpu_torch/csrc`` and the port's native host
 library from ``pdmp3_tpu_torch/host/src``.
 
@@ -177,7 +179,16 @@ library from ``pdmp3_tpu_torch/host/src``.
     of its own (K4 once a step) before ``pool.advance`` decodes it with
     K3 (once a step): every slot's trunc(pcm x 32767) equal to the S16
     PCM (exact) or within 1.001/32767 of S16 / 32767 (fast), but at the
-    wrap; the float step and the S16 step timed with CUDA events.
+    wrap; the float step and the S16 step timed with CUDA events;
+33. the bench (``pdmp3_tpu_torch.bench.run``) with bench.py's sizes
+    turned down (``BENCH_SIZES``: one batch size, B; two windows of 64
+    granule steps; short trials; 256 distinct streams at size): its
+    attestations true (K1 / K2 against the split route, exact PCM and
+    state bitwise, fast within 1 LSB; exact ``TorchDSP`` byte-equal to
+    native; the replayed at-size steps equal to the live ones), every
+    rate finite and positive, and its launches: K1, K2, K3 and K4 once a
+    granule step of each window (warm-up group included), the
+    attestations' and the pools' as counted.
 
 The trace tools (``tools.drain_trace``, ``tools.kernel_trace``) and the
 fuzzer (``tools.fuzz``) run as their own commands, not here: a
@@ -331,6 +342,24 @@ PARSE_SLOTS = 8192
 PARSE_SECONDS = 1.0
 SOAK_STREAMS = 64
 SOAK_TORCH_EVERY = 16
+# phase 33: pdmp3_tpu_torch.bench.Sizes with bench.py's sizes turned
+# down (the sweep is B alone)
+BENCH_SIZES = dict(steps=64, repeats=2, e2e_slots=1024, e2e_distinct=16,
+                   e2e_trials=1, e2e_seconds=0.5, drain_slots=1024,
+                   drain_trials=2, drain_seconds=0.5, at_size_slots=256,
+                   at_size_steps=8, host_trials=1, host_seconds=0.3,
+                   lsf_e2e_slots=256, lsf_distinct=8)
+# phase 33: the bench's keys that hold a rate, a time or a size, each
+# finite and positive (with kernel_sweep_rtf's and serving_at_size's)
+BENCH_RATE_KEYS = (
+    "value", "kernel_rtf", "split_rtf", "exact_rtf", "kernel_exact_rtf",
+    "split_exact_rtf", "step_ms", "granules_per_sec",
+    "e2e_serving_rtf_sparse_kernel", "e2e_serving_rtf_dense_kernel",
+    "e2e_rtf_drain_sync", "e2e_rtf_drain_async",
+    "wire_bytes_per_granule_dense", "wire_bytes_per_granule_sparse",
+    "lsf_rtf_kernel_22k05", "e2e_lsf_sparse_kernel_rtf_22k05",
+    "l12_rtf_layer2_44k1", "native_singlecore_frames_per_sec",
+    "host_parse_frames_per_sec_1t", "h2d_gbps")
 # wall seconds per phase (phase name -> seconds)
 PHASE_SECONDS = {}
 
@@ -2335,6 +2364,76 @@ def phase_soak(dev) -> dict:
     return {**res, "launches": ran}
 
 
+def phase_bench(dev) -> dict:
+    """Phase 33: pdmp3_tpu_torch.bench.run at BENCH_SIZES on the card;
+    its attestations, its rates and its launches checked (the bench
+    checks each measurement's launches against the steps it ran; this
+    phase checks the totals through the launch counters and the window
+    counts from the sizes)."""
+    import math
+
+    from pdmp3_tpu_torch import bench as PB
+    from pdmp3_tpu_torch.host import native_decode_file
+    from pdmp3_tpu_torch.testing import mp3gen
+
+    sz = PB.Sizes(sweep=(B,), **BENCH_SIZES)
+    # the frames of the exact attestation's streams, by the native
+    # decoder; TorchDSP launches K4 twice a frame
+    attest_frames = sum(
+        len(native_decode_file(mp3gen.make_stream(**spec)))
+        // PB.FRAME_BYTES for spec in PB.ATTEST_STREAMS)
+    reset_launch_counts()
+    line = PB.run(sz, dev)
+    counts = launched()
+    check(counts == line["launches"]["total"],
+          f"phase 33: launched {counts}, the bench counted "
+          f"{line['launches']['total']}")
+    window = sz.group + sz.repeats * PB.timed_steps(sz, sz.steps)
+    short = sz.group + sz.repeats * PB.timed_steps(sz, sz.short_steps)
+    want = {f"kernel_fast_B{B}": {"fused_granule": window},
+            "kernel_exact": {"fused_granule_exact": window},
+            "split_fast": {"back_half": window},
+            "split_exact": {"back_half": window},
+            "lsf_kernel_fast": {"fused_granule_lsf": short},
+            "attest_kernel_vs_split": {"fused_granule": 4,
+                                       "fused_granule_exact": 4,
+                                       "back_half": 8},
+            "attest_exact": {"back_half": 2 * attest_frames},
+            # one warm-up step, RECORDED live, RECORDED replayed against
+            # them, then the timed replays; two K1 launches a step
+            "serving_at_size": {"fused_granule": 2 * (
+                1 + 2 * PB.RECORDED + sz.repeats * sz.at_size_steps)},
+            "single_core": {}, "parse": {}, "l12": {}}
+    by = line["launches"]["by_measurement"]
+    for name, w in want.items():
+        check(by[name] == w, f"phase 33: {name} launched {by[name]}, "
+                             f"want {w}")
+    for name, kernel in (("e2e_ab", "fused_granule"),
+                         ("drain_ab", "fused_granule"),
+                         ("e2e_lsf", "fused_granule_lsf")):
+        check(list(by[name]) == [kernel] and by[name][kernel] > 0,
+              f"phase 33: {name} launched {by[name]}")
+    check(line["kernel_exact_bitexact_vs_split_on_gpu"] is True
+          and line["kernel_fast_max_lsb_vs_split_on_gpu"] <= MAX_LSB
+          and line["exact_bitexact_vs_native_on_gpu"] is True
+          and line["serving_at_size"]["replay_matches_live"] is True,
+          f"phase 33: attestation failed: {json.dumps(line)}")
+    ref = line["exact_bitexact_vs_reference_on_gpu"]
+    check((ref is True) if line["reference_status"] == "built"
+          else (ref is None and line["reference_status"].startswith(
+              "not built: ")), f"phase 33: reference {ref}, "
+                               f"{line['reference_status']}")
+    rates = [line[k] for k in BENCH_RATE_KEYS]
+    rates += list(line["kernel_sweep_rtf"].values())
+    rates += [v for k, v in line["serving_at_size"].items()
+              if k != "replay_matches_live"]
+    check(all(
+        isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+        for x in rates), f"phase 33: a rate is not finite and positive: "
+                         f"{json.dumps(line)}")
+    return line
+
+
 def phase_correctness(pcm: np.ndarray, watch: list[int],
                       specs: list[tuple[bytes, dict]],
                       exact: bool = False) -> list[dict]:
@@ -2600,6 +2699,11 @@ def main() -> int:
         print(f"phase 32 LSF float PCM family {family}:",
               json.dumps(lf[family]))
     lap("phase 32")
+    bn = phase_bench(dev)
+    print("phase 33 bench:", json.dumps(bn))
+    lap("phase 33")
+    # phase 33's launches of K1, K2, K3 (fast) and K4 (instances 6, 7)
+    bench_k = bn["launches"]["total"]
     # phase 32's K4 launches (instance 7 exact, 8 fast)
     lf_k4 = {exact: sum(lf[f]["exact" if exact else "fast"]["launches"][
         "back_half" if exact else "back_half_raw"] for f in LSF_FAMILIES)
@@ -2651,12 +2755,14 @@ def main() -> int:
         beside = sum(lf[f]["exact" if exact else "fast"]["launches"][name]
                      for f in LSF_FAMILIES)
         return entry(name, "fused_granule.cu",
-                     sum(by_family.values()) + more[name] + beside,
+                     sum(by_family.values()) + more[name] + beside
+                     + bench_k.get(name, 0),
                      max(k3[(f, exact)]["pcm_max_lsb"]
                          for f in LSF_FAMILIES), r1, r1,
                      launch=r1["launch"], launches_by_family=by_family,
                      launches_phases_22_24=more[name],
                      launches_phase_32=beside,
+                     launches_phase_33=bench_k.get(name, 0),
                      ms_by_family={f: k3[(f, exact)]["kernel_ms"]
                                    for f in LSF_FAMILIES},
                      plain_ms_by_family={f: k3[(f, exact)]["plain_ms"]
@@ -2669,23 +2775,26 @@ def main() -> int:
     k4e, k4f = k4["exact"], k4["fast"]
     print(json.dumps({"kernels": [
         entry("fused_granule", "fused_granule.cu",
-              m["kernel_launches"] + more["fused_granule"] + tools_k1,
+              m["kernel_launches"] + more["fused_granule"] + tools_k1
+              + bench_k["fused_granule"],
               k1["pcm_max_lsb"], k1, k1, launch=k1["launch"],
               launches_phases_22_24=more["fused_granule"],
               launches_phases_25_31=tools_k1,
+              launches_phase_33=bench_k["fused_granule"],
               k5_ng1_ms=k5[0]["ng1_ab_interleaved"]["k5_ng1_ms"],
               k1_over_k5_ng1=k5[0]["ng1_ab_interleaved"]["k1_over_k5_ng1"]),
         entry("fused_granule_exact", "fused_granule.cu",
               me["exact_kernel_launches"] + more["fused_granule_exact"]
-              + tools_k2,
+              + tools_k2 + bench_k["fused_granule_exact"],
               k2["pcm_max_lsb"], k2, k2, launch=k2["launch"],
               launches_phases_22_24=more["fused_granule_exact"],
-              launches_phases_25_31=tools_k2),
+              launches_phases_25_31=tools_k2,
+              launches_phase_33=bench_k["fused_granule_exact"]),
         lsf_entry(False),
         lsf_entry(True),
         entry("back_half", "back_half.cu",
               api["k4_launches"] + fp["exact"]["exact_float_kernel_launches"]
-              + tools_k4 + lf_k4[True],
+              + tools_k4 + lf_k4[True] + bench_k["back_half"],
               max(k4e["max_abs_err"], k4f["max_abs_err"],
                   *(lf[f]["exact"]["k4"]["max_abs_err"]
                     for f in LSF_FAMILIES)), k4e, k4,
@@ -2694,7 +2803,8 @@ def main() -> int:
                   "float_pcm_exact_serving":
                   fp["exact"]["exact_float_kernel_launches"],
                   "soak_torch_dsp_phase_31": tools_k4,
-                  "lsf_float_pcm_phase_32": lf_k4[True]},
+                  "lsf_float_pcm_phase_32": lf_k4[True],
+                  "bench_phase_33": bench_k["back_half"]},
               ms_lsf_by_family={f: lf[f]["exact"]["k4"]["kernel_ms"]
                                 for f in LSF_FAMILIES},
               ms_fast=k4f["kernel_ms"],

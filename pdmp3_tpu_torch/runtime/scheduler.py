@@ -98,6 +98,10 @@ class _Pool:
         """Elements of the wire that the next step uploads."""
         return self._wires_t[0].shape[0]
 
+    def wire_bytes(self) -> int:
+        """Bytes the next decode_step uploads."""
+        return self._wires_t[0].element_size() * self._upload_len()
+
     def _reclaim(self):
         """Wait until the current buffer's last upload has read it; only
         then may the host write to it."""
@@ -464,10 +468,6 @@ class SparseStreamDecoder(StreamDecoder):
         b = min(-(-used // gran) * gran, self._cap_full)
         self._bucket_sticky = max(b, self._bucket_sticky)
         return self._bucket_sticky
-
-    def wire_bytes(self) -> int:
-        """Bytes the next decode_step uploads."""
-        return 2 * self._upload_len()
 
     def _upload_len(self) -> int:
         return self._lay["fixed"] + self._bucket_blocks() * M.SPARSE_BLOCK

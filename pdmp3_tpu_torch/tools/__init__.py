@@ -71,6 +71,59 @@ def write_json(path: str, obj) -> None:
         json.dump(obj, f, indent=1)
 
 
+# below this many streams one process generates them (spawning costs more)
+SPAWN_FROM = 64
+
+
+def _generate(cfg: dict) -> bytes | None:
+    """mp3gen's stream for cfg, or None for a generator-infeasible
+    config."""
+    from ..testing import mp3gen
+
+    try:
+        return mp3gen.make_stream(**cfg)
+    except AssertionError:
+        return None
+
+
+def feasible_streams(cfgs, n: int, workers: int | None = None
+                     ) -> list[bytes]:
+    """mp3gen's streams of the first `n` feasible configs of the
+    iterable `cfgs` (keyword dicts of ``make_stream``), in order, made by
+    `workers` spawned processes (the same bytes for any count; by
+    default one per core from SPAWN_FROM streams, else one).
+    RuntimeError when `cfgs` runs out first.  Spawned workers import the
+    caller's ``__main__`` again: a script that calls this with more than
+    one worker needs an ``if __name__ == "__main__":`` guard."""
+    import itertools
+
+    if workers is None:
+        workers = (os.cpu_count() or 1) if n >= SPAWN_FROM else 1
+    cfgs = iter(cfgs)
+    streams: list[bytes] = []
+    pool = None
+    if workers > 1:
+        import concurrent.futures
+        import multiprocessing
+
+        pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        while len(streams) < n:
+            batch = list(itertools.islice(cfgs, n - len(streams)))
+            if not batch:
+                break
+            made = pool.map(_generate, batch) if pool else map(_generate,
+                                                                batch)
+            streams += [s for s in made if s is not None]
+    finally:
+        if pool:
+            pool.shutdown()
+    if len(streams) != n:
+        raise RuntimeError(f"made {len(streams)} of {n} streams")
+    return streams
+
+
 def counters() -> dict:
     """kernel name -> (module, attribute) of its wrapper's launch count,
     which the wrapper bumps where it launches (on CUDA operands only)."""

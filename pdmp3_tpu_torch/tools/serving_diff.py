@@ -22,20 +22,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import random
 import time
 
 import numpy as np
 
-from . import (card, check_launches, default_out, launched_since, launches,
-               resolve_device, write_json)
+from . import (card, check_launches, default_out, feasible_streams,
+               launched_since, launches, resolve_device, write_json)
 
 MAX_LSB = 1
 MAX_FRAC = 0.01
 MAX_STEPS = 600
-# below this many streams one process generates them (spawning costs more)
-SPAWN_FROM = 64
 
 
 def _draw(rng: random.Random, seed_base: int, tries: int) -> dict:
@@ -63,48 +60,15 @@ def _draw(rng: random.Random, seed_base: int, tries: int) -> dict:
     return cfg
 
 
-def _generate(cfg: dict) -> bytes | None:
-    """mp3gen's stream for cfg, or None for a generator-infeasible
-    config."""
-    from ..testing import mp3gen
-
-    try:
-        return mp3gen.make_stream(**cfg)
-    except AssertionError:
-        return None
-
-
 def make_streams(n: int, seed_base: int, workers: int | None = None
                  ) -> list[bytes]:
     """`n` random MPEG-1 streams: 8-24 frames, every rate, bitrate, mode,
     block type, reservoir and scfsi setting but 32 kHz at 320 kbps; the
-    first `n` feasible configs of the seed base's sequence.  They are
-    generated by `workers` spawned processes (the same bytes for any
-    count); by default one per core from SPAWN_FROM streams, else one."""
-    if workers is None:
-        workers = (os.cpu_count() or 1) if n >= SPAWN_FROM else 1
+    first `n` feasible configs of the seed base's sequence (of 20 n),
+    generated by `workers` processes (``feasible_streams``)."""
     rng = random.Random(seed_base)
     cfgs = [_draw(rng, seed_base, t) for t in range(1, n * 20 + 1)]
-    streams: list[bytes] = []
-    pool = None
-    if workers > 1:
-        import concurrent.futures
-        import multiprocessing
-
-        pool = concurrent.futures.ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        while len(streams) < n and cfgs:
-            batch, cfgs = cfgs[:n - len(streams)], cfgs[n - len(streams):]
-            made = pool.map(_generate, batch) if pool else map(_generate,
-                                                                batch)
-            streams += [s for s in made if s is not None]
-    finally:
-        if pool:
-            pool.shutdown()
-    if len(streams) != n:
-        raise RuntimeError(f"made {len(streams)} of {n} streams")
-    return streams
+    return feasible_streams(cfgs, n, workers)
 
 
 def serve(streams: list[bytes], exact: bool, dev) -> dict:
