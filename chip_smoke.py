@@ -14,7 +14,8 @@ sizes: the serving diff, the 102,400-slot scale simulation, the wire
 profile, a four-rank soak, the parse sweep, the resample sweep and the
 differential soak; then float PCM of the LSF families at the model
 level; then the port's bench (``pdmp3_tpu_torch.bench``) at
-turned-down sizes; thirty-two phases in all, and any failure exits
+turned-down sizes; thirty-three phases in all (phase 34, the float
+granule instances, runs beside phases 2 and 10), and any failure exits
 non-zero.  The kernels
 are built here from ``pdmp3_tpu_torch/csrc`` and the port's native host
 library from ``pdmp3_tpu_torch/host/src``.
@@ -86,11 +87,14 @@ library from ``pdmp3_tpu_torch/host/src``.
     (``back_half_step_ref(raw=True)``) on phase 2's frame at B, at one
     slot and at the ragged B = 2 x grid + 3 with idle slots at the seams
     of its slot ring, bitwise, timed, its launch geometry printed; then
-    ``StreamDecoder(8192, float_pcm=True, device="cuda")`` fast (K4
-    instance 8) and exact (instance 7) on phase 3's streams, 2 warm-up
-    and 10 timed steps, the instance's launches checked; the watched
-    slots' trunc(pcm x 32767) equal to phase 6's S16 PCM (exact) or
-    within 1.001/32767 of phase 3's / 32767 (fast), but at the wrap;
+    ``StreamDecoder(8192, float_pcm=True, device="cuda")`` fast (K1's
+    float instance 9) and exact (K2's, 10) on phase 3's streams, 2
+    warm-up and 10 timed steps, every slot of every step bitwise equal
+    to ``decode_granules(float_pcm=True)`` on the step's wire (the stage
+    ops and K4, instance 8 fast, 7 exact), both routes' launches
+    checked; the watched slots' trunc(pcm x 32767) equal to phase 6's
+    S16 PCM (exact) or within 1.001/32767 of phase 3's / 32767 (fast),
+    but at the wrap;
 18. Layer I/II pools: ``L12StreamDecoder(8192, layer=l, exact=e,
     device="cuda")`` for both layers and precisions, fed by ``LoopFeeder``
     from 64 generated 12-frame streams per layer (stereo and mono,
@@ -176,10 +180,13 @@ library from ``pdmp3_tpu_torch/host/src``.
     ring, bitwise, timed; then ``StreamDecoder(8192, family=f, exact=e)`` on phase
     11's corpus, 2 warm-up and 10 timed steps, each step's uploaded
     wire through ``decode_frame_packed_lsf(float_pcm=True)`` on a state
-    of its own (K4 once a step) before ``pool.advance`` decodes it with
-    K3 (once a step): every slot's trunc(pcm x 32767) equal to the S16
-    PCM (exact) or within 1.001/32767 of S16 / 32767 (fast), but at the
-    wrap; the float step and the S16 step timed with CUDA events;
+    of its own (K3's float instance, 11 fast or 12 exact, once a step),
+    through ``decode_granules(float_pcm=True)`` on another (K4 once a
+    step) and ``pool.advance`` (K3, once a step): every slot's float PCM
+    bitwise equal to the split route's, and its trunc(pcm x 32767) equal
+    to the S16 PCM (exact) or within 1.001/32767 of S16 / 32767 (fast),
+    but at the wrap; the float, S16 and split steps timed with CUDA
+    events;
 33. the bench (``pdmp3_tpu_torch.bench.run``) with bench.py's sizes
     turned down (``BENCH_SIZES``: one batch size, B; two windows of 64
     granule steps; short trials; 256 distinct streams at size): its
@@ -188,7 +195,16 @@ library from ``pdmp3_tpu_torch/host/src``.
     native; the replayed at-size steps equal to the live ones), every
     rate finite and positive, and its launches: K1, K2, K3 and K4 once a
     granule step of each window (warm-up group included), the
-    attestations' and the pools' as counted.
+    attestations' and the pools' as counted;
+34. the float granule instances 9-12 (K1, K2 and K3 with float PCM)
+    against their plain version (``fused_granule_step_ref(
+    float_pcm=True)``), after phase 17's kernel part on phase 2's frame
+    (9, 10) and with phase 10 on each LSF family's step (11, 12): at B
+    from the random state and from one whose FIFO rows drive five
+    slots' sums to NaN, +-inf and past the rails, at the ragged B = 2 x
+    grid + 3 with idle slots at the seams of the slot ring, MPEG-1 also
+    on phase 5's subnormal band-12 carry; bitwise, timed, the launch
+    geometry printed.
 
 The trace tools (``tools.drain_trace``, ``tools.kernel_trace``) and the
 fuzzer (``tools.fuzz``) run as their own commands, not here: a
@@ -252,6 +268,12 @@ REPLACES = {"fused_granule": "pdmp3_tpu/ops/pallas_step.py:771",
             "fused_granule_exact": "pdmp3_tpu/ops/pallas_step.py:771",
             "fused_granule_lsf": "pdmp3_tpu/ops/pallas_step.py:771",
             "fused_granule_lsf_exact": "pdmp3_tpu/ops/pallas_step.py:771",
+            # the float instances 9-12 of K1, K2 and K3
+            "fused_granule_float": "pdmp3_tpu/ops/pallas_step.py:771",
+            "fused_granule_float_exact": "pdmp3_tpu/ops/pallas_step.py:771",
+            "fused_granule_lsf_float": "pdmp3_tpu/ops/pallas_step.py:771",
+            "fused_granule_lsf_float_exact":
+            "pdmp3_tpu/ops/pallas_step.py:771",
             "back_half": "pdmp3_tpu/ops/pallas_step.py:463",
             "back_half_raw": "pdmp3_tpu/ops/pallas_step.py:463",
             "frame_fused": "pdmp3_tpu/ops/pallas_step.py:1067",
@@ -497,22 +519,25 @@ def corpus_44k() -> list[tuple[bytes, dict]]:
     return out
 
 
-def granule_bound(n_slots: int, n_active: int, lsf: bool = False) -> dict:
-    """The least time one fused granule step (K1, K2 or K3) could take
-    for n_slots slots, n_active of them active: the larger of its bytes
-    (every input read once, every output written once; idle slots read
-    their flag and write silent PCM only) over the memory rate, and its
-    f32 operations over the f32 rate.  Per active slot: ix 2,304 B,
-    scalefactors and meta 372 B (+128 B LSF sidecar), store 4,608 B and
-    v 7,680 B each read and written, prev_lines 12 B read and written;
-    PCM 2,304 B per slot.  Operations per active slot and channel: the
+def granule_bound(n_slots: int, n_active: int, lsf: bool = False,
+                  float_pcm: bool = False) -> dict:
+    """The least time one fused granule step (K1, K2 or K3; with
+    float_pcm their instances 9-12) could take for n_slots slots,
+    n_active of them active: the larger of its bytes (every input read
+    once, every output written once; idle slots read their flag and
+    write silent PCM only) over the memory rate, and its f32 operations
+    over the f32 rate.  Per active slot: ix 2,304 B, scalefactors and
+    meta 372 B (+128 B LSF sidecar), store 4,608 B and v 7,680 B each
+    read and written, prev_lines 12 B read and written; PCM 2,304 B per
+    slot (float PCM 4,608 B).  Operations per active slot and channel: the
     36-point IMDCT of 32 subbands (36 x 35 each), its window and
     overlap-add, frequency inversion, the 18 x 64 matrixing dots of 32
     terms (63 each), the 16-tap FIR of 576 samples (32 each), the
     antialias butterflies (8 x 31 x 6), requantize (3 per line), stereo
     (4 per line) and the x32767 quantize."""
     per_active = granule_wire_bytes(lsf) + STATE_BYTES
-    nbytes = n_slots * (4 + 2304) + n_active * per_active
+    nbytes = (n_slots * (4 + 2304 * (2 if float_pcm else 1))
+              + n_active * per_active)
     return bound(nbytes, n_active * 2 * GRANULE_OPS_PER_CH)
 
 
@@ -682,15 +707,24 @@ def bitwise_report(pk, sk, pr, sr, st0, phase: str) -> dict:
     """A kernel's PCM and state (pk, sk) against its plain version's (pr,
     sr), both run from st0: require them bitwise equal, the INACTIVE
     slots (those below the batch's size) silent and frozen, and slot 0
-    audible."""
+    audible.  Float PCM is compared as bits; its max_abs_err is
+    reported."""
     torch.cuda.synchronize()
-    lsb, frac = pcm_error(pk, pr)
-    res = {"tolerance": "bitwise (PCM, store, v, prev_lines); reported: "
-                        f"PCM <= {MAX_LSB} LSB on < {MAX_FRAC:.0%} of "
-                        f"samples, store/v/prev <= {STATE_RTOL} x "
-                        "max(1, max|plain|)",
-           "pcm_max_lsb": lsb, "pcm_frac_differing": frac,
-           "pcm_bitwise_equal": bool(torch.equal(pk, pr))}
+    if pk.dtype == torch.float32:
+        lsb, frac = 0, 0.0
+        res = {"tolerance": "bitwise (float PCM bits, store, v, "
+                            "prev_lines)",
+               "pcm_max_abs_err": float((pk - pr).abs().max()),
+               "pcm_bitwise_equal": bool(torch.equal(
+                   pk.view(torch.int32), pr.view(torch.int32)))}
+    else:
+        lsb, frac = pcm_error(pk, pr)
+        res = {"tolerance": "bitwise (PCM, store, v, prev_lines); "
+                            f"reported: PCM <= {MAX_LSB} LSB on < "
+                            f"{MAX_FRAC:.0%} of samples, store/v/prev <= "
+                            f"{STATE_RTOL} x max(1, max|plain|)",
+               "pcm_max_lsb": lsb, "pcm_frac_differing": frac,
+               "pcm_bitwise_equal": bool(torch.equal(pk, pr))}
     for name in ("store", "v_blocks", "prev_lines"):
         a, b = getattr(sk, name), getattr(sr, name)
         res[f"{name}_max_abs_err"] = float((a - b).abs().max())
@@ -765,7 +799,56 @@ def phase_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
     return res
 
 
-def phase_band12_subnormal(fr: dict, step_k, step_r) -> dict:
+def phase_float_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
+    """Phase 34: K1, K2 or K3's float instance (9-12: fused_granule_step(
+    float_pcm=True)) against its plain version (fused_granule_step_ref(
+    float_pcm=True)) on a parsed frame at B (MPEG-1: both granules), from
+    the random state and from one whose FIFO rows drive slots 0-4's sums
+    to NaN, +-inf and past the rails; at the ragged B = 2 x grid + 3 with
+    idle slots at the seams of its slot ring; MPEG-1 also on phase 5's
+    subnormal band-12 carry.  Bitwise (PCM bits and state), timed per
+    granule step, with its launch geometry and bound."""
+    from pdmp3_tpu_torch.ops import fused_step as FS
+
+    phase = f"phase 34 family {family} exact={exact}"
+    step_k = functools.partial(FS.fused_granule_step, exact=exact,
+                               family=family, float_pcm=True)
+    step_r = functools.partial(FS.fused_granule_step_ref, exact=exact,
+                               family=family, float_pcm=True)
+    grs = (0,) if family else (0, 1)
+    res = compare_steps(fr, step_k, step_r, phase, grs=grs)
+    hostile = clone_state(fr["st0"])
+    for s, x in enumerate((float("nan"), float("inf"), float("-inf"), 3e38,
+                           -3e38)):
+        hostile.v_blocks[s, s % 2, 5:9, 3:40] = x
+    res["nan_inf_state"] = compare_steps(fr, step_k, step_r,
+                                         f"{phase} NaN/inf state", grs=grs,
+                                         st0=hostile)
+    launch = FS.granule_launch_info(fr["ix"].device, exact, family,
+                                    float_pcm=True)
+    grid = launch["grid"]
+    n = 2 * grid + 3
+    rfr = ragged_frame(fr, n)
+    seams = [grid - 1, grid, 2 * grid - 1, 2 * grid, n - 1]
+    rfr["active"] = rfr["active"].clone()
+    rfr["active"][seams] = 0
+    res["ragged"] = dict(batch_slots=n, idle_slots=seams, **compare_steps(
+        rfr, step_k, step_r, f"{phase} ragged B={n}", grs=grs))
+    if not family:
+        res["band12_subnormal"] = phase_band12_subnormal(fr, step_k, step_r,
+                                                         phase)
+    res["launch"] = launch
+    sk, sr = clone_state(fr["st0"]), clone_state(fr["st0"])
+    args, kw = granule_args(fr, 0), granule_kw(fr)
+    kernel_timing(res, lambda: step_k(*args, sk, **kw))
+    res["plain_ms"] = plain_ms(lambda: step_r(*args, sr, **kw))
+    res.update(granule_bound(B, int((fr["active"] != 0).sum()),
+                             lsf=family != 0, float_pcm=True))
+    return res
+
+
+def phase_band12_subnormal(fr: dict, step_k, step_r,
+                           phase: str = "phase 5") -> dict:
     """Granule 1 with prev_lines holding the subnormal bit patterns
     SUBNORMAL_BITS and every ch1 line coded, so the short band-12 lines
     of ch1 take the true gain GAIN_QUARTER_TRUE[q], subnormal for q in
@@ -781,14 +864,14 @@ def phase_band12_subnormal(fr: dict, step_k, step_r) -> dict:
     ix[1, :, 1] = (torch.arange(576, device=ix.device) % 7 - 3) \
         .to(torch.int16)
     res = compare_steps(dict(fr, ix=ix), step_k, step_r,
-                        "phase 5 band-12 subnormal", grs=(1,), st0=st0)
+                        f"{phase} band-12 subnormal", grs=(1,), st0=st0)
     f = D.fields(fr["meta"][1])
     q = (2 << f.scalefac_scale[:, 1:2].long()) * bits.reshape(B, 3)
     short1 = f.layout[:, 1] % 3 != 0
     hit = short1 & (fr["active"] != 0) & ((q >= 504) & (q < 600)).any(1)
     res["slots_with_subnormal_band12_gain"] = int(hit.sum())
     check(res["slots_with_subnormal_band12_gain"] > 0,
-          "phase 5: no slot reached a subnormal band-12 gain")
+          f"{phase}: no slot reached a subnormal band-12 gain")
     return res
 
 
@@ -1137,7 +1220,9 @@ def phase_main_path(streams: list[bytes], dev, watch: list[int],
     """StreamDecoder serving at B slots: MPEG-1 fast (K1) or exact (K2),
     or an LSF pool of `family` (K3), or with frame_fused MPEG-1 fast with
     the frame-fused opt-in set (K5), or with float_pcm MPEG-1 float PCM
-    (the stage ops and K4, instance 8 fast, 7 exact), over `timed` timed
+    (K1 / K2's float instances 9 / 10, every slot of every step held
+    bitwise against decode_granules(float_pcm=True) on the same wire:
+    the stage ops and K4, instance 8 fast, 7 exact), over `timed` timed
     steps; returns timings, with an exact_ prefix when exact, lsf{family}_
     for an LSF pool, ff_ when frame fused and float_ for float PCM, and
     the PCM of the watched slots.  rates: each source stream's sample
@@ -1156,19 +1241,18 @@ def _main_path(streams, dev, watch, exact, family, rates, frame_fused,
 
     path = (f"main path (family={family}, exact={exact}, "
             f"frame_fused={frame_fused}, float_pcm={float_pcm})")
-    if float_pcm:
-        kernel = "back_half" if exact else "back_half_raw"
-    else:
-        kernel = ("frame_fused" if frame_fused else "fused_granule"
-                  + ("_lsf" if family else "") + ("_exact" if exact else ""))
+    kernel = ("frame_fused" if frame_fused else "fused_granule"
+              + ("_lsf" if family else "") + ("_float" if float_pcm else "")
+              + ("_exact" if exact else ""))
     ngr = 1 if family else 2
     per_frame = 1 if frame_fused else ngr
     dec = StreamDecoder(B, exact=exact, family=family, float_pcm=float_pcm,
                         device=dev)
     feeder = LoopFeeder(dec, streams)
     sel = torch.tensor(watch, device=dev)
-    kept, events, feed_s, parse_s = [], [], [], []
+    kept, events, feed_s, parse_s, split_s = [], [], [], [], []
     decoded = 0
+    split = FloatSplitCheck(B, dev, exact) if float_pcm else None
     reset_launch_counts()
     for step in range(WARMUP_STEPS + timed):
         if step == WARMUP_STEPS:
@@ -1183,14 +1267,27 @@ def _main_path(streams, dev, watch, exact, family, rates, frame_fused,
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        pcm = dec.decode_step(fetch=False)
+        wire = dec.upload()      # decode_step(fetch=False), in its parts
+        pcm = dec.advance(wire)
         b.record()
         events.append((a, b))
         kept.append(pcm.index_select(0, sel))
+        if split is not None:
+            t3 = time.perf_counter()
+            split.step(wire, pcm)
+            split_s.append(time.perf_counter() - t3)
         decoded += 1
     torch.cuda.synchronize()
     loop_ms = (time.perf_counter() - t0) / timed * 1e3
-    launches = launch_counts(path, kernel)
+    if split is None:
+        launches = launch_counts(path, kernel)
+    else:
+        ran = launched()
+        k4 = "back_half" if exact else "back_half_raw"
+        check(ran == {kernel: 2 * decoded, k4: 2 * decoded},
+              f"{path}: launched {ran}, want {kernel} and {k4} "
+              f"{2 * decoded} times each")
+        launches = ran[kernel]
     check(launches == per_frame * decoded,
           f"{path}: {launches} {kernel} launches for {decoded} frame steps")
 
@@ -1241,13 +1338,66 @@ def _main_path(streams, dev, watch, exact, family, rates, frame_fused,
         "kernel_launches": launches,
         "frame_steps": decoded,
         "_pcm": pcm,
+        **({} if split is None else {
+            "split_k4_launches": 2 * decoded,
+            "bitwise_vs_decode_granules": split.result(),
+            "split_check_host_ms_per_step":
+            float(np.median(split_s[WARMUP_STEPS:])) * 1e3}),
     }.items()}
+
+
+class FloatSplitCheck:
+    """decode_granules(float_pcm=True) (the stage ops and K4, instance 7
+    exact or 8 fast) on each step's uploaded wire from a state of its
+    own, started equal to a fresh pool's, and its PCM against the
+    step's: every slot bitwise.  Mismatches are counted on the card; one
+    read at the end."""
+
+    def __init__(self, n: int, dev, exact: bool, family: int = 0):
+        from pdmp3_tpu_torch.models.decoder import init_state
+        self.n, self.exact, self.family = n, exact, family
+        self.state = init_state(n, dev)
+        self.off = torch.zeros((), dtype=torch.int64, device=dev)
+        self.samples = 0
+
+    def step(self, wire, pcm) -> None:
+        from pdmp3_tpu_torch.models.decoder import (GranuleBatch,
+                                                    decode_granules,
+                                                    wire_sections,
+                                                    wire_sections_lsf)
+        if self.family:
+            w = wire_sections_lsf(wire, self.n)
+            ip = [w["is_pos"][0]]
+        else:
+            w = wire_sections(wire, self.n)
+            ip = [None, None]
+        act = w["active"].view(-1)[:self.n].to(torch.int32)
+        outs = []
+        for g, is_pos in enumerate(ip):
+            batch = GranuleBatch(
+                w["ix"][g], w["scf_l"][g], w["scf_s"][g],
+                w["meta"][g].to(torch.int32).contiguous(), act, g,
+                self.family, is_pos)
+            p, self.state = decode_granules(batch, self.state, self.exact,
+                                            float_pcm=True)
+            outs.append(p)
+        want = torch.cat(outs, 1)
+        self.off += (pcm.view(torch.int32) != want.view(torch.int32)).sum()
+        self.samples += want.numel()
+
+    def result(self) -> dict:
+        off = int(self.off)
+        check(off == 0, f"float PCM: {off} samples differ from "
+                        "decode_granules(float_pcm=True) on the same wire")
+        return {"compared_samples": self.samples, "differing": off}
 
 
 def phase_float_pcm(streams: list[bytes], dev, watch: list[int],
                     s16: dict) -> dict:
     """Phase 17's routes: float-PCM serving fast and exact over
-    NEW_TIMED_STEPS steps (K4 instance 8 or 7 once per granule), each
+    NEW_TIMED_STEPS steps (instance 9 or 10 once per granule, every slot
+    of every step bitwise equal to decode_granules(float_pcm=True), which
+    launches K4 instance 8 or 7 once per granule on the same wire), each
     watched slot against the S16 PCM of the same frames (s16[exact]:
     phases 3 and 6): exact trunc(pcm x 32767) equal to S16, fast within
     FLOAT_TOL of S16 / 32767, except at the wrap (S16 -32767 where float
@@ -1281,7 +1431,8 @@ def phase_lsf_float_pcm(lspecs: list[tuple[bytes, dict]], dev,
                         family: int) -> dict:
     """Phase 32 for one LSF family, fast and exact: K4's raw sums against
     their plain version on the family's spectra (phase_k4_raw), then the
-    float LSF route at B beside the K3 pool (lsf_float_route)."""
+    float LSF route (K3's float instances 11 / 12) at B beside the K3
+    pool and the split route (lsf_float_route)."""
     streams = [d for d, _ in lspecs]
     fr = parsed_frame(streams, dev, family)
     res = {"exact" if exact else "fast": {"k4": phase_k4_raw(
@@ -1299,12 +1450,15 @@ def lsf_float_route(streams: list[bytes], dev, family: int,
     """The float LSF route at B beside the S16 pool: a StreamDecoder of
     the family (K3) fed by LoopFeeder, WARMUP_STEPS + NEW_TIMED_STEPS
     steps; each step's uploaded wire goes through
-    decode_frame_packed_lsf(float_pcm=True) on a state of its own (the
-    stage ops and K4, instance 7 exact or 8 fast, once a step) before
-    pool.advance decodes it with K3.  Every slot's float PCM against the
-    step's S16 PCM: exact trunc(pcm x 32767) equal, fast within FLOAT_TOL
-    of S16 / 32767, except at the wrap; both steps timed with CUDA events
-    on the uploaded wire."""
+    decode_frame_packed_lsf(float_pcm=True) on a state of its own (K3's
+    float instance, 12 exact or 11 fast, once a step), through
+    decode_granules(float_pcm=True) on another (the stage ops and K4,
+    instance 7 exact or 8 fast, once a step), and then pool.advance
+    decodes it with K3.  Every slot's float PCM bitwise equal to the
+    split route's, and against the step's S16 PCM: exact trunc(pcm x
+    32767) equal, fast within FLOAT_TOL of S16 / 32767, except at the
+    wrap; the three steps timed with CUDA events on the uploaded
+    wire."""
     from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
     from pdmp3_tpu_torch.models.decoder import (decode_frame_packed_lsf,
                                                 init_state,
@@ -1313,6 +1467,8 @@ def lsf_float_route(streams: list[bytes], dev, family: int,
     path = f"phase 32 family {family} exact={exact}"
     k4 = "back_half" if exact else "back_half_raw"
     k3 = "fused_granule_lsf" + ("_exact" if exact else "")
+    kf = "fused_granule_lsf_float" + ("_exact" if exact else "")
+    split = FloatSplitCheck(B, dev, exact, family)
     pool = StreamDecoder(B, family=family, exact=exact, device=dev)
     feeder = LoopFeeder(pool, streams)
     state = init_state(B, dev)
@@ -1327,13 +1483,15 @@ def lsf_float_route(streams: list[bytes], dev, family: int,
         check(pool.parse_step() == B, f"{path}: step {step}: a slot "
                                       "starved")
         wire = pool.upload()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         pf, state = decode_frame_packed_lsf(wire, state, B=B, family=family,
                                             exact=exact, float_pcm=True)
         ev[1].record()
         pi = pool.advance(wire)
         ev[2].record()
+        split.step(wire, pf)
+        ev[3].record()
         events.append(ev)
         idle = wire_sections_lsf(wire, B)["active"] == 0
         ref = pi.to(torch.int32)
@@ -1351,15 +1509,19 @@ def lsf_float_route(streams: list[bytes], dev, family: int,
         worst = torch.maximum(worst, d.masked_fill(wrap, 0).max())
     torch.cuda.synchronize()
     ran = launched()
-    check(ran == {k4: steps, k3: steps},
-          f"{path}: launched {ran}, want {k4} and {k3} {steps} times each")
+    check(ran == {kf: steps, k4: steps, k3: steps},
+          f"{path}: launched {ran}, want {kf}, {k4} and {k3} {steps} "
+          "times each")
     check(int(off) == 0, f"{path}: {int(off)} float samples off the S16 "
                          "PCM (or an idle slot audible)")
     timed = events[WARMUP_STEPS:]
     float_ms = float(np.median([e[0].elapsed_time(e[1]) for e in timed]))
     s16_ms = float(np.median([e[1].elapsed_time(e[2]) for e in timed]))
+    split_ms = float(np.median([e[2].elapsed_time(e[3]) for e in timed]))
     return {"steps": NEW_TIMED_STEPS, "float_step_ms": float_ms,
             "s16_step_ms": s16_ms, "float_over_s16_step": float_ms / s16_ms,
+            "split_float_step_ms": split_ms,
+            "bitwise_vs_decode_granules": split.result(),
             "compared_samples": steps * B * 576 * 2,
             "wrap_samples": int(wraps),
             "max_abs_vs_s16_over_32767": float(worst),
@@ -2582,6 +2744,15 @@ def main() -> int:
     print("phase 17 K4 fast raw sums launch:", launch_line(
         k4r["launch"], ptxas, "back_half_kernel<false,false>"))
     lap("phase 17 kernel")
+    kf = {}
+    for exact in (False, True):
+        kf[(0, exact)] = r = phase_float_kernel(fr, exact)
+        print(f"phase 34 float instance MPEG-1 exact={exact} vs plain:",
+              json.dumps(r))
+        print(f"phase 34 float instance MPEG-1 exact={exact} launch:",
+              launch_line(r["launch"], ptxas, "fused_granule_float_kernel"
+                          f"<{str(exact).lower()}>"))
+    lap("phase 34 MPEG-1")
     k5 = {0: phase_frame_kernel(fr)}
     print("phase 14 K5 MPEG-1 vs plain, vs two K1:", json.dumps(k5[0]))
     print("phase 14 K5 MPEG-1 launch:", launch_line(
@@ -2614,6 +2785,14 @@ def main() -> int:
             print(f"phase 10 K3 family {family} exact={exact} launch:",
                   launch_line(r["launch"], ptxas, "fused_granule_lsf_kernel"
                               f"<{str(exact).lower()}>"))
+        for exact in (False, True):
+            kf[(family, exact)] = r = phase_float_kernel(lfr, exact, family)
+            print(f"phase 34 float instance family {family} exact={exact} "
+                  "vs plain:", json.dumps(r))
+            print(f"phase 34 float instance family {family} exact={exact} "
+                  "launch:", launch_line(
+                      r["launch"], ptxas, "fused_granule_lsf_float_kernel"
+                      f"<{str(exact).lower()}>"))
         k5[family] = phase_frame_kernel(lfr, family)
         print(f"phase 14 K5 family {family} vs plain:",
               json.dumps(k5[family]))
@@ -2631,7 +2810,7 @@ def main() -> int:
                   json.dumps(r))
             print(f"phase 11 vs native ({'bitwise' if exact else 'fast'}):",
                   json.dumps(slots))
-        lap(f"phases 10, 11, 14 family {family}")
+        lap(f"phases 10, 11, 14, 34 family {family}")
     api_lsf = phase_api(dev, lsf=True)
     print("phase 12 TorchDSP decode_file on LSF:", json.dumps(api_lsf))
     lap("phase 12")
@@ -2768,6 +2947,31 @@ def main() -> int:
                      plain_ms_by_family={f: k3[(f, exact)]["plain_ms"]
                                          for f in LSF_FAMILIES})
 
+    def float_entry(family, exact):
+        """Instances 9-12: the MPEG-1 ones launched by phase 17's pools,
+        the LSF ones by phase 32's float route, one family each."""
+        name = ("fused_granule" + ("_lsf" if family else "") + "_float"
+                + ("_exact" if exact else ""))
+        mode = "exact" if exact else "fast"
+        fams = LSF_FAMILIES if family else (0,)
+        if family:
+            by_path = {f"lsf_float_pcm_phase_32_family_{f}":
+                       lf[f][mode]["launches"][name] for f in fams}
+        else:
+            by_path = {"float_pcm_serving_phase_17":
+                       fp[mode][("exact_" if exact else "")
+                                + "float_kernel_launches"]}
+        r = kf[(fams[0], exact)]
+        return entry(name, "fused_granule.cu", sum(by_path.values()),
+                     max(kf[(f, exact)]["pcm_max_abs_err"] for f in fams),
+                     r, r, instance=9 + 2 * (family != 0) + exact,
+                     launch=r["launch"], launches_by_path=by_path,
+                     ms_by_family={f: kf[(f, exact)]["kernel_ms"]
+                                   for f in fams},
+                     plain_ms_by_family={f: kf[(f, exact)]["plain_ms"]
+                                         for f in fams},
+                     ragged=r["ragged"]["batch_slots"])
+
     def k4_times(r):
         return {"ms": r["kernel_ms"], "burst_ms": r["kernel_burst_ms"],
                 "per_call_ms": r["kernel_per_call_ms"],
@@ -2793,15 +2997,16 @@ def main() -> int:
         lsf_entry(False),
         lsf_entry(True),
         entry("back_half", "back_half.cu",
-              api["k4_launches"] + fp["exact"]["exact_float_kernel_launches"]
+              api["k4_launches"]
+              + fp["exact"]["exact_float_split_k4_launches"]
               + tools_k4 + lf_k4[True] + bench_k["back_half"],
               max(k4e["max_abs_err"], k4f["max_abs_err"],
                   *(lf[f]["exact"]["k4"]["max_abs_err"]
                     for f in LSF_FAMILIES)), k4e, k4,
               launches_by_path={
                   "per_stream_decode_file": api["k4_launches"],
-                  "float_pcm_exact_serving":
-                  fp["exact"]["exact_float_kernel_launches"],
+                  "float_pcm_exact_split_check_phase_17":
+                  fp["exact"]["exact_float_split_k4_launches"],
                   "soak_torch_dsp_phase_31": tools_k4,
                   "lsf_float_pcm_phase_32": lf_k4[True],
                   "bench_phase_33": bench_k["back_half"]},
@@ -2818,13 +3023,13 @@ def main() -> int:
               split_step_ms={"exact": k4e["split_step_ms"],
                              "fast": k4f["split_step_ms"]}),
         entry("back_half_raw", "back_half.cu",
-              fp["fast"]["float_kernel_launches"] + lf_k4[False],
+              fp["fast"]["float_split_k4_launches"] + lf_k4[False],
               max(k4r["max_abs_err"], *(lf[f]["fast"]["k4"]["max_abs_err"]
                                         for f in LSF_FAMILIES)), k4r,
               k4r, instance=8, launch=k4r["launch"],
               launches_by_path={
-                  "float_pcm_fast_serving":
-                  fp["fast"]["float_kernel_launches"],
+                  "float_pcm_fast_split_check_phase_17":
+                  fp["fast"]["float_split_k4_launches"],
                   "lsf_float_pcm_phase_32": lf_k4[False]},
               ms_lsf_by_family={f: lf[f]["fast"]["k4"]["kernel_ms"]
                                 for f in LSF_FAMILIES},
@@ -2846,6 +3051,8 @@ def main() -> int:
               plain_ms_by_family={f: r["plain_ms"] for f, r in k5.items()},
               two_k1_ms=k5[0]["ab_interleaved"]["two_k1_ms"],
               k5_over_two_k1=k5[0]["ab_interleaved"]["k5_over_two_k1"]),
+        *(float_entry(family, exact) for family in (0, 1)
+          for exact in (False, True)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

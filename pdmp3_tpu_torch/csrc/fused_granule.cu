@@ -1,7 +1,8 @@
 // Fused Layer III granule step for NVIDIA Hopper (sm_90a), in two
 // precisions and two family kinds: K1 (MPEG-1, fast), K2 (MPEG-1, exact,
 // bit-exact with the reference) and K3 (the LSF families MPEG-2 and
-// MPEG-2.5, fast and exact).
+// MPEG-2.5, fast and exact); and each of the four again with float PCM
+// (persistent instances 9-12, below).
 //
 // Replaces the TPU kernel pdmp3_tpu/ops/pallas_step.py:_kernel_full
 // (_fused_granule + _back_ch_sb) for family 0 in fast mode (K1) and exact
@@ -81,6 +82,21 @@
 // zero gain (q >= 100) and the band-12 true gain on granule 1's ch1, and
 // the float64 rounding points of rounding.cuh (MS, the unsigned quirk,
 // quantize).
+//
+// Float PCM (instances 9-12: MPEG-1 fast, MPEG-1 exact, LSF fast, LSF
+// exact).  The JAX package computes float PCM in one XLA program
+// (pdmp3_tpu/models/decoder.py decode_granules(float_pcm=True)); its
+// Pallas step refuses it.  These instances are K1, K2 and K3 with the
+// body's kFloat switch: the FIR sums go out as ops/dsp.py float_pack
+// makes them (NaN -> -1, clamp to [-1, 1], f32 L|R, mono duplicated)
+// instead of quantized, so one launch replaces the split route's stage
+// ops and K4 raw-sums launch (ops/back_half.py float_granule_step) for
+// every pool on the card.  The exact instances round nowhere in f64 (the
+// quantize was K2's and K3's only f64 point after the stereo); their sums
+// are the plain version's bit for bit.  The PCM row in shared memory
+// doubles to 4,608 B (dynamic shared memory 74,816 B MPEG-1, 75,072 B
+// LSF); the bound grows by the 2,304 B more PCM per slot (at B = 8192:
+// 37.7 MB of PCM where S16 writes 18.9 MB).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,23 +144,74 @@ fused_granule_lsf_kernel(const int16_t* __restrict__ ix,
                                            image, B, lsf, 1, 0u);
 }
 
-// the kernel of persistent instance 0..3: K1, K2, K3 fast, K3 exact
+// Float PCM: K1 / K2 (instances 9, 10) and K3 (11, 12) writing f32 L|R
+// pairs; separate kernels, so the S16 instances keep their names and code
+template <bool kExact>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_granule_float_kernel(const int16_t* __restrict__ ix,
+                           const int16_t* __restrict__ scf_l,
+                           const int16_t* __restrict__ scf_s,
+                           const int32_t* __restrict__ meta,
+                           const int32_t* __restrict__ active, int gr1,
+                           int bug_compat, float* __restrict__ store,
+                           float* __restrict__ v, float* __restrict__ prev,
+                           float2* __restrict__ pcm, Tables t,
+                           const float4* __restrict__ image, int B) {
+  persistent_granules<kExact, false, false, true>(
+      ix, scf_l, scf_s, meta, active, gr1, bug_compat, store, v, prev, pcm,
+      t, image, B, LsfOperands{}, 1, 0u);
+}
+
+template <bool kExact>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_granule_lsf_float_kernel(const int16_t* __restrict__ ix,
+                               const int16_t* __restrict__ scf_l,
+                               const int16_t* __restrict__ scf_s,
+                               const int32_t* __restrict__ meta,
+                               const int32_t* __restrict__ active,
+                               float* __restrict__ store,
+                               float* __restrict__ v,
+                               float* __restrict__ prev,
+                               float2* __restrict__ pcm, Tables t,
+                               const float4* __restrict__ image, int B,
+                               LsfOperands lsf) {
+  persistent_granules<kExact, true, false, true>(
+      ix, scf_l, scf_s, meta, active, 0, 0, store, v, prev, pcm, t, image, B,
+      lsf, 1, 0u);
+}
+
+// the kernel of persistent instance 0..3 (K1, K2, K3 fast, K3 exact) or
+// 9..12 (the same with float PCM)
 const void* granule_kernel(int instance) {
   switch (instance) {
     case 0: return reinterpret_cast<const void*>(fused_granule_kernel<false>);
     case 1: return reinterpret_cast<const void*>(fused_granule_kernel<true>);
     case 2:
       return reinterpret_cast<const void*>(fused_granule_lsf_kernel<false>);
-    default:
+    case 3:
       return reinterpret_cast<const void*>(fused_granule_lsf_kernel<true>);
+    case 9:
+      return reinterpret_cast<const void*>(fused_granule_float_kernel<false>);
+    case 10:
+      return reinterpret_cast<const void*>(fused_granule_float_kernel<true>);
+    case 11:
+      return reinterpret_cast<const void*>(
+          fused_granule_lsf_float_kernel<false>);
+    default:
+      return reinterpret_cast<const void*>(
+          fused_granule_lsf_float_kernel<true>);
   }
 }
 
 int granule_grid(int instance, int* grid, int* info) {
-  return persistent_grid(instance, granule_kernel(instance),
-                         instance < 2 ? Smem<false, false>::kSmemBytes
-                                      : Smem<true, false>::kSmemBytes,
-                         grid, info);
+  const bool lsf = instance == 2 || instance == 3 || instance >= 11;
+  const int smem = instance >= 9
+                       ? (lsf ? Smem<true, false, true>::kSmemBytes
+                              : Smem<false, false, true>::kSmemBytes)
+                       : (lsf ? Smem<true, false>::kSmemBytes
+                              : Smem<false, false>::kSmemBytes);
+  return persistent_grid(instance, granule_kernel(instance), smem, grid,
+                         info);
 }
 
 }  // namespace
@@ -158,41 +225,61 @@ int pdmp3_back_half_launch_info(int mode, int* info);   // back_half.cu
 // device into info[6]: grid, blocks per SM, dynamic shared memory per
 // block (bytes), registers per thread, local memory per thread (bytes),
 // SM count.  instance: 0 K1, 1 K2, 2 K3 fast, 3 K3 exact, 4 K5 MPEG-1, 5
-// K5 LSF, 6 K4 fast, 7 K4 exact, 8 K4 fast raw sums.  Returns a
-// cudaError_t (0 on success).
+// K5 LSF, 6 K4 fast, 7 K4 exact, 8 K4 fast raw sums, 9 K1 float, 10 K2
+// float, 11 K3 fast float, 12 K3 exact float.  Returns a cudaError_t (0
+// on success).
 int pdmp3_granule_launch_info(int instance, int* info) {
   if (instance < 0 || instance >= kInstances)
     return (int)cudaErrorInvalidValue;
-  if (instance >= 6) return pdmp3_back_half_launch_info(instance - 6, info);
-  if (instance >= 4) return pdmp3_frame_launch_info(instance - 4, info);
+  if (instance >= 6 && instance < 9)
+    return pdmp3_back_half_launch_info(instance - 6, info);
+  if (instance >= 4 && instance < 6)
+    return pdmp3_frame_launch_info(instance - 4, info);
   int grid = 0;
   return granule_grid(instance, &grid, info);
 }
 
 // Launch one granule step for B slots on `stream`: for MPEG-1 (lsf = 0)
 // K2 when exact else K1; for the LSF families (lsf = 1, is_pos the [B][64]
-// sidecar, gr1 = 0) K3 in the precision `exact` selects; min(B, the
-// resident grid) blocks walk the B slots.  tables: the device pointers of
-// fused_step.TABLES (maps of the step's family; then the LSF gains k0/k1
-// and the shared-memory table image).  Returns the launch-geometry query's
-// or cudaGetLastError()'s code (0 when the launch was accepted).
+// sidecar, gr1 = 0) K3 in the precision `exact` selects; with float_pcm
+// the same step writing float PCM (instances 9-12; pcm f32 [B][576][2],
+// else int16); min(B, the resident grid) blocks walk the B slots.
+// tables: the device pointers of fused_step.TABLES (maps of the step's
+// family; then the LSF gains k0/k1 and the shared-memory table image).
+// Returns the launch-geometry query's or cudaGetLastError()'s code (0 when
+// the launch was accepted).
 int pdmp3_fused_granule(const int16_t* ix, const int16_t* scf_l,
                         const int16_t* scf_s, const int32_t* meta,
                         const int32_t* active, const int16_t* is_pos,
-                        float* store, float* v, float* prev, int16_t* pcm,
+                        float* store, float* v, float* prev, void* pcm,
                         const void* const* tables, int B, int gr1,
-                        int bug_compat, int exact, int lsf, void* stream) {
+                        int bug_compat, int exact, int lsf, int float_pcm,
+                        void* stream) {
   const Tables t = make_tables(tables);
-  auto* out = reinterpret_cast<uint32_t*>(pcm);
+  auto* out = static_cast<uint32_t*>(pcm);
+  auto* outf = static_cast<float2*>(pcm);
   auto* s = (cudaStream_t)stream;
   const auto* image = static_cast<const float4*>(tables[kTables + 2]);
   int grid = 0;
-  const int e = granule_grid(2 * (lsf != 0) + (exact != 0), &grid, nullptr);
+  const int e = granule_grid(
+      (float_pcm ? 9 : 0) + 2 * (lsf != 0) + (exact != 0), &grid, nullptr);
   if (e != 0) return e;
   const int blocks = grid < B ? grid : B;
-  if (lsf) {
-    const LsfOperands ops{is_pos, static_cast<const float*>(tables[kTables]),
-                          static_cast<const float*>(tables[kTables + 1])};
+  const LsfOperands ops{is_pos, static_cast<const float*>(tables[kTables]),
+                        static_cast<const float*>(tables[kTables + 1])};
+  if (float_pcm && lsf) {
+    const auto kernel = exact ? fused_granule_lsf_float_kernel<true>
+                              : fused_granule_lsf_float_kernel<false>;
+    kernel<<<blocks, kThreads, Smem<true, false, true>::kSmemBytes, s>>>(
+        ix, scf_l, scf_s, meta, active, store, v, prev, outf, t, image, B,
+        ops);
+  } else if (float_pcm) {
+    const auto kernel = exact ? fused_granule_float_kernel<true>
+                              : fused_granule_float_kernel<false>;
+    kernel<<<blocks, kThreads, Smem<false, false, true>::kSmemBytes, s>>>(
+        ix, scf_l, scf_s, meta, active, gr1, bug_compat, store, v, prev,
+        outf, t, image, B);
+  } else if (lsf) {
     const auto kernel = exact ? fused_granule_lsf_kernel<true>
                               : fused_granule_lsf_kernel<false>;
     kernel<<<blocks, kThreads, Smem<true, false>::kSmemBytes, s>>>(

@@ -92,4 +92,11 @@ __device__ __forceinline__ float quantize_fast(float acc) {
   return fminf(fmaxf(tr, -32767.0f), 32767.0f);
 }
 
+// float PCM (ops/dsp.py float_pack): NaN becomes -1, everything else is
+// clamped to [-1, 1].  NaN is tested first: fminf / fmaxf return the
+// operand that is not NaN, so the clamp alone would give it +-1
+__device__ __forceinline__ float float_sample(float acc) {
+  return isnan(acc) ? -1.0f : fminf(fmaxf(acc, -1.0f), 1.0f);
+}
+
 }  // namespace pdmp3

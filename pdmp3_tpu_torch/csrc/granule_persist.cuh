@@ -4,7 +4,9 @@
 // launched from frame_fused.cu; and beside it persistent_back_half, the
 // same pattern over the same back-half stages (imdct4, matrix4, and
 // fir3, the FIR the body writes inline) for K4 (back_half.cu), fast and
-// exact, quantized or raw.
+// exact, quantized or raw.  With kFloat the granule body writes float
+// PCM (the FIR sums as ops/dsp.py float_pack makes them) where it writes
+// S16: instances 9-12 of fused_granule.cu.
 //
 // Persistent blocks walk units: for K1-K3 a unit is one slot's granule
 // step, b = blockIdx.x + k * gridDim.x; for K5 it is one (slot, granule)
@@ -22,6 +24,7 @@
 
 #include <atomic>
 #include <mutex>
+#include <type_traits>
 
 #include "granule.cuh"
 
@@ -43,8 +46,9 @@ constexpr int kSmallTid = 64;  // first of the threads that copy the
 // carry the slot's store and carried FIFO rows in the stage; K5 carries
 // the wire only there, and the state in two state sets (slot iterations
 // k alternate between them, so the next slot's state arrives during the
-// current slot's last granule).
-template <bool kLsf, bool kFrame>
+// current slot's last granule).  kFloat: the PCM row holds f32 L|R
+// pairs, twice the int16 row.
+template <bool kLsf, bool kFrame, bool kFloat = false>
 struct Smem {
   // one stage of the unit ring: the first kSBulk bytes arrive by bulk
   // copy (16-byte aligned and sized), the small fields by 4-byte
@@ -80,7 +84,8 @@ struct Smem {
   // K1-K3: the new FIFO rows f32 [2][18][64]; K5: the two state sets
   static constexpr int kONb = kOXt + 32 * kXtRow * 4;
   static constexpr int kOPcm = kONb + (kFrame ? 2 * kStateSet : kNbBytes);
-  static constexpr int kOBar = kOPcm + kLines * 4;      // two mbarriers
+  static constexpr int kOBar =                         // two mbarriers
+      kOPcm + kLines * (kFloat ? 8 : 4);
   // K5: thread 0's active-granule masks of slots b and b + G, in shared
   // memory rather than in registers, which the unit body needs
   static constexpr int kOMask = kOBar + 16;
@@ -498,16 +503,27 @@ __device__ __forceinline__ unsigned granule_mask(
 // back after its last active granule; a parity-0 granule latches the
 // band-12 carry into the set, a parity-1 granule reads it.  Granule g's
 // PCM goes to row b * ng + g.
-template <bool kExact, bool kLsf, bool kFrame>
+//
+// kFloat (K1-K3 only): the FIR sums go out as float PCM, float_sample of
+// each (no quantize, so no f64 rounding point in the exact instances),
+// interleaved L|R as f32 with mono duplicating L; an idle unit writes
+// +0.0 in both channels.  Everything before the FIR's output is the S16
+// instances' own code.
+template <bool kFloat>
+using PcmLine = std::conditional_t<kFloat, float2, uint32_t>;  // one L|R
+
+template <bool kExact, bool kLsf, bool kFrame, bool kFloat = false>
 __device__ __forceinline__ void persistent_granules(
     const int16_t* __restrict__ ix, const int16_t* __restrict__ scf_l,
     const int16_t* __restrict__ scf_s, const int32_t* __restrict__ meta,
     const int32_t* __restrict__ active, int gr1, int bug_compat,
     float* __restrict__ store, float* __restrict__ v,
-    float* __restrict__ prev, uint32_t* __restrict__ pcm, const Tables& t,
-    const float4* __restrict__ image, int B, const LsfOperands& lsf,
-    int ng, unsigned parities) {
-  using L = Smem<kLsf, kFrame>;
+    float* __restrict__ prev, PcmLine<kFloat>* __restrict__ pcm,
+    const Tables& t, const float4* __restrict__ image, int B,
+    const LsfOperands& lsf, int ng, unsigned parities) {
+  static_assert(!(kFloat && kFrame), "float PCM is a granule instance");
+  using L = Smem<kLsf, kFrame, kFloat>;
+  constexpr int kPcmRowBytes = kLines * (int)sizeof(PcmLine<kFloat>);
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   float* tab = reinterpret_cast<float*>(smem + L::kOTab);
@@ -663,14 +679,18 @@ __device__ __forceinline__ void persistent_granules(
         act_next = bn + G < B ? __ldg(active + bn + G) : 0;
       }
       if (pend >= 0) {
-        bulk_store(pcm + (size_t)pend * kLines, s_pcm, kLines * 4);
+        bulk_store(pcm + (size_t)pend * kLines, s_pcm, kPcmRowBytes);
         bulk_commit();
       }
       pend = act ? prow : -1;
     }
     if (bn < B) copy_small(s ^ 1, bn, gn);
     if (!act) {
-      pcm[(size_t)prow * kLines + tid] = 0u;  // silence, state untouched
+      // silence, state untouched
+      if constexpr (kFloat)
+        pcm[(size_t)prow * kLines + tid] = make_float2(0.0f, 0.0f);
+      else
+        pcm[(size_t)prow * kLines + tid] = 0u;
       continue;
     }
     // the thread index, opaque per unit: otherwise the compiler hoists
@@ -828,16 +848,31 @@ __device__ __forceinline__ void persistent_granules(
         for (int o = 0; o < 3; ++o) acc[o] = acc[o] + d * e[15 - j + 2 * o];
       }
       const int nch = max(sm[M_NCH], 1);
+      if constexpr (kFloat) {
+        float* s_pcmf = reinterpret_cast<float*>(smem + L::kOPcm);
 #pragma unroll
-      for (int o = 0; o < 3; ++o) {
-        const int idx = (it0 + 2 * o) * 32 + kc;
-        const int16_t q =
-            (int16_t)(kExact ? qz_f64(acc[o]) : quantize_fast(acc[o]));
-        if (fch == 0) {
-          s_pcm[2 * idx] = q;
-          if (nch == 1) s_pcm[2 * idx + 1] = q;  // mono: duplicate L
-        } else if (nch != 1) {
-          s_pcm[2 * idx + 1] = q;
+        for (int o = 0; o < 3; ++o) {
+          const int idx = (it0 + 2 * o) * 32 + kc;
+          const float f = float_sample(acc[o]);
+          if (fch == 0) {
+            s_pcmf[2 * idx] = f;
+            if (nch == 1) s_pcmf[2 * idx + 1] = f;  // mono: duplicate L
+          } else if (nch != 1) {
+            s_pcmf[2 * idx + 1] = f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int o = 0; o < 3; ++o) {
+          const int idx = (it0 + 2 * o) * 32 + kc;
+          const int16_t q =
+              (int16_t)(kExact ? qz_f64(acc[o]) : quantize_fast(acc[o]));
+          if (fch == 0) {
+            s_pcm[2 * idx] = q;
+            if (nch == 1) s_pcm[2 * idx + 1] = q;  // mono: duplicate L
+          } else if (nch != 1) {
+            s_pcm[2 * idx + 1] = q;
+          }
         }
       }
     }
@@ -847,7 +882,7 @@ __device__ __forceinline__ void persistent_granules(
   __syncthreads();
   if (tid == 0) {
     if (pend >= 0) {
-      bulk_store(pcm + (size_t)pend * kLines, s_pcm, kLines * 4);
+      bulk_store(pcm + (size_t)pend * kLines, s_pcm, kPcmRowBytes);
       bulk_commit();
     }
     bulk_wait_all();
@@ -1057,8 +1092,9 @@ __device__ __forceinline__ void persistent_back_half(
 
 constexpr int kMaxDevices = 64;
 // the persistent instances: K1, K2, K3 fast, K3 exact, K5 MPEG-1, K5 LSF,
-// K4 fast, K4 exact, K4 fast raw sums
-constexpr int kInstances = 9;
+// K4 fast, K4 exact, K4 fast raw sums, then the float-PCM granule
+// instances: MPEG-1 fast, MPEG-1 exact, LSF fast, LSF exact
+constexpr int kInstances = 13;
 
 // The persistent grid of one kernel instance on the current device: SM
 // count x resident blocks per SM at `smem` bytes of dynamic shared

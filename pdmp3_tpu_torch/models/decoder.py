@@ -16,10 +16,12 @@ Three routes:
   no granule axis and one more section, the intensity sidecar;
 - float PCM (``float_pcm=True``: MPEG-1 serving, and every family in
   ``decode_granules``, ``decode_frame_lsf_soa`` and
-  ``decode_frame_packed_lsf``): every granule on the split route with raw
-  sums (``ops.back_half.float_granule_step``: the stage-op front half, K4
-  instance 7 exact or 8 fast, ``float_pack``), since K1, K2, K3 and K5
-  quantize inside their bodies;
+  ``decode_frame_packed_lsf``): the serving routes run each granule as
+  the fused step with float PCM (K1, K2, K3's float instances 9-12 on
+  CUDA: one launch, no stage op); ``decode_granules`` keeps the JAX
+  package's split route with raw sums (``ops.back_half.
+  float_granule_step``: the stage-op front half, K4 instance 7 exact or
+  8 fast, ``float_pack``), with the same bits;
 - per stream: ``TorchDSP`` plugs into the port's streaming API
   (``pdmp3_tpu_torch.api``) and decodes parsed ``FrameData`` of either
   kind through ``frame_to_batches`` and ``decode_granules``, the split
@@ -223,7 +225,7 @@ def decode_frame_soa(ix2, scf_l2, scf_s2, meta2, active, state,
     scf_s2 int16 [2,B,2,39], meta2 [2,B,32], active [B].  Fast frames
     run as one frame step (K5 on CUDA) when ``_FRAME_FUSED`` is set,
     every other frame as two granule steps (K1 / K2 on CUDA); float PCM
-    as two float granule steps (stage ops + K4 with raw sums on CUDA).
+    as two granule steps writing float PCM (instances 9 / 10 on CUDA).
     Returns (pcm int16 [B,1152,2], or f32 [B,1152,2] in [-1, 1] with
     float_pcm; state updated in place)."""
     if _FRAME_FUSED and not exact and not float_pcm:
@@ -232,13 +234,13 @@ def decode_frame_soa(ix2, scf_l2, scf_s2, meta2, active, state,
                           meta2.to(torch.int32).contiguous(),
                           torch.stack([act, act]), (0, 1), state,
                           bug_compat)
-    step = float_granule_step if float_pcm else fused_granule_step
     pcms = []
     for gr in range(2):
         b = _batch_from_meta(ix2[gr], scf_l2[gr], scf_s2[gr], meta2[gr],
                              active, gr)
-        pcm, state = step(b.ix, b.scf_l, b.scf_s, b.meta, b.active, b.gr1,
-                          state, bug_compat, exact)
+        pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
+                                        b.active, b.gr1, state, bug_compat,
+                                        exact, float_pcm=float_pcm)
         pcms.append(pcm)
     return torch.cat(pcms, 1), state
 
@@ -355,18 +357,18 @@ def decode_frame_lsf_soa(ix, scf_l, scf_s, meta, is_pos, active, state,
     each, from the wire's section tensors: ix int16 [F,B,2,576], scf_l
     int16 [F,B,2,22], scf_s int16 [F,B,2,39], meta [F,B,32], is_pos int16
     [F,B,64], active [F,B]; family 1 or 2.  Each step is the fused one
-    (K3 on CUDA), or with float_pcm a float granule step (stage ops + K4
-    with raw sums on CUDA).  Returns (pcm int16 [B, F*576, 2], or f32 in
+    (K3 on CUDA; with float_pcm K3's float instances 11 / 12).  Returns (pcm int16 [B, F*576, 2], or f32 in
     [-1, 1] with float_pcm; state updated in place)."""
     if family not in (1, 2):
         raise ValueError(f"LSF family must be 1 or 2, got {family!r}")
-    step = float_granule_step if float_pcm else fused_granule_step
     pcms = []
     for f in range(ix.shape[0]):
         b = _batch_from_meta(ix[f], scf_l[f], scf_s[f], meta[f], active[f],
                              0)
-        pcm, state = step(b.ix, b.scf_l, b.scf_s, b.meta, b.active, 0,
-                          state, bug_compat, exact, family, is_pos[f])
+        pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
+                                        b.active, 0, state, bug_compat,
+                                        exact, family, is_pos[f],
+                                        float_pcm=float_pcm)
         pcms.append(pcm)
     return _join(pcms), state
 

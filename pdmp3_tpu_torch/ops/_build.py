@@ -125,8 +125,8 @@ def load() -> C.CDLL:
     ptr, i32 = C.c_void_p, C.c_int
     sigs = {
         # 10 operand pointers, the table array, B, gr1, bug_compat,
-        # exact, lsf
-        "pdmp3_fused_granule": [ptr] * 11 + [i32] * 5 + [ptr],
+        # exact, lsf, float_pcm
+        "pdmp3_fused_granule": [ptr] * 11 + [i32] * 6 + [ptr],
         # 10 operand pointers, the table array, B, ng, parities,
         # bug_compat, lsf
         "pdmp3_frame_fused": [ptr] * 11 + [i32] * 5 + [ptr],

@@ -16,8 +16,9 @@ quantize, and with ``raw=True`` in fast mode too (the float-PCM route,
 for every family: the stage-op front half (the LSF families' gains,
 intensity sidecar and full-spectrum MS included),
 ``back_half_step(raw=True)``, ``dsp.float_pack`` and the ``prev_lines``
-latch.  K1, K2, K3 and K5 quantize inside their bodies, so float PCM
-takes this split route on the card.
+latch.  ``models.decoder.decode_granules(float_pcm=True)`` takes it; the
+serving routes take ``fused_step.fused_granule_step(float_pcm=True)``
+(K1-K3's float instances 9-12 on the card) instead, with the same bits.
 
 ``split_granule_step`` is the split exact route of
 ``decode_granules_pallas`` (``pallas_step.py:1636-1666``), and in fast

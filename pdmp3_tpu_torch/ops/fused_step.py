@@ -17,8 +17,11 @@ the TPU kernel they launch, ``_kernel_full``.
   against, and the path for CPU tensors;
 - the hand-written CUDA kernels of ``csrc/fused_granule.cu``, launched
   for CUDA tensors: for family 0 K1 in fast mode and K2 in exact mode,
-  for the LSF families K3 (its fast and exact instances).  There is no
-  fallback between them: a CUDA tensor either runs a kernel or raises.
+  for the LSF families K3 (its fast and exact instances); with
+  ``float_pcm=True`` the same four writing float PCM (persistent
+  instances 9-12: the FIR sums as ``dsp.float_pack`` makes them, no
+  quantize).  There is no fallback between them: a CUDA tensor either
+  runs a kernel or raises.
 
 K1, K2 and K3 are persistent (``granule_launch_info``: a grid of the SM
 count times the resident blocks per SM walks the B slots) and bring
@@ -53,12 +56,17 @@ from .consts import device_consts
 
 # Launches of the CUDA kernels since the last reset, each instance
 # apart: K1 (fast) and K2 (exact) for family 0, K3 fast and exact for the
-# LSF families (a run sets them to 0, drives the path, and reads them
-# back to prove the path used the kernel).
+# LSF families, and the four again with float PCM (instances 9-12) (a
+# run sets them to 0, drives the path, and reads them back to prove the
+# path used the kernel).
 LAUNCHES = 0
 LAUNCHES_EXACT = 0
 LAUNCHES_LSF = 0
 LAUNCHES_LSF_EXACT = 0
+LAUNCHES_FLOAT = 0
+LAUNCHES_FLOAT_EXACT = 0
+LAUNCHES_LSF_FLOAT = 0
+LAUNCHES_LSF_FLOAT_EXACT = 0
 
 _F32 = torch.float32
 
@@ -98,13 +106,14 @@ def check_bulk_alignment(**operands) -> None:
 
 def launch_instance(exact: bool = False, family: int = 0,
                     frame: bool = False, back_half: bool = False,
-                    raw: bool = False) -> int:
+                    raw: bool = False, float_pcm: bool = False) -> int:
     """The persistent kernel instance of pdmp3_granule_launch_info: 0 K1,
     1 K2, 2 K3 fast, 3 K3 exact (family 1 or 2), 4 K5 MPEG-1, 5 K5 LSF
     (frame; fast only), 6 K4 fast, 7 K4 exact, 8 K4 fast raw sums
     (back_half; K4 takes post-antialias spectra of any family, so no
-    family; exact K4 always returns raw sums).  ValueError for any other
-    combination."""
+    family; exact K4 always returns raw sums), 9-12 K1, K2, K3 fast and
+    K3 exact writing float PCM (float_pcm; granule steps only).
+    ValueError for any other combination."""
     if family not in (0, 1, 2):
         raise ValueError(f"family must be 0, 1 or 2, got {family!r}")
     if frame and exact:
@@ -113,25 +122,28 @@ def launch_instance(exact: bool = False, family: int = 0,
         raise ValueError("K4, the back half, takes no frame and no family")
     if raw and not back_half:
         raise ValueError("raw sums come from K4, the back half, only")
+    if float_pcm and (frame or back_half):
+        raise ValueError("float PCM instances are granule steps (K1-K3)")
     if back_half:
         return 7 if exact else 8 if raw else 6
     if frame:
         return 4 + (family != 0)
-    return 2 * (family != 0) + int(exact)
+    return 9 * float_pcm + 2 * (family != 0) + int(exact)
 
 
 def granule_launch_info(device, exact: bool = False, family: int = 0,
                         frame: bool = False, back_half: bool = False,
-                        raw: bool = False) -> dict:
+                        raw: bool = False, float_pcm: bool = False) -> dict:
     """The launch geometry of the persistent kernel that runs a step of
-    `family` in that precision (K1, K2 or K3; K5 when frame; K4 when
-    back_half, instance 8 with raw) on a CUDA device, from the kernel
-    library: the persistent
+    `family` in that precision (K1, K2 or K3, instances 9-12 with
+    float_pcm; K5 when frame; K4 when back_half, instance 8 with raw) on
+    a CUDA device, from the kernel library: the persistent
     grid (SM count x resident blocks per SM; min(B, grid) blocks launch),
     blocks per SM, dynamic shared memory per block, registers and local
     (spill) bytes per thread, SM count.  The arguments are checked
     (launch_instance) before the library is loaded."""
-    instance = launch_instance(exact, family, frame, back_half, raw)
+    instance = launch_instance(exact, family, frame, back_half, raw,
+                               float_pcm)
     from . import _build
 
     lib = _build.load()
@@ -188,7 +200,8 @@ def _check(ix, scf_l, scf_s, meta, active, gr1, state, family=0,
 
 def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
                        bug_compat: bool = True, exact: bool = False,
-                       family: int = 0, is_pos=None):
+                       family: int = 0, is_pos=None,
+                       float_pcm: bool = False):
     """One granule step for B slots of one family.
 
     ix int16 [B,2,576] line-ordered spectra (the wire's short-block
@@ -206,20 +219,23 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
     latches prev_lines as the JAX package does.
 
     Returns (pcm int16 [B,576,2] interleaved L/R with mono duplicated,
-    state).  CPU tensors take the plain PyTorch version; CUDA tensors
-    launch the kernel (family 0: K2 when exact, else K1; LSF: K3)."""
-    global LAUNCHES, LAUNCHES_EXACT, LAUNCHES_LSF, LAUNCHES_LSF_EXACT
+    state); with float_pcm, pcm f32 [B,576,2] in [-1, 1] (dsp.float_pack
+    of the synthesis sums; zeros for idle slots).  CPU tensors take the
+    plain PyTorch version; CUDA tensors launch the kernel (family 0: K2
+    when exact, else K1; LSF: K3; float_pcm: their float instances
+    9-12)."""
     B = _check(ix, scf_l, scf_s, meta, active, gr1, state, family, is_pos)
     if ix.device.type == "cpu":
         return fused_granule_step_ref(ix, scf_l, scf_s, meta, active, gr1,
                                       state, bug_compat, exact, family,
-                                      is_pos)
+                                      is_pos, float_pcm)
     if ix.device.type != "cuda":
         raise ValueError(f"no fused granule step for {ix.device}")
     from . import _build
 
     lib = _build.load()
-    pcm = torch.empty((B, 576, 2), dtype=torch.int16, device=ix.device)
+    pcm = torch.empty((B, 576, 2), device=ix.device,
+                      dtype=_F32 if float_pcm else torch.int16)
     if B == 0:
         return pcm, state
     check_bulk_alignment(ix=ix, meta=meta, store=state.store,
@@ -237,30 +253,27 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
         rc = lib.pdmp3_fused_granule(*ptr, table_ptrs(ix.device, family),
                                      B, int(gr1), int(bool(bug_compat)),
                                      int(bool(exact)), int(family != 0),
+                                     int(bool(float_pcm)),
                                      C.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("fused_granule launch failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())
-    if family and exact:
-        LAUNCHES_LSF_EXACT += 1
-    elif family:
-        LAUNCHES_LSF += 1
-    elif exact:
-        LAUNCHES_EXACT += 1
-    else:
-        LAUNCHES += 1
+    counter = ("LAUNCHES" + ("_LSF" if family else "")
+               + ("_FLOAT" if float_pcm else "") + ("_EXACT" if exact else ""))
+    globals()[counter] += 1
     return pcm, state
 
 
 def fused_granule_step_ref(ix, scf_l, scf_s, meta, active, gr1: int,
                            state, bug_compat: bool = True,
                            exact: bool = False, family: int = 0,
-                           is_pos=None):
+                           is_pos=None, float_pcm: bool = False):
     """Plain batched PyTorch version of fused_granule_step (same
     arguments, same in-place state update): the stage ops of ops/dsp.py
-    composed.  Every operation rounds in the order the kernels use, the
-    IMDCT and polyphase sums included, so each kernel is held to it bit
-    for bit on the card."""
+    composed, ending in dsp.float_pack with float_pcm, else in the
+    quantize and the pack.  Every operation rounds in the order the
+    kernels use, the IMDCT and polyphase sums included, so each kernel
+    is held to it bit for bit on the card."""
     f = D.fields(meta)
     xa = D.front_half(ix, scf_l, scf_s, meta, gr1, state.prev_lines,
                       exact, bug_compat, family, is_pos)
@@ -268,7 +281,8 @@ def fused_granule_step_ref(ix, scf_l, scf_s, meta, active, gr1: int,
     x_time, new_store = D.hybrid_synthesis(xa, state.store, bt_eff, exact)
     x_time = D.freq_invert(x_time)
     sums, new_v = D.subband_synthesis(x_time, state.v_blocks, exact)
-    pcm = D.pack(D.quantize(sums, exact), f.nch, active)
+    pcm = (D.float_pack(sums, f.nch, active) if float_pcm
+           else D.pack(D.quantize(sums, exact), f.nch, active))
     commit_state(state, active, new_store, new_v)
     latch_prev(state, active, gr1, x_time[:, 0, 0, 0:3])
     return pcm, state

@@ -226,7 +226,8 @@ class StreamDecoder(_Pool):
     device (required) selects where the DSP runs: CUDA launches the
     hand-written kernels (MPEG-1: K2 when exact, else K1, or K5, one per
     frame, with ``models.decoder._FRAME_FUSED`` set; LSF: K3; float PCM:
-    the stage ops and K4), the CPU runs their plain PyTorch versions.
+    K1 / K2's float instances), the CPU runs their plain PyTorch
+    versions.
     exact=True decodes bit-exact with the reference decoder.
     frames_per_step=F parses and decodes F frames per slot and step.
     family 1 / 2 makes an MPEG-2 / MPEG-2.5 LSF pool: the handles get

@@ -136,6 +136,10 @@ def counters() -> dict:
             "fused_granule_exact": (FS, "LAUNCHES_EXACT"),
             "fused_granule_lsf": (FS, "LAUNCHES_LSF"),
             "fused_granule_lsf_exact": (FS, "LAUNCHES_LSF_EXACT"),
+            "fused_granule_float": (FS, "LAUNCHES_FLOAT"),
+            "fused_granule_float_exact": (FS, "LAUNCHES_FLOAT_EXACT"),
+            "fused_granule_lsf_float": (FS, "LAUNCHES_LSF_FLOAT"),
+            "fused_granule_lsf_float_exact": (FS, "LAUNCHES_LSF_FLOAT_EXACT"),
             "back_half": (BH, "LAUNCHES"),
             "back_half_raw": (BH, "LAUNCHES_RAW"),
             "rounding_sweep": (R, "LAUNCHES"),
