@@ -14,9 +14,10 @@ sizes: the serving diff, the 102,400-slot scale simulation, the wire
 profile, a four-rank soak, the parse sweep, the resample sweep and the
 differential soak; then float PCM of the LSF families at the model
 level; then the port's bench (``pdmp3_tpu_torch.bench``) at
-turned-down sizes; thirty-three phases in all (phase 34, the float
-granule instances, runs beside phases 2 and 10), and any failure exits
-non-zero.  The kernels
+turned-down sizes; thirty-five phases in all (phase 34, the float
+granule instances, runs beside phases 2 and 10, and phases 35-36, the
+Layer I/II synthesis and resampler kernels, before phase 18), and any
+failure exits non-zero.  The kernels
 are built here from ``pdmp3_tpu_torch/csrc`` and the port's native host
 library from ``pdmp3_tpu_torch/host/src``.
 
@@ -99,9 +100,10 @@ library from ``pdmp3_tpu_torch/host/src``.
     device="cuda")`` for both layers and precisions, fed by ``LoopFeeder``
     from 64 generated 12-frame streams per layer (stereo and mono,
     several bitrates, the three MPEG-1 rates), 2 warm-up and 10 timed
-    steps; watched slots against the native decoder with PROFILE_L12
-    (exact bitwise, fast within 1 LSB); Layer II float PCM within
-    1.001/32767 of its S16;
+    steps, K7 launched once a step (and once a replayed step) in the
+    pool's instance; watched slots against the native decoder with
+    PROFILE_L12 (exact bitwise, fast within 1 LSB); Layer II float PCM,
+    exact and fast, within 1.001/32767 of the S16 of its precision;
 19. mid-stream joins: in a serving pool, fast and exact, two slots each
     joined to new streams at 0.1-0.3 s (``StreamDecoder.join``); after
     ``drop_samples`` each slot's PCM is the same window of the native
@@ -109,14 +111,15 @@ library from ``pdmp3_tpu_torch/host/src``.
 20. the resampler: ``StreamDecoder(8192, resample_to=48000,
     sample_rate=44100, device="cuda")`` on a 44.1 kHz corpus, each
     step's length as the phase gives it, the watched slots within 1 LSB
-    of the same resampler run on the CPU over their S16 PCM; the
-    resample step timed;
+    of the same resampler run on the CPU over their S16 PCM; K8 once a
+    step; the resample step timed;
 21. file decode: ``decode_files_batched`` over 1,024 files (phase 3's 64
     streams x 16), exact, and with gapless=True, window=(0.1, 0.2) on
-    64 of them and layer=2 on 64 Layer II files; ``decode_files_scan``
-    over the 1,024 files, exact; every 64th file (every file of the
-    64-file runs) bitwise against the native decoder, its window or
-    trim; files and audio seconds per wall second;
+    64 of them and layer=2 on 64 Layer II files (K7 exact once a frame
+    step); ``decode_files_scan`` over the 1,024 files, exact; every
+    64th file (every file of the 64-file runs) bitwise against the
+    native decoder, its window or trim; files and audio seconds per wall
+    second;
 22. sharded serving: ``ShardedStreamDecoder(8192, make_mesh(["cuda:0"]
     * 2), ...)`` MPEG-1 fast (K1) and exact (K2) on phase 3's streams,
     MPEG-2 exact (K3) on phase 11's family-1 streams, and
@@ -124,7 +127,8 @@ library from ``pdmp3_tpu_torch/host/src``.
     lockstep with the unsharded pool fed alike (``LoopFeeder``), the
     pool that steps first alternating: every step's PCM bitwise equal to
     the unsharded pool's, the kernel launched per frame step twice per
-    shard (MPEG-1) or once (MPEG-2), the watched slots against the
+    shard (MPEG-1) or once (MPEG-2, Layer II: K7), the watched slots
+    against the
     native decoder; step_ms, device_replay_step_ms and loop_ms_per_step
     of both pools (each pool's step between two synchronisations); then
     both pools on ``decode_step_pipelined`` in lockstep, every returned
@@ -144,7 +148,8 @@ library from ``pdmp3_tpu_torch/host/src``.
 24. the entry step: ``entry.entry("cuda")``'s step launches K1 once and
     equals its plain version bitwise; ``entry.dryrun_multichip(4,
     "cuda")`` (MPEG-1, MPEG-2 and Layer II over four shards of the card
-    against their unsharded steps) passes;
+    against their unsharded steps) passes, launching K1, K3 and K7 once
+    per shard and once unsharded;
 25. the serving diff (``tools.serving_diff``): 512 random MPEG-1 streams
     (the JAX tool's generator and seed base) drip-fed into
     ``SparseStreamDecoder(512)``, fast (K1) then exact (K2), each stream
@@ -169,7 +174,7 @@ library from ``pdmp3_tpu_torch/host/src``.
     host's cores, its stage split, the serving loop's parse rate, and
     the cores that feed the card at phase 2's K1 rate;
 30. the resample sweep (``tools.resample_sweep``): every pair on the
-    card at >= 85 dB passband SNR, with its ripple;
+    card at >= 85 dB passband SNR, with its ripple, K8 once a block;
 31. the differential soak (``tools.soak``): 64 format-matrix streams,
     native against the oracle (and the reference where it builds),
     every 16th stream also ``TorchDSP(exact=True)`` on the card (K4);
@@ -194,8 +199,8 @@ library from ``pdmp3_tpu_torch/host/src``.
     state bitwise, fast within 1 LSB; exact ``TorchDSP`` byte-equal to
     native; the replayed at-size steps equal to the live ones), every
     rate finite and positive, and its launches: K1, K2, K3 and K4 once a
-    granule step of each window (warm-up group included), the
-    attestations' and the pools' as counted;
+    granule step of each window (warm-up group included), K7 once a
+    Layer II step, the attestations' and the pools' as counted;
 34. the float granule instances 9-12 (K1, K2 and K3 with float PCM)
     against their plain version (``fused_granule_step_ref(
     float_pcm=True)``), after phase 17's kernel part on phase 2's frame
@@ -204,7 +209,23 @@ library from ``pdmp3_tpu_torch/host/src``.
     slots' sums to NaN, +-inf and past the rails, at the ragged B = 2 x
     grid + 3 with idle slots at the seams of the slot ring, MPEG-1 also
     on phase 5's subnormal band-12 carry; bitwise, timed, the launch
-    geometry printed.
+    geometry printed;
+35. K7, the Layer I/II synthesis kernel, all eight instances (Layer I /
+    II, fast / exact, S16 / float) against its plain version
+    (``ops.l12_synth.l12_synth_step_ref``) on one natively parsed frame
+    of phase 18's corpus per layer at B, decoded from the wire in place
+    (nch a strided int16 view), from a random FIFO; on a FIFO whose rows
+    drive five slots' sums to NaN, +-inf and past int32 with subnormal
+    subband samples in one slot (the corpus has mono slots); at B = 1,
+    2, grid - 1, grid + 1 and 2 grid + 3 with idle slots at the seams of
+    the slot ring; PCM and FIFO bitwise; timed at B, the launch geometry
+    printed;
+36. K8, the resampler kernel, against its plain version
+    (``ops.resample.resample_block_ref``) at B: int16 and f32 in and
+    out, C = 1 and 2, five steps of 1,152, 576, 384, 10 (fewer than
+    taps - 1) and 1,152 samples carrying the phase, 44.1 -> 48 kHz;
+    outputs, carries and phases bitwise; timed at the serving pool's
+    shape (N = 1,152, C = 2, int16).
 
 The trace tools (``tools.drain_trace``, ``tools.kernel_trace``) and the
 fuzzer (``tools.fuzz``) run as their own commands, not here: a
@@ -277,7 +298,15 @@ REPLACES = {"fused_granule": "pdmp3_tpu/ops/pallas_step.py:771",
             "back_half": "pdmp3_tpu/ops/pallas_step.py:463",
             "back_half_raw": "pdmp3_tpu/ops/pallas_step.py:463",
             "frame_fused": "pdmp3_tpu/ops/pallas_step.py:1067",
-            "rounding_sweep": "tools/prove_on_tpu.py:88"}
+            "rounding_sweep": "tools/prove_on_tpu.py:88",
+            # XLA stages of the JAX package, no Pallas kernel there: the
+            # Layer I/II synthesis step (K7's four counters) and the
+            # resampler's block (K8)
+            "l12_synth": "pdmp3_tpu/models/l12.py:44",
+            "l12_synth_exact": "pdmp3_tpu/models/l12.py:44",
+            "l12_synth_float": "pdmp3_tpu/models/l12.py:44",
+            "l12_synth_float_exact": "pdmp3_tpu/models/l12.py:44",
+            "resample": "pdmp3_tpu/ops/resample.py:47"}
 # the card's peak rates for the bounds (NVIDIA H100 SXM data sheet):
 # memory bytes/s, f32 and f64 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -332,6 +361,12 @@ JOIN_LEAD_STEPS = 2
 # phase 21: copies of phase 3's streams, and the subset size
 FILE_COPIES = 16
 FILE_SUBSET = 64
+# phase 35: Layer I/II time steps a frame, by layer
+L12_S = {1: 12, 2: 36}
+# phase 36: the resampler's pair and the block sizes of its steps (Layer
+# III, LSF, Layer I frames; fewer than taps - 1 samples)
+RESAMPLE_PAIR = (44100, 48000)
+RESAMPLE_BLOCKS = (1152, 576, 384, 10, 1152)
 # phase 18 and 22's watched Layer I/II features
 L12_FEATURES = [("mode", 0), ("mode", 3), ("mode", 1), ("mode", 2),
                 ("sfreq", 1), ("sfreq", 2), ("bitrate_index", 6)]
@@ -472,6 +507,7 @@ def lsf_corpus(family: int) -> list[tuple[bytes, dict]]:
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def l12_corpus(layer: int) -> list[tuple[bytes, dict]]:
     """64 distinct 12-frame Layer I or II streams: stereo, joint stereo,
     dual channel and mono, four bitrates of the layer, the three MPEG-1
@@ -1688,8 +1724,8 @@ def phase_profile(streams: list[bytes], dev) -> dict:
 
 
 def check_no_launches(path: str) -> None:
-    """No kernel launched since the last reset (a path of plain PyTorch
-    ops: Layer I/II synthesis, the resampler)."""
+    """No kernel launched since the last reset (a path that runs nothing
+    on the card: the host parse)."""
     from pdmp3_tpu_torch.tools import launches
 
     counts = launches()
@@ -1730,15 +1766,31 @@ def serve_timed(dec, feeder, sel, steps: int, path: str) -> dict:
             "_pcm": torch.cat(kept, 1).cpu().numpy()}
 
 
+def l12_kernel(exact: bool, float_pcm: bool = False) -> str:
+    """The launch counter of K7's instance in that precision and PCM
+    type (both layers)."""
+    return ("l12_synth" + ("_float" if float_pcm else "")
+            + ("_exact" if exact else ""))
+
+
 def phase_l12(dev) -> dict:
     """Phase 18: Layer I/II pools at B slots, both layers and precisions,
     NEW_TIMED_STEPS timed steps each, parsed on L12_PARSE_THREADS
-    threads; watched slots against the native
-    decoder; Layer II float PCM against its S16.  No kernel runs: the
-    synthesis is plain PyTorch (as it is XLA in the JAX package)."""
+    threads, K7 once a step and once a replayed step in the pool's
+    instance and nothing else; watched slots against the native
+    decoder; Layer II float PCM, fast and exact, against the S16 of its
+    precision."""
     from pdmp3_tpu_torch import L12StreamDecoder, LoopFeeder
 
     res = {}
+    per_pool = WARMUP_STEPS + 2 * NEW_TIMED_STEPS
+
+    def launches(path, kernel):
+        n = launch_counts(path, kernel)
+        check(n == per_pool, f"{path}: {n} {kernel} launches, want "
+                             f"{per_pool}")
+        return n
+
     for layer in (1, 2):
         specs = l12_corpus(layer)
         streams = [d for d, _ in specs]
@@ -1753,7 +1805,7 @@ def phase_l12(dev) -> dict:
             reset_launch_counts()
             r = serve_timed(dec, LoopFeeder(dec, streams), sel,
                             NEW_TIMED_STEPS, path)
-            check_no_launches(path)
+            r["kernel_launches"] = launches(path, l12_kernel(exact))
             pcms[exact] = r.pop("_pcm")
             r["vs_native"] = phase_correctness(pcms[exact], watch, specs,
                                                exact)
@@ -1763,20 +1815,210 @@ def phase_l12(dev) -> dict:
             r["aggregate_realtime_factor_per_chip_e2e"] = (
                 B * spf / 44100.0 / (r["loop_ms_per_step"] / 1e3))
             res[f"layer{layer}_{'exact' if exact else 'fast'}"] = r
-        if layer == 2:
-            dec = L12StreamDecoder(B, layer=2, exact=True, float_pcm=True,
+        for exact in (True, False) if layer == 2 else ():
+            path = f"phase 18 layer 2 float PCM exact={exact}"
+            dec = L12StreamDecoder(B, layer=2, exact=exact, float_pcm=True,
                                    parse_threads=L12_PARSE_THREADS,
                                    device=dev)
+            reset_launch_counts()
             r = serve_timed(dec, LoopFeeder(dec, streams), sel,
-                            NEW_TIMED_STEPS, "phase 18 layer 2 float PCM")
+                            NEW_TIMED_STEPS, path)
+            r["kernel_launches"] = launches(path, l12_kernel(exact, True))
             f = r.pop("_pcm")
-            d = np.abs(f - pcms[True].astype(np.float32) / 32767)
+            d = np.abs(f - pcms[exact].astype(np.float32) / 32767)
             r["max_abs_vs_s16_over_32767"] = float(d.max())
             check(f.dtype == np.float32 and float(d.max()) <= FLOAT_TOL,
-                  f"phase 18: float PCM {float(d.max())} off its S16")
-            res["layer2_exact_float"] = r
+                  f"{path}: float PCM {float(d.max())} off its S16")
+            res[f"layer2_{'exact' if exact else 'fast'}_float"] = r
     res["watched_slots_per_layer"] = len(watch)
     res["parse_threads"] = L12_PARSE_THREADS
+    return res
+
+
+def l12_frame(layer: int, dev) -> dict:
+    """One natively parsed Layer I/II frame of phase 18's corpus for B
+    slots on the card, as the pool's wire holds it (sb f32 [B,2,S,32]
+    in place, nch a strided int16 view of meta, active int16; the
+    INACTIVE slots idle), and a random FIFO v0 [B,2,15,64]."""
+    from pdmp3_tpu_torch import L12StreamDecoder, LoopFeeder
+    from pdmp3_tpu_torch.models import l12 as L
+
+    dec = L12StreamDecoder(B, layer=layer, parse_threads=L12_PARSE_THREADS,
+                           device=dev)
+    LoopFeeder(dec, [d for d, _ in l12_corpus(layer)]).step()
+    check(dec.parse_step() == B, "phase 35: not every slot parsed a frame")
+    wire = dec._wires_t[dec._cur].to(dev)
+    del dec
+    w = L.l12_sections(wire, B, layer)
+    w["active"][list(INACTIVE)] = 0
+    g = torch.Generator(device=dev).manual_seed(35 + layer)
+    return {"sb": w["sb"][0], "nch": w["meta"][0, :, 0],
+            "active": w["active"],
+            "v0": torch.randn((B, 2, 15, 64), generator=g, device=dev)
+            * 0.1}
+
+
+def compare_k7(fr: dict, exact: bool, float_pcm: bool, what: str,
+               v0=None) -> dict:
+    """K7 and its plain version on the same operands from the FIFO v0
+    (fr's by default): PCM bits and the FIFO bitwise, else the run
+    fails; the largest PCM difference (0)."""
+    from pdmp3_tpu_torch.models.l12 import L12State
+    from pdmp3_tpu_torch.ops import l12_synth as K7
+
+    v0 = fr["v0"] if v0 is None else v0
+    ops = (fr["sb"], fr["nch"], fr["active"])
+    pk, sk = K7.l12_synth_step(*ops, L12State(v0.clone()), exact, float_pcm)
+    pr, sr = K7.l12_synth_step_ref(*ops, L12State(v0.clone()), exact,
+                                   float_pcm)
+    torch.cuda.synchronize()
+    pcm_eq = torch.equal(pk.view(torch.uint8), pr.view(torch.uint8))
+    v_eq = torch.equal(sk.v_blocks.view(torch.int32),
+                       sr.v_blocks.view(torch.int32))
+    check(pcm_eq and v_eq, f"{what}: K7 differs from its plain version "
+                           f"(pcm {pcm_eq}, v_blocks {v_eq})")
+    idle = fr["active"] == 0
+    check(not pk[idle].any() and torch.equal(sk.v_blocks[idle], v0[idle]),
+          f"{what}: an idle slot wrote PCM or its FIFO")
+    err = (pk.double() - pr.double()).abs().max() if pk.numel() else 0
+    return {"batch_slots": int(pk.shape[0]), "pcm_bitwise_equal": pcm_eq,
+            "v_blocks_bitwise_equal": v_eq, "max_abs_err": float(err)}
+
+
+def l12_bound(n_slots: int, n_active: int, S: int, exact: bool,
+              float_pcm: bool) -> dict:
+    """K7's bound for one step: per slot the int16 nch and active read
+    and the PCM row written (S x 128 B, float S x 256 B); per active
+    slot sb (S x 256 B) read and the FIFO (7,680 B) read and written;
+    per active slot 2 x S x 64 matrixing dots of 32 terms (63
+    operations), 2 x S x 32 FIR sums of 16 taps (32) and the quantize's
+    multiply (f64 in exact S16)."""
+    nbytes = (n_slots * (4 + S * 128 * (2 if float_pcm else 1))
+              + n_active * (S * 256 + 2 * 7680))
+    ops = n_active * (2 * S * 64 * 63 + 2 * S * 32 * 32)
+    q = n_active * 2 * S * 32 * (not float_pcm)
+    return bound(nbytes, ops + (0 if exact else q), f64_ops=q if exact
+                 else 0)
+
+
+def phase_k7(dev) -> dict:
+    """Phase 35: K7's eight instances against their plain version on
+    l12_frame(layer) at B (the corpus has mono slots), from its random
+    FIFO and from one whose rows drive slots 0-4's sums to NaN, +-inf
+    and past int32 with subnormal subband samples in slot 6; at B = 1,
+    2, grid - 1, grid + 1 and 2 grid + 3 with idle slots at the seams of
+    the slot ring; bitwise (compare_k7); each instance timed at B, with
+    its bound and launch geometry."""
+    from pdmp3_tpu_torch.models.l12 import L12State
+    from pdmp3_tpu_torch.ops import fused_step as FS
+    from pdmp3_tpu_torch.ops import l12_synth as K7
+
+    res = {}
+    for layer, S in L12_S.items():
+        fr = l12_frame(layer, dev)
+        n_active = int((fr["active"] != 0).sum())
+        hostile = fr["v0"].clone()
+        for s, x in enumerate((float("nan"), float("inf"), float("-inf"),
+                               3e38, -3e38)):
+            hostile[s, s % 2, 5:9, 3:40] = x
+        sub = dict(fr, sb=fr["sb"].clone())
+        sub["sb"][6, :, :, :8] = 3e-39
+        for exact in (False, True):
+            for float_pcm in (False, True):
+                name = l12_kernel(exact, float_pcm)
+                what = f"phase 35 layer {layer} {name}"
+                r = compare_k7(fr, exact, float_pcm, what)
+                r["nan_inf_state"] = compare_k7(fr, exact, float_pcm,
+                                                what + " NaN/inf state",
+                                                hostile)
+                r["subnormal_samples"] = compare_k7(
+                    sub, exact, float_pcm, what + " subnormal samples")
+                launch = FS.granule_launch_info(dev, exact, layer=layer,
+                                                float_pcm=float_pcm)
+                grid = launch["grid"]
+                ragged = []
+                for n in (1, 2, grid - 1, grid + 1, 2 * grid + 3):
+                    act = fr["active"][:n].clone()
+                    seams = [k for k in (grid - 1, grid, 2 * grid - 1,
+                                         2 * grid, n - 1)
+                             if 0 < k < n]
+                    act[seams] = 0
+                    rf = {"sb": fr["sb"][:n], "nch": fr["nch"][:n],
+                          "active": act, "v0": hostile[:n]}
+                    ragged.append(dict(idle_slots=seams, **compare_k7(
+                        rf, exact, float_pcm, f"{what} B={n}")))
+                r["ragged"] = ragged
+                r["launch"] = launch
+                ops = (fr["sb"], fr["nch"], fr["active"])
+                sk = L12State(fr["v0"].clone())
+                sr = L12State(fr["v0"].clone())
+                kernel_timing(r, lambda: K7.l12_synth_step(
+                    *ops, sk, exact, float_pcm))
+                r["plain_ms"] = plain_ms(lambda: K7.l12_synth_step_ref(
+                    *ops, sr, exact, float_pcm))
+                r.update(l12_bound(B, n_active, S, exact, float_pcm))
+                res[(layer, name)] = r
+    return res
+
+
+def phase_k8(dev) -> dict:
+    """Phase 36: K8 against its plain version at B, 44.1 -> 48 kHz:
+    int16 and f32 in and out, C = 1 and 2, steps of RESAMPLE_BLOCKS
+    samples carrying the phase (one shorter than taps - 1): outputs,
+    carries and phases bitwise; then K8 timed at the serving pool's
+    shape (N = 1,152, C = 2, int16 in and out) with its plain version
+    and bound."""
+    from pdmp3_tpu_torch.ops import resample as RS
+    from pdmp3_tpu_torch.ops.resample import StreamResampler
+
+    g = torch.Generator(device=dev).manual_seed(36)
+    cases, err = [], 0.0
+    for C in (1, 2):
+        for in_dt in (torch.int16, torch.float32):
+            for out_dt in (torch.int16, torch.float32):
+                k = StreamResampler(*RESAMPLE_PAIR, B, C, dtype=out_dt,
+                                    device=dev)
+                r = StreamResampler(*RESAMPLE_PAIR, B, C, dtype=out_dt,
+                                    device=dev)
+                what = f"phase 36 C={C} {in_dt} -> {out_dt}"
+                for t, n in enumerate(RESAMPLE_BLOCKS):
+                    x = torch.randn((B, n, C), generator=g, device=dev) * 9e3
+                    if in_dt == torch.int16:
+                        x = x.round().clamp(-32768, 32767).to(torch.int16)
+                    n_out = (n * r.up - r.phase + r.down - 1) // r.down
+                    yr, r.carry = RS.resample_block_ref(
+                        r.carry, x, r.phase, r.up, r.down, r.H, n_out,
+                        out_dt)
+                    r.phase += n_out * r.down - n * r.up
+                    yk = k(x)
+                    torch.cuda.synchronize()
+                    same = (torch.equal(yk.view(torch.uint8),
+                                        yr.view(torch.uint8))
+                            and torch.equal(k.carry.view(torch.int32),
+                                            r.carry.view(torch.int32))
+                            and k.phase == r.phase)
+                    check(same, f"{what} step {t} (N={n}): K8 differs "
+                                "from its plain version")
+                    if yk.numel():
+                        err = max(err, float((yk.double() - yr.double())
+                                             .abs().max()))
+                cases.append({"channels": C, "in": str(in_dt),
+                              "out": str(out_dt),
+                              "blocks": list(RESAMPLE_BLOCKS),
+                              "bitwise_equal": True})
+    rs = StreamResampler(*RESAMPLE_PAIR, B, 2, device=dev)
+    pcm = (torch.randn((B, 1152, 2), generator=g, device=dev) * 9e3).round()\
+        .clamp(-32768, 32767).to(torch.int16)
+    n_out = (1152 * rs.up + rs.down - 1) // rs.down
+    args = (rs.carry, pcm, 0, rs.up, rs.down, rs.H, n_out, torch.int16)
+    res = {"cases": cases, "max_abs_err": err, "batch_slots": B,
+           "block": 1152, "n_out": n_out}
+    kernel_timing(res, lambda: RS.resample_block(*args))
+    res["plain_ms"] = plain_ms(lambda: RS.resample_block_ref(*args))
+    taps = rs.taps
+    res.update(bound(B * 1152 * 2 * 2 + B * n_out * 2 * 2
+                     + 2 * B * (taps - 1) * 2 * 4 + rs.up * taps * 4,
+                     B * n_out * 2 * (2 * taps - 1)))
     return res
 
 
@@ -1876,6 +2118,7 @@ def phase_resample(dev) -> dict:
     fr, fs = LoopFeeder(dec, streams), LoopFeeder(s16, streams)
     cpu_rs = StreamResampler(44100, 48000, len(watch), 2, device="cpu")
     phase, lens, worst, events = 0, [], 0, []
+    reset_launch_counts()
     for step in range(WARMUP_STEPS + NEW_TIMED_STEPS):
         fr.step()
         fs.step()
@@ -1898,11 +2141,16 @@ def phase_resample(dev) -> dict:
                                 - want.to(torch.int32)).abs().max()))
         lens.append(n_out)
     check(worst <= 1, f"phase 20: {worst} LSB off the CPU resampler")
+    steps = WARMUP_STEPS + NEW_TIMED_STEPS
+    # K2 twice a step in each pool, K8 once a step in the resampled one
+    want = {"fused_granule_exact": 4 * steps, "resample": steps}
+    check(launched() == want, f"phase 20: launched {launched()}, want "
+                              f"{want}")
     torch.cuda.synchronize()
     pcm = torch.zeros((B, 1152, 2), dtype=torch.int16, device=dev)
     timing_rs = StreamResampler(44100, 48000, B, 2, device=dev)
-    return {"steps": WARMUP_STEPS + NEW_TIMED_STEPS, "n_out_per_step": lens,
-            "watched_max_lsb_vs_cpu": worst,
+    return {"steps": steps, "n_out_per_step": lens,
+            "watched_max_lsb_vs_cpu": worst, "k8_launches": steps,
             "decode_and_resample_step_ms": float(np.median(
                 [a.elapsed_time(b) for a, b in events[WARMUP_STEPS:]])),
             "resample_step_ms": plain_ms(lambda: timing_rs(pcm))}
@@ -1926,19 +2174,16 @@ def phase_files(specs: list[tuple[bytes, dict]], dev) -> dict:
                   / [44100, 48000, 32000][sp["sfreq"]]
                   for d, sp in specs) * FILE_COPIES
 
-    def run(name, fn, want, every, kernel, prefix=False):
+    def run(name, fn, want, every, kernel, prefix=False, steps=None):
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        if kernel:
-            launches = launch_counts(f"phase 21 {name}", kernel)
-        else:
-            # Layer II files: plain PyTorch synthesis, no kernel
-            check_no_launches(f"phase 21 {name}")
-            launches = 0
+        launches = launch_counts(f"phase 21 {name}", kernel)
+        check(launches > 0 and (steps is None or launches == steps(got)),
+              f"phase 21 {name}: {launches} {kernel} launches")
         checked = 0
         for i in range(0, len(got), every):
             w = want(i)
@@ -1970,10 +2215,16 @@ def phase_files(specs: list[tuple[bytes, dict]], dev) -> dict:
         sub, exact=True, window=(0.1, 0.2), device=dev),
         lambda i: MD.decode_file_seek(sub[i], 0.1, 0.2)[0], 1,
         "fused_granule_exact")
-    l2 = [d for d, _ in l12_corpus(2)]
+    l2specs = l12_corpus(2)
+    l2 = [d for d, _ in l2specs]
+    # one K7 launch a frame step: as many steps as the longest file has
+    # frames (1,152 samples a channel)
     res["batched_layer2"] = run("layer 2", lambda: decode_files_batched(
         l2, exact=True, layer=2, device=dev),
-        lambda i: native_decode_file(l2[i], profile=PROFILE_L12), 1, None)
+        lambda i: native_decode_file(l2[i], profile=PROFILE_L12), 1,
+        "l12_synth_exact", steps=lambda got: max(
+            len(g) // (1152 * 2 * (1 if sp["mode"] == 3 else 2))
+            for g, (_, sp) in zip(got, l2specs)))
     r = run("scan", lambda: decode_files_scan(files, exact=True, device=dev),
             lambda i: native_decode_file(files[i]), 64,
             "fused_granule_exact", prefix=True)
@@ -1992,7 +2243,7 @@ def sharded_route(path: str, specs: list[tuple[bytes, dict]], dev,
     parse, decode) runs between two synchronisations: loop_ms_per_step is
     its host-clock time, step_ms CUDA events around decode_step.  Every
     step's PCM must be bitwise equal between the pools; `kernel`
-    (None: no kernel) launches per_frame times per shard and step; the
+    launches per_frame times per shard and step; the
     watched slots of the sharded pool against the native decoder; the
     replay of each pool's last wire, interleaved (sharded, unsharded,
     unsharded, sharded).  Then the pipelined drain (sharded_pipelined):
@@ -2012,14 +2263,11 @@ def sharded_route(path: str, specs: list[tuple[bytes, dict]], dev,
 
     def step_launches(k: str) -> int:
         """The launches of `kernel` by pool k since the last reset."""
-        if kernel is None:
-            check_no_launches(f"{path} {k}")
-            return 0
         return launch_counts(f"{path} {k}", kernel)
 
     def check_launches(what: str, counts: dict, n_steps: int) -> None:
         for k in pools:
-            want = per_frame * shards[k] * n_steps * (kernel is not None)
+            want = per_frame * shards[k] * n_steps
             check(counts[k] == want,
                   f"{path} {k} {what}: {counts[k]} {kernel} launches for "
                   f"{n_steps} steps over {shards[k]} shards")
@@ -2184,7 +2432,7 @@ def phase_sharded(specs: list[tuple[bytes, dict]],
     """Phase 22: serving over a mesh of SHARDS shards of the card against
     the unsharded pool (sharded_route), MPEG-1 fast (K1) and exact (K2)
     on phase 3's corpus, MPEG-2 exact (K3) on phase 11's family-1 corpus
-    and Layer II exact (plain synthesis) on phase 18's; then
+    and Layer II exact (K7) on phase 18's; then
     decode_granules_sharded on phase 2's kind of frame (idle slots, a
     random state) against the unsharded K1 step: PCM bitwise and the
     same clipped count."""
@@ -2219,7 +2467,7 @@ def phase_sharded(specs: list[tuple[bytes, dict]],
                              "unsharded": L12StreamDecoder(
                                  B, layer=2, exact=True,
                                  parse_threads=threads, device=dev)},
-                         None, 0, True)}
+                         "l12_synth_exact", 1, True)}
     res = {"mesh": [str(d) for d in mesh.devices],
            "parse_threads": threads}
     for name, (sp, w, make, kernel, per_frame, exact) in routes.items():
@@ -2371,8 +2619,8 @@ def phase_ranks(specs: list[tuple[bytes, dict]], watch: list[int],
 def phase_entry(dev) -> dict:
     """Phase 24: entry("cuda")'s step launches K1 once and equals its
     plain version bitwise (PCM and state); dryrun_multichip over
-    DRYRUN_SHARDS shards of the card passes, with K1 and K3 (fast) once
-    per shard and once unsharded."""
+    DRYRUN_SHARDS shards of the card passes, with K1, K3 and K7 (fast)
+    once per shard and once unsharded."""
     from pdmp3_tpu_torch.entry import dryrun_multichip, entry
     from pdmp3_tpu_torch.ops.fused_step import fused_granule_step_ref
 
@@ -2395,7 +2643,8 @@ def phase_entry(dev) -> dict:
     dryrun_multichip(DRYRUN_SHARDS, "cuda")
     counts = launched()
     want_counts = {"fused_granule": DRYRUN_SHARDS + 1,
-                   "fused_granule_lsf": DRYRUN_SHARDS + 1}
+                   "fused_granule_lsf": DRYRUN_SHARDS + 1,
+                   "l12_synth": DRYRUN_SHARDS + 1}
     check(counts == want_counts, f"phase 24: dryrun_multichip launched "
                                  f"{counts}, want {want_counts}")
     return {"entry_pcm_shape": list(pcm.shape), "entry_k1_launches": 1,
@@ -2498,12 +2747,13 @@ def phase_parse_scaling(dev, k1_ms: float) -> dict:
 
 def phase_resample_sweep(dev) -> dict:
     """Phase 30: tools.resample_sweep over every pair on the card, each
-    at >= 85 dB passband SNR (the tool checks)."""
+    at >= 85 dB passband SNR (the tool checks), K8 once a block."""
     from pdmp3_tpu_torch.tools import resample_sweep
 
     reset_launch_counts()
     res = resample_sweep.run(resample_sweep.PAIRS, dev)
-    check_no_launches("phase 30")
+    check(launched() == {"resample": res["blocks"]},
+          f"phase 30: launched {launched()} for {res['blocks']} blocks")
     check(res["worst_snr_db"] >= resample_sweep.BAR_DB, f"phase 30: {res}")
     return res
 
@@ -2565,7 +2815,7 @@ def phase_bench(dev) -> dict:
             # them, then the timed replays; two K1 launches a step
             "serving_at_size": {"fused_granule": 2 * (
                 1 + 2 * PB.RECORDED + sz.repeats * sz.at_size_steps)},
-            "single_core": {}, "parse": {}, "l12": {}}
+            "single_core": {}, "parse": {}, "l12": {"l12_synth": short}}
     by = line["launches"]["by_measurement"]
     for name, w in want.items():
         check(by[name] == w, f"phase 33: {name} launched {by[name]}, "
@@ -2830,6 +3080,17 @@ def main() -> int:
                          {False: m["_pcm"], True: exact_pcm})
     print("phase 17 float PCM serving:", json.dumps(fp))
     lap("phase 17 routes")
+    k7 = phase_k7(dev)
+    for (layer, name), r in k7.items():
+        print(f"phase 35 K7 layer {layer} {name} vs plain:", json.dumps(r))
+        print(f"phase 35 K7 layer {layer} {name} launch:", launch_line(
+            r["launch"], ptxas, "subband_synth_kernel<{},{},{}>".format(
+                str("exact" in name).lower(), str("float" in name).lower(),
+                L12_S[layer])))
+    lap("phase 35")
+    k8 = phase_k8(dev)
+    print("phase 36 K8 vs plain:", json.dumps(k8))
+    lap("phase 36")
     l12 = phase_l12(dev)
     print("phase 18 Layer I/II pools:", json.dumps(l12))
     lap("phase 18")
@@ -2972,6 +3233,43 @@ def main() -> int:
                                          for f in fams},
                      ragged=r["ragged"]["batch_slots"])
 
+    def k7_entry(exact, float_pcm):
+        """K7's instances of one precision and PCM type (the Layer II
+        instance's times and bound, Layer I's beside them), launched by
+        phase 18's pools, the dry run (24), Layer II files (21), the
+        sharded Layer II pools (22) and the bench (33)."""
+        name = l12_kernel(exact, float_pcm)
+        mode = "exact" if exact else "fast"
+        pools = ([f"layer2_{mode}_float"] if float_pcm
+                 else [f"layer1_{mode}", f"layer2_{mode}"])
+        by_path = {f"l12_pools_phase_18_{p}": l12[p]["kernel_launches"]
+                   for p in pools}
+        if name == "l12_synth":
+            by_path["dryrun_phase_24"] = en["dryrun_launches"][name]
+            by_path["bench_phase_33"] = bench_k.get(name, 0)
+        if name == "l12_synth_exact":
+            by_path["layer2_files_phase_21"] = files["batched_layer2"][
+                "kernel_launches"]
+            by_path["sharded_layer2_phase_22"] = sum(
+                sh["layer2_exact"]["launches"].values())
+        r2, r1 = k7[(2, name)], k7[(1, name)]
+        return entry(name, "l12_synth.cu", sum(by_path.values()),
+                     max(r[k]["max_abs_err"] if k else r["max_abs_err"]
+                         for r in (r1, r2)
+                         for k in (None, "nan_inf_state",
+                                   "subnormal_samples")),
+                     r2, r2, launches_by_path=by_path,
+                     launch={"layer1": r1["launch"], "layer2": r2["launch"]},
+                     layer1={"ms": r1["kernel_ms"],
+                             "burst_ms": r1["kernel_burst_ms"],
+                             "per_call_ms": r1["kernel_per_call_ms"],
+                             "plain_ms": r1["plain_ms"],
+                             "bound_ms": r1["bound_ms"],
+                             "bound_by": r1["bound_by"]},
+                     ragged={layer: [x["batch_slots"] for x in
+                                     k7[(layer, name)]["ragged"]]
+                             for layer in L12_S})
+
     def k4_times(r):
         return {"ms": r["kernel_ms"], "burst_ms": r["kernel_burst_ms"],
                 "per_call_ms": r["kernel_per_call_ms"],
@@ -3053,6 +3351,15 @@ def main() -> int:
               k5_over_two_k1=k5[0]["ab_interleaved"]["k5_over_two_k1"]),
         *(float_entry(family, exact) for family in (0, 1)
           for exact in (False, True)),
+        *(k7_entry(exact, float_pcm) for float_pcm in (False, True)
+          for exact in (False, True)),
+        entry("resample", "resample.cu", rs["k8_launches"] + rsw["blocks"],
+              k8["max_abs_err"], k8, k8,
+              launches_by_path={"resampled_pool_phase_20": rs["k8_launches"],
+                                "resample_sweep_phase_30": rsw["blocks"]},
+              shape={"batch_slots": B, "block": k8["block"],
+                     "n_out": k8["n_out"], "channels": 2,
+                     "pair": list(RESAMPLE_PAIR)}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -309,9 +309,9 @@ def measure(pool, B: int, path: str, exact: bool, steps: int, sz: Sizes,
 
 
 def measure_l12(B: int, steps: int, sz: Sizes, dev) -> dict:
-    """bench.py ``_measure_l12``: the Layer II synthesis step (plain
-    PyTorch on every device, as the JAX package has no kernel there),
-    1152 samples a frame at 44.1 kHz."""
+    """bench.py ``_measure_l12``: the Layer II synthesis step (K7 fast
+    on CUDA, its plain version on the CPU; the JAX package runs it as
+    XLA ops), 1152 samples a frame at 44.1 kHz."""
     from .models.l12 import (batch_from_frames, decode_l12_frames,
                              init_l12_state)
 
@@ -791,8 +791,8 @@ def run(sz: Sizes, dev) -> dict:
                                             r["decode_steps"]},
                       bench_e2e_lsf, dev, sz.lsf_e2e_slots,
                       sz.host_trials, sz.host_seconds, sz.lsf_distinct)
-    l12 = counted("l12", lambda r: {}, measure_l12, B, sz.short_steps, sz,
-                  dev)
+    l12 = counted("l12", one_per_step("l12_synth"), measure_l12, B,
+                  sz.short_steps, sz, dev)
 
     ranges = {}
 

@@ -220,17 +220,19 @@ extern "C" {
 
 int pdmp3_frame_launch_info(int lsf, int* info);       // frame_fused.cu
 int pdmp3_back_half_launch_info(int mode, int* info);   // back_half.cu
+int pdmp3_l12_synth_launch_info(int mode, int* info);   // l12_synth.cu
 
 // The launch geometry of a persistent kernel instance on the current
 // device into info[6]: grid, blocks per SM, dynamic shared memory per
 // block (bytes), registers per thread, local memory per thread (bytes),
 // SM count.  instance: 0 K1, 1 K2, 2 K3 fast, 3 K3 exact, 4 K5 MPEG-1, 5
 // K5 LSF, 6 K4 fast, 7 K4 exact, 8 K4 fast raw sums, 9 K1 float, 10 K2
-// float, 11 K3 fast float, 12 K3 exact float.  Returns a cudaError_t (0
-// on success).
+// float, 11 K3 fast float, 12 K3 exact float, 13-20 K7 (13 + 4 Layer II
+// + 2 float PCM + 1 exact).  Returns a cudaError_t (0 on success).
 int pdmp3_granule_launch_info(int instance, int* info) {
   if (instance < 0 || instance >= kInstances)
     return (int)cudaErrorInvalidValue;
+  if (instance >= 13) return pdmp3_l12_synth_launch_info(instance - 13, info);
   if (instance >= 6 && instance < 9)
     return pdmp3_back_half_launch_info(instance - 6, info);
   if (instance >= 4 && instance < 6)

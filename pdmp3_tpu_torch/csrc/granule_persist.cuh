@@ -1093,19 +1093,22 @@ __device__ __forceinline__ void persistent_back_half(
 constexpr int kMaxDevices = 64;
 // the persistent instances: K1, K2, K3 fast, K3 exact, K5 MPEG-1, K5 LSF,
 // K4 fast, K4 exact, K4 fast raw sums, then the float-PCM granule
-// instances: MPEG-1 fast, MPEG-1 exact, LSF fast, LSF exact
-constexpr int kInstances = 13;
+// instances: MPEG-1 fast, MPEG-1 exact, LSF fast, LSF exact; then K7's
+// eight (l12_synth.cu): Layer I, Layer II, each S16 and float, fast and
+// exact
+constexpr int kInstances = 21;
 
 // The persistent grid of one kernel instance on the current device: SM
 // count x resident blocks per SM at `smem` bytes of dynamic shared
-// memory (the attribute set on first use per device); info, when not
+// memory and `threads` threads a block (the attribute set on first use
+// per device); info, when not
 // null, receives {grid, blocks per SM, dynamic shared bytes, registers,
 // local (spill) bytes, SM count}.  The figures are cached per (instance,
 // device) once, under a lock, and published by a release store, so a
 // host thread that sees the flag reads them whole.  Returns a
 // cudaError_t.
 int persistent_grid(int instance, const void* kernel, int smem, int* grid,
-                    int* info) {
+                    int* info, int threads = kThreads) {
   static int cache[kInstances][kMaxDevices][6];
   static std::atomic<int> filled[kInstances][kMaxDevices];
   static std::mutex fill_lock;
@@ -1128,7 +1131,7 @@ int persistent_grid(int instance, const void* kernel, int smem, int* grid,
                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                smem)) != cudaSuccess ||
           (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, kernel, kThreads, smem)) != cudaSuccess ||
+               &per_sm, kernel, threads, smem)) != cudaSuccess ||
           (e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess)
         return (int)e;
       if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;

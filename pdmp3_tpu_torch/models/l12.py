@@ -11,11 +11,13 @@ with S = 12 (Layer I) or 36 (Layer II) time steps per frame and the same
 per-slot v_blocks FIFO as Layer III (``ops.dsp.subband_synthesis``
 takes any S).  One layer per batch, as one family per LSF pool.
 
-The JAX package runs this step as XLA ops with no Pallas kernel, so here
-it is plain PyTorch on every device.  Exact form sums the matrixing
-sequentially from the first product (``dsp._dot_seq``, no matmul, whose
-reduction order the library chooses) and quantizes through float64: it
-is bitwise equal to the oracle's synthesis.
+The JAX package runs this step as XLA ops with no Pallas kernel; here
+it is ``ops.l12_synth.l12_synth_step``: K7, a hand-written CUDA kernel
+(``csrc/l12_synth.cu``), on CUDA tensors, and its plain PyTorch version
+on the CPU.  Exact form sums the matrixing sequentially from the first
+product (``dsp._dot_seq``, no matmul, whose reduction order the library
+chooses) and quantizes through float64: it is bitwise equal to the
+oracle's synthesis.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import dsp as D
+from ..ops.l12_synth import l12_synth_step
 
 
 @dataclass
@@ -54,17 +56,9 @@ def decode_l12_frames(sb_samples, nch, active, state: L12State,
     sb_samples f32 [B,2,S,32] requantized subband samples (S = 12 Layer
     I, 36 Layer II); nch int [B]; active int [B] (0 = idle slot: silent
     PCM, state frozen).  Returns (pcm int16 [B, S*32, 2], or f32 in
-    [-1, 1] with float_pcm, and the new L12State)."""
-    x_time = sb_samples.transpose(-1, -2)                # [B,2,32,S]
-    sums, new_v = D.subband_synthesis(x_time, state.v_blocks, exact)
-    active = active.to(torch.int32)
-    nch = nch.to(torch.int32)
-    if float_pcm:
-        pcm = D.float_pack(sums, nch, active)
-    else:
-        pcm = D.pack(D.quantize(sums, exact), nch, active)
-    act = (active != 0)[:, None, None, None]
-    return pcm, L12State(v_blocks=torch.where(act, new_v, state.v_blocks))
+    [-1, 1] with float_pcm, and the L12State, whose FIFO is updated in
+    place).  K7 on CUDA tensors (``ops.l12_synth``)."""
+    return l12_synth_step(sb_samples, nch, active, state, exact, float_pcm)
 
 
 def batch_from_frames(fds: list, layer: int

@@ -122,7 +122,7 @@ def ptxas_summary(log: str) -> list[str]:
 def load() -> C.CDLL:
     """The built library with every entry point's ctypes signature."""
     lib = C.CDLL(ensure_built())
-    ptr, i32 = C.c_void_p, C.c_int
+    ptr, i32, i64 = C.c_void_p, C.c_int, C.c_longlong
     sigs = {
         # 10 operand pointers, the table array, B, gr1, bug_compat,
         # exact, lsf, float_pcm
@@ -137,6 +137,15 @@ def load() -> C.CDLL:
         # base, out, n, row stride
         "pdmp3_rounding_sweep": [C.c_uint32, ptr, C.c_longlong,
                                  C.c_longlong, ptr],
+        # sb, nch (pointer, element size, stride), active (the same), v,
+        # pcm, the table image, B, S, exact, float_pcm
+        "pdmp3_l12_synth": [ptr, ptr, i32, i64, ptr, i32, i64, ptr, ptr, ptr]
+        + [i32] * 4 + [ptr],
+        # carry, in, its stream stride, in_f32, H, new carry, out,
+        # out_f32, B, N, C, taps, up, down, phase, n_out, chunk, chunks,
+        # shared bytes
+        "pdmp3_resample": [ptr, ptr, i64, i32, ptr, ptr, ptr] + [i32] * 12
+        + [ptr],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

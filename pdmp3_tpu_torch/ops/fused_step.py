@@ -76,10 +76,10 @@ TABLES = ("pow43", "cos36", "c3", "imdct_win", "win2", "nwin", "synth_d",
           "cs", "ca", "ratio_l", "ratio_r", "quarter_down", "quarter_up",
           "inv_sqrt2", "gain_quarter_true", "maps", "k0", "k1",
           "granule_smem")
-# byte alignment the persistent kernels (K1-K5) need of each operand:
+# byte alignment the persistent kernels (K1-K5, K7) need of each operand:
 # bulk-copied ones 16, the 4-byte copies 4
 BULK_ALIGN = {"ix": 16, "meta": 16, "store": 16, "v_blocks": 16, "pcm": 16,
-              "xa": 16, "bt_eff": 16, "out": 16,
+              "xa": 16, "bt_eff": 16, "out": 16, "sb": 16,
               "scf_l": 4, "scf_s": 4, "prev_lines": 4, "active": 4,
               "is_pos": 4}
 # granule_launch_info's fields, in the order of pdmp3_granule_launch_info
@@ -106,14 +106,24 @@ def check_bulk_alignment(**operands) -> None:
 
 def launch_instance(exact: bool = False, family: int = 0,
                     frame: bool = False, back_half: bool = False,
-                    raw: bool = False, float_pcm: bool = False) -> int:
+                    raw: bool = False, float_pcm: bool = False,
+                    layer: int = 3) -> int:
     """The persistent kernel instance of pdmp3_granule_launch_info: 0 K1,
     1 K2, 2 K3 fast, 3 K3 exact (family 1 or 2), 4 K5 MPEG-1, 5 K5 LSF
     (frame; fast only), 6 K4 fast, 7 K4 exact, 8 K4 fast raw sums
     (back_half; K4 takes post-antialias spectra of any family, so no
     family; exact K4 always returns raw sums), 9-12 K1, K2, K3 fast and
-    K3 exact writing float PCM (float_pcm; granule steps only).
-    ValueError for any other combination."""
+    K3 exact writing float PCM (float_pcm; granule steps only); with
+    layer 1 or 2, K7, the Layer I/II synthesis (csrc/l12_synth.cu):
+    13 + 4 (Layer II) + 2 (float_pcm) + 1 (exact).  ValueError for any
+    other combination."""
+    if layer in (1, 2):
+        if family or frame or back_half or raw:
+            raise ValueError("K7, the Layer I/II synthesis, takes no "
+                             "family, frame, back half or raw sums")
+        return 13 + 4 * (layer == 2) + 2 * bool(float_pcm) + int(exact)
+    if layer != 3:
+        raise ValueError(f"layer must be 1, 2 or 3, got {layer!r}")
     if family not in (0, 1, 2):
         raise ValueError(f"family must be 0, 1 or 2, got {family!r}")
     if frame and exact:
@@ -133,17 +143,19 @@ def launch_instance(exact: bool = False, family: int = 0,
 
 def granule_launch_info(device, exact: bool = False, family: int = 0,
                         frame: bool = False, back_half: bool = False,
-                        raw: bool = False, float_pcm: bool = False) -> dict:
+                        raw: bool = False, float_pcm: bool = False,
+                        layer: int = 3) -> dict:
     """The launch geometry of the persistent kernel that runs a step of
     `family` in that precision (K1, K2 or K3, instances 9-12 with
-    float_pcm; K5 when frame; K4 when back_half, instance 8 with raw) on
-    a CUDA device, from the kernel library: the persistent
+    float_pcm; K5 when frame; K4 when back_half, instance 8 with raw; K7
+    with layer 1 or 2) on a CUDA device, from the kernel library: the
+    persistent
     grid (SM count x resident blocks per SM; min(B, grid) blocks launch),
     blocks per SM, dynamic shared memory per block, registers and local
     (spill) bytes per thread, SM count.  The arguments are checked
     (launch_instance) before the library is loaded."""
     instance = launch_instance(exact, family, frame, back_half, raw,
-                               float_pcm)
+                               float_pcm, layer)
     from . import _build
 
     lib = _build.load()

@@ -13,9 +13,17 @@ reads the input window at m_j with phase p_j, (m_j, p_j) = divmod(phase0
 length is known before anything runs on the device.
 
 The JAX package computes a block as XLA ops (a window gather and an
-einsum) with no Pallas kernel; here it is plain PyTorch: one gather and
-one multiply-add per tap, summed from the first tap on, so a streamed
-output equals the one-shot output bit for bit.
+einsum) with no Pallas kernel.  Here ``resample_block`` has two
+implementations with one contract: ``resample_block_ref``, plain PyTorch
+(the carry and the block concatenated, one gather and one multiply-add
+per tap, summed from the first tap on), the path for CPU tensors and
+the reference the tests hold the kernel against; and K8, the
+hand-written CUDA kernel of ``csrc/resample.cu``, launched for CUDA
+tensors, which reads the window where it lies and computes the window
+starts and phases from the host's integer phase.  Both sum in the same
+order, so a streamed output equals the one-shot output bit for bit, and
+the kernel equals the plain version.  There is no fallback between
+them: a CUDA tensor either runs the kernel or raises.
 """
 from __future__ import annotations
 
@@ -24,6 +32,26 @@ import math
 
 import numpy as np
 import torch
+
+# Launches of K8 since the last reset.
+LAUNCHES = 0
+
+# the shared memory a block of K8 may take (an H100's 227 KB), and the
+# input samples a channel of the window one of its units stages
+MAX_SMEM_BYTES = 232448
+K8_WINDOW = 4096
+
+
+def k8_geometry(up: int, down: int, taps: int, channels: int,
+                n_out: int) -> tuple[int, int, int]:
+    """K8's split of a stream's n_out outputs into chunks whose input
+    windows fit K8_WINDOW samples a channel, and its shared memory a
+    block (the filter bank [taps][up] and the longest window, f32):
+    (chunk, chunks, bytes)."""
+    chunk = max(1, min(n_out, (K8_WINDOW - taps) * up // down))
+    window = ((chunk - 1) * down + up - 1) // up + taps
+    return (chunk, max(1, -(-n_out // chunk)),
+            4 * (up * taps + channels * window))
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,6 +81,92 @@ def _resample_block(x, m_idx, p_idx, H, taps: int):
     for t in range(1, taps):
         y = y + x[:, m_idx + t] * hg[None, :, t, None]
     return y
+
+
+def resample_block(carry, pcm, phase: int, up: int, down: int, H,
+                   n_out: int, dtype=torch.int16):
+    """One block of B streams: carry f32 [B, taps-1, C] (contiguous),
+    pcm int16 or f32 [B, N, C] (each stream's N x C samples contiguous),
+    the running phase in 1/up input samples, H f32 [up, taps], and the
+    n_out outputs the phase gives.  Returns (y [B, n_out, C] in dtype,
+    int16 rounded half to even and clamped; the new carry f32 [B,
+    taps-1, C], the last taps-1 samples of the carry and block).  CPU
+    tensors take the plain version; CUDA tensors launch K8 (int16 or f32
+    in and out)."""
+    global LAUNCHES
+    B, N, C = pcm.shape
+    taps = H.shape[1]
+    if (tuple(carry.shape) != (B, taps - 1, C) or carry.dtype != torch.float32
+            or tuple(H.shape) != (up, taps) or H.dtype != torch.float32):
+        raise ValueError(f"carry {carry.dtype} {tuple(carry.shape)} and H "
+                         f"{H.dtype} {tuple(H.shape)} do not fit pcm "
+                         f"{tuple(pcm.shape)} at up = {up}")
+    if carry.device != pcm.device or H.device != pcm.device:
+        raise ValueError(f"carry on {carry.device} and H on {H.device}, "
+                         f"pcm on {pcm.device}")
+    if pcm.device.type == "cpu":
+        return resample_block_ref(carry, pcm, phase, up, down, H, n_out,
+                                  dtype)
+    if pcm.device.type != "cuda":
+        raise ValueError(f"no resampler for {pcm.device}")
+    f32 = {torch.int16: 0, torch.float32: 1}
+    if pcm.dtype not in f32 or dtype not in f32 or C not in (1, 2):
+        raise ValueError(f"K8 takes one or two channels of int16 or f32 "
+                         f"PCM in and out, got {C} of {pcm.dtype} -> "
+                         f"{dtype}")
+    # the kernel reads sample n, channel c of stream b at b * stride(0) +
+    # n * C + c: the strides of an empty block, or of a dimension of one
+    # element, are never used
+    if ((N and ((C > 1 and pcm.stride(2) != 1)
+                or (N > 1 and pcm.stride(1) != C)))
+            or not (carry.is_contiguous() and H.is_contiguous())):
+        raise ValueError("pcm needs contiguous channels and samples, carry "
+                         "and H contiguous")
+    chunk, chunks, smem = k8_geometry(up, down, taps, C, n_out)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{up} x {taps} taps and a window of {C} channels "
+                         f"at {up}/{down} need {smem} B of K8's shared "
+                         "memory")
+    if phase + n_out * down >= 2 ** 31:
+        raise ValueError("K8 indexes a block in int32: phase + n_out x down "
+                         "must stay below 2^31")
+    from . import _build
+
+    lib = _build.load()
+    y = torch.empty((B, n_out, C), dtype=dtype, device=pcm.device)
+    new_carry = torch.empty_like(carry)
+    if B == 0:
+        return y, new_carry
+    # launched on the operands' device (the C entry point uses the
+    # current one)
+    with torch.cuda.device(pcm.device):
+        stream = torch.cuda.current_stream(pcm.device).cuda_stream
+        rc = lib.pdmp3_resample(
+            carry.data_ptr(), pcm.data_ptr(), pcm.stride(0), f32[pcm.dtype],
+            H.data_ptr(), new_carry.data_ptr(), y.data_ptr(), f32[dtype], B,
+            N, C, taps, up, down, int(phase), n_out, chunk, chunks, smem,
+            stream)
+    if rc != 0:
+        raise RuntimeError("resample launch failed: "
+                           + lib.pdmp3_cuda_error_string(rc).decode())
+    LAUNCHES += 1
+    return y, new_carry
+
+
+def resample_block_ref(carry, pcm, phase: int, up: int, down: int, H,
+                       n_out: int, dtype=torch.int16):
+    """Plain PyTorch version of resample_block (same arguments and
+    results, same summation order)."""
+    taps = H.shape[1]
+    x = torch.cat([carry, pcm.to(torch.float32)], 1)
+    ph = phase + np.arange(n_out, dtype=np.int64) * down
+    m = torch.from_numpy(ph // up).to(x.device)
+    p = torch.from_numpy(ph % up).to(x.device)
+    y = _resample_block(x, m, p, H, taps)
+    new_carry = x[:, x.shape[1] - (taps - 1):].contiguous()
+    if dtype == torch.int16:
+        return torch.round(y).clamp(-32768, 32767).to(torch.int16), new_carry
+    return y.to(dtype), new_carry
 
 
 class StreamResampler:
@@ -93,17 +207,12 @@ class StreamResampler:
 
     def __call__(self, pcm):
         """pcm [B, N, C] -> [B, n_out, C] (n_out varies by at most one
-        between steps with the phase)."""
-        x = torch.cat([self.carry, pcm.to(torch.float32)], 1)
+        between steps with the phase).  K8 on CUDA tensors
+        (``resample_block``), one launch a call."""
         n_in = int(pcm.shape[1])
         # the outputs whose window fits in the carried and new samples
         n_out = (n_in * self.up - self.phase + self.down - 1) // self.down
-        ph = self.phase + np.arange(n_out, dtype=np.int64) * self.down
-        m = torch.from_numpy(ph // self.up).to(self.device)
-        p = torch.from_numpy(ph % self.up).to(self.device)
-        y = _resample_block(x, m, p, self.H, self.taps)
+        y, self.carry = resample_block(self.carry, pcm, self.phase, self.up,
+                                       self.down, self.H, n_out, self.dtype)
         self.phase = int(self.phase + n_out * self.down - n_in * self.up)
-        self.carry = x[:, x.shape[1] - (self.taps - 1):].contiguous()
-        if self.dtype == torch.int16:
-            return torch.round(y).clamp(-32768, 32767).to(torch.int16)
-        return y.to(self.dtype)
+        return y

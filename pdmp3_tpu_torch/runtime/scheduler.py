@@ -496,7 +496,8 @@ class L12StreamDecoder(_Pool):
     carries f32 subband samples [F,B,2,S,32] (S = 12 Layer I, 36 Layer
     II), meta int16 [F,B,4] and active, packed into one pinned byte
     buffer per step (``models.l12.l12_layout``) and decoded by the
-    batched synthesis (``models.l12.decode_l12_wire``, plain PyTorch).
+    batched synthesis (``models.l12.decode_l12_wire``: K7, one launch
+    a frame, on CUDA).
     The surface is StreamDecoder's (feed, parse_step, decode_step, the
     pipelined drain, checkpoints); decode_step returns PCM int16
     [B, F*S*32, 2] (f32 with float_pcm).  The per-slot device state is

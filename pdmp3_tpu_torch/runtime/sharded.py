@@ -197,8 +197,9 @@ class ShardedStreamDecoder(_ShardedPool):
 
 class ShardedL12StreamDecoder(_ShardedPool):
     """A Layer I/II pool of n_slots slots over ``mesh``: one
-    ``L12StreamDecoder`` per shard on the shard's device (plain PyTorch
-    synthesis).  n_slots must be a multiple of the mesh size.
+    ``L12StreamDecoder`` per shard on the shard's device (K7, one launch
+    a frame and shard, on CUDA).  n_slots must be a multiple of the mesh
+    size.
     decode_step returns PCM [B, S*32, 2] (f32 with float_pcm)."""
 
     def __init__(self, n_slots: int, layer: int, mesh: Mesh, *,

@@ -130,6 +130,8 @@ def counters() -> dict:
     from ..ops import back_half as BH
     from ..ops import frame_step as FR
     from ..ops import fused_step as FS
+    from ..ops import l12_synth as L12
+    from ..ops import resample as RS
     from ..ops import rounding as R
 
     return {"fused_granule": (FS, "LAUNCHES"),
@@ -144,7 +146,12 @@ def counters() -> dict:
             "back_half_raw": (BH, "LAUNCHES_RAW"),
             "rounding_sweep": (R, "LAUNCHES"),
             "frame_fused": (FR, "LAUNCHES_FRAME"),
-            "frame_fused_lsf": (FR, "LAUNCHES_FRAME_LSF")}
+            "frame_fused_lsf": (FR, "LAUNCHES_FRAME_LSF"),
+            "l12_synth": (L12, "LAUNCHES"),
+            "l12_synth_exact": (L12, "LAUNCHES_EXACT"),
+            "l12_synth_float": (L12, "LAUNCHES_FLOAT"),
+            "l12_synth_float_exact": (L12, "LAUNCHES_FLOAT_EXACT"),
+            "resample": (RS, "LAUNCHES")}
 
 
 def launches() -> dict:

@@ -17,7 +17,8 @@ rates of MPEG-1 and LSF into 44.1 and 48 kHz):
 
 The pair's 12 probe signals run as the 12 streams of one resampler
 (``StreamResampler(from, to, 12, 1, dtype=float32, device=...)``), fed
-1152 samples a step as a pool feeds it, on a common length (at least
+1152 samples a step as a pool feeds it (on the card one K8 launch a
+block; ``blocks`` in the result counts them), on a common length (at least
 0.6 s plus 4 blocks, and 16 blocks); the JAX tool ran each signal alone,
 the ripple tones over exactly 16 blocks.  Writes
 ``build/torch_tools/resample_sweep.json`` unless ``--out`` says
@@ -82,8 +83,8 @@ def sweep_pair(from_rate: int, to_rate: int, dev) -> dict:
         snr.append(float(10 * np.log10(np.mean(ref ** 2)
                                        / np.mean(err ** 2))))
     gains = np.sqrt(2.0) * np.sqrt(np.mean(y[2:, seg] ** 2, axis=1))
-    return {"from": from_rate, "to": to_rate, "snr_1k_db": snr[0],
-            "snr_hi_db": snr[1], "hi_probe_hz": hi_hz,
+    return {"from": from_rate, "to": to_rate, "blocks": n // BLOCK,
+            "snr_1k_db": snr[0], "snr_hi_db": snr[1], "hi_probe_hz": hi_hz,
             "ripple_db": float(np.max(np.abs(20 * np.log10(gains))))}
 
 
@@ -97,6 +98,7 @@ def run(pairs: list, dev) -> dict:
     return {"design": "Kaiser beta=9, 24 taps/phase (~90 dB stopband)",
             "device": str(dev), "card": card(dev), "pairs": rows,
             "worst_snr_db": worst,
+            "blocks": sum(r["blocks"] for r in rows),
             "worst_ripple_db": max(r["ripple_db"] for r in rows),
             "test_bar_db": BAR_DB}
 

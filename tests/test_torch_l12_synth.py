@@ -1,0 +1,393 @@
+"""The Layer I/II synthesis step (pdmp3_tpu_torch/ops/l12_synth.py), whose
+CUDA kernel is K7 (csrc/l12_synth.cu), and the routes that reach it
+through models.l12.decode_l12_frames.
+
+On the CPU (the plain version, which the wrapper takes for CPU tensors):
+against the JAX package's decode_l12_frames (pdmp3_tpu/models/l12.py, XLA)
+on seeded subband samples and on frames of mp3gen.make_l12_stream, for
+S = 12 and 36, S16 and float PCM, with mono and idle slots; two frames
+carried through decode_l12_wire at F = 2; a directed fixture whose sums
+reach NaN, +-inf and beyond int32 (the quantize's out-of-range mask);
+Layer I's new FIFO, 3 carried rows then the 12 new ones; the wrapper's
+refusals and its CPU path, which never loads the kernel library.
+
+On the card (``cuda``-marked, skipped without one): the eight instances
+against the plain version at B = 1, 2, grid - 1, grid + 1 and 2 grid + 3
+with idle slots at the seams of the slot ring, from a hostile state, with
+subnormal subband samples and mono slots; the wire decoded in place
+(nch a strided int16 view); the alignment refusal; the launch counters
+moving once a call; the launch geometry.
+
+Tolerances: exact mode bitwise (PCM bits and v_blocks) against JAX;
+fast mode within 1 LSB of JAX's S16 (its matrixing is an einsum, which
+sums in its own order), float PCM within 1e-5 and the FIFO within 1e-5
+of the largest magnitude.  The kernel against the plain version:
+bitwise everywhere (same rounding points, same order).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from pdmp3_tpu.models import l12 as JL
+from pdmp3_tpu.testing import mp3gen
+from pdmp3_tpu_torch.models import l12 as L
+from pdmp3_tpu_torch.ops import _build
+from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import l12_synth as K7
+from test_torch_fused_step import (IDLE_SEAMS, RAGGED_B, idle_slots,
+                                   ragged_batch)
+from test_torch_l12 import _frames
+
+LAYERS = {1: 12, 2: 36}
+STATE_RTOL = 1e-5
+FLOAT_TOL = 1e-5
+# the sums a hostile FIFO row drives a slot to (NaN, +-inf, past int32)
+HOSTILE = (np.nan, np.inf, -np.inf, 3e38, -3e38)
+
+
+def _operands(S, B, seed, idle=(), mono=()):
+    """Seeded sb f32 [B,2,S,32] (subband samples in [-1, 1]), nch,
+    active (idle slots 0) and a random FIFO, as numpy."""
+    rng = np.random.default_rng(seed)
+    sb = rng.uniform(-1, 1, (B, 2, S, 32)).astype(np.float32)
+    v = rng.standard_normal((B, 2, 15, 64)).astype(np.float32) * 0.1
+    nch = np.full(B, 2, np.int32)
+    nch[list(mono)] = 1
+    act = np.ones(B, np.int32)
+    act[list(idle)] = 0
+    return sb, nch, act, v
+
+
+def _port(sb, nch, act, v, exact, float_pcm, dev="cpu"):
+    st = L.L12State(v_blocks=torch.from_numpy(v.copy()).to(dev))
+    pcm, st = K7.l12_synth_step(*(torch.from_numpy(a).to(dev)
+                                  for a in (sb, nch, act)), st, exact,
+                                float_pcm)
+    return pcm.cpu().numpy(), st.v_blocks.cpu().numpy()
+
+
+def _jax(sb, nch, act, v, exact, float_pcm):
+    pcm, st = JL.decode_l12_frames(sb, nch, act,
+                                   JL.L12State(v_blocks=jnp.asarray(v)),
+                                   exact=exact, float_pcm=float_pcm)
+    return np.asarray(pcm), np.asarray(st.v_blocks)
+
+
+def _assert_vs_jax(got, want, exact, float_pcm, what):
+    (pt, vt), (pj, vj) = got, want
+    assert pt.dtype == pj.dtype and pt.shape == pj.shape, what
+    if exact:
+        np.testing.assert_array_equal(pt.view(np.uint8), pj.view(np.uint8),
+                                      what)
+        np.testing.assert_array_equal(vt.view(np.uint32),
+                                      vj.view(np.uint32), what)
+        return
+    d = np.abs(pt.astype(np.float64) - pj.astype(np.float64))
+    assert d.max() <= (FLOAT_TOL if float_pcm else 1), what
+    scale = max(float(np.abs(vj[np.isfinite(vj)]).max(initial=0)), 1.0)
+    np.testing.assert_allclose(vt, vj, rtol=0, atol=STATE_RTOL * scale,
+                               err_msg=str(what))
+
+
+@pytest.mark.parametrize("float_pcm", [False, True], ids=["s16", "float"])
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("layer", [1, 2])
+def test_step_matches_jax_on_seeded_samples(layer, exact, float_pcm):
+    """Three chained steps of 6 slots (slot 1 mono, slot 4 idle in the
+    second step) against JAX decode_l12_frames: the FIFO carried by each
+    side; idle slots silent with their FIFO frozen."""
+    S, B = LAYERS[layer], 6
+    vt = vj = None
+    for t in range(3):
+        sb, nch, act, v0 = _operands(S, B, 100 * layer + t, mono=(1,),
+                                     idle=(4,) if t == 1 else ())
+        if t == 0:
+            vt = vj = v0
+        pt, vt2 = _port(sb, nch, act, vt, exact, float_pcm)
+        pj, vj2 = _jax(sb, nch, act, vj, exact, float_pcm)
+        _assert_vs_jax((pt, vt2), (pj, vj2), exact, float_pcm,
+                       (layer, exact, float_pcm, t))
+        if t == 1:
+            assert not pt[4].any()
+            np.testing.assert_array_equal(vt2[4], vt[4])
+        np.testing.assert_array_equal(pt[1, :, 0], pt[1, :, 1])  # mono
+        vt, vj = vt2, vj2
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("layer", [1, 2])
+def test_step_matches_jax_on_generated_frames(layer, exact):
+    """decode_l12_frames over the frames of a stereo and a mono
+    make_l12_stream stream and a starved slot, S16 and float PCM, each
+    step against JAX's."""
+    streams = [_frames(mp3gen.make_l12_stream(layer=layer, n_frames=3,
+                                              seed=40 + layer,
+                                              bitrate_index=12)),
+               _frames(mp3gen.make_l12_stream(layer=layer, n_frames=3,
+                                              seed=50 + layer, mode=3,
+                                              bitrate_index=8))]
+    for float_pcm in (False, True):
+        vt = vj = np.zeros((3, 2, 15, 64), np.float32)
+        for t in range(3):
+            fds = [s[t] for s in streams] + [None]
+            sb, nch, act = L.batch_from_frames(fds, layer)
+            got = _port(sb, nch, act, vt, exact, float_pcm)
+            want = _jax(sb, nch, act, vj, exact, float_pcm)
+            _assert_vs_jax(got, want, exact, float_pcm,
+                           (layer, exact, float_pcm, t))
+            assert not got[0][2].any() and got[0][:2].any()
+            vt, vj = got[1], want[1]
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("layer", [1, 2])
+def test_wire_two_frames_match_jax(layer, exact):
+    """decode_l12_wire at F = 2 on a packed wire (nch a strided int16
+    view of meta, active int16) equals two JAX steps, PCM concatenated
+    and the FIFO carried; float PCM too."""
+    S, B, F = LAYERS[layer], 4, 2
+    lay = L.l12_layout(B, layer, F)
+    for float_pcm in (False, True):
+        buf = torch.zeros(lay["total"], dtype=torch.uint8)
+        w = L.l12_sections(buf, B, layer, F)
+        ops = [_operands(S, B, 7 * f + layer, mono=(2,),
+                         idle=(3,) if f else ()) for f in range(F)]
+        for f, (sb, nch, act, _) in enumerate(ops):
+            w["sb"][f] = torch.from_numpy(sb)
+            w["meta"][f, :, 0] = torch.from_numpy(nch.astype(np.int16))
+            w["active"][f] = torch.from_numpy(act.astype(np.int16))
+        v0 = ops[0][3]
+        pcm, st = L.decode_l12_wire(
+            buf, L.L12State(v_blocks=torch.from_numpy(v0.copy())), B, layer,
+            F, exact, float_pcm)
+        vj, want = v0, []
+        for sb, nch, act, _ in ops:
+            pj, vj = _jax(sb, nch, act, vj, exact, float_pcm)
+            want.append(pj)
+        _assert_vs_jax((pcm.numpy(), st.v_blocks.numpy()),
+                       (np.concatenate(want, 1), vj), exact, float_pcm,
+                       (layer, exact, float_pcm))
+
+
+@pytest.mark.parametrize("float_pcm", [False, True], ids=["s16", "float"])
+@pytest.mark.parametrize("layer", [1, 2])
+def test_out_of_range_sums(layer, float_pcm):
+    """FIFO rows of NaN, +-inf and +-3e38 in slots 0-4: the sums reach
+    NaN, +-inf and beyond int32, which S16 turns into -32767 (the
+    quantize's out-of-range mask, exact and fast) and float PCM into -1
+    (NaN) or the rails; exact mode bitwise against JAX."""
+    S, B = LAYERS[layer], 6
+    sb, nch, act, v = _operands(S, B, 9)
+    for s, x in enumerate(HOSTILE):
+        v[s, s % 2, 5:9, 3:40] = x
+    for exact in (True, False):
+        pt, vt = _port(sb, nch, act, v, exact, float_pcm)
+        if exact:
+            _assert_vs_jax((pt, vt), _jax(sb, nch, act, v, True, float_pcm),
+                           True, float_pcm, (layer, float_pcm))
+        # slot s's hostile rows are in channel s % 2
+        hit = [pt[s, :, s % 2] for s in range(len(HOSTILE))]
+        if float_pcm:
+            assert (hit[0] == -1).any()      # NaN
+            assert (np.abs(np.concatenate(hit[1:])) == 1).any()
+        else:
+            assert all((h == -32767).any() for h in hit), exact
+        assert np.isfinite(pt).all()
+
+
+def test_layer1_fifo_carries_three_rows():
+    """Layer I (S = 12 < 15): the new FIFO is the 3 newest carried rows
+    followed by the 12 new rows, bitwise (both precisions); the idle
+    slot keeps its FIFO."""
+    sb, nch, act, v = _operands(12, 3, 5, idle=(2,))
+    for exact in (True, False):
+        _, vt = _port(sb, nch, act, v, exact, False)
+        np.testing.assert_array_equal(vt[:2, :, :3], v[:2, :, 12:])
+        np.testing.assert_array_equal(vt[2], v[2])
+        _, vj = _jax(sb, nch, act, v, exact, False)
+        np.testing.assert_array_equal(vt[:2, :, :3], vj[:2, :, :3])
+        assert not np.array_equal(vt[:2, :, 3:], v[:2, :, 3:])
+
+
+def test_cpu_path_never_loads_the_library(monkeypatch):
+    """CPU tensors run the plain version: the kernel library is never
+    loaded (its loader raises here), and no counter moves."""
+    def refuse():
+        raise AssertionError("the CPU path loaded the kernel library")
+    monkeypatch.setattr(_build, "load", refuse)
+    before = [getattr(K7, k) for k in ("LAUNCHES", "LAUNCHES_EXACT",
+                                       "LAUNCHES_FLOAT",
+                                       "LAUNCHES_FLOAT_EXACT")]
+    for float_pcm in (False, True):
+        for layer in (1, 2):
+            sb, nch, act, v = _operands(LAYERS[layer], 2, 1)
+            pcm, _ = _port(sb, nch, act, v, True, float_pcm)
+            assert pcm.shape == (2, LAYERS[layer] * 32, 2)
+    assert before == [getattr(K7, k) for k in (
+        "LAUNCHES", "LAUNCHES_EXACT", "LAUNCHES_FLOAT",
+        "LAUNCHES_FLOAT_EXACT")]
+
+
+def test_refusals_and_instances():
+    """S other than 12 / 36, a wrong FIFO shape, nch of another length
+    and a non-contiguous sb raise; K7's instances are 13-20."""
+    sb, nch, act, v = (torch.from_numpy(a) for a in _operands(12, 2, 3))
+    st = L.L12State(v_blocks=v)
+    with pytest.raises(ValueError):
+        K7.l12_synth_step(torch.zeros(2, 2, 18, 32), nch, act, st)
+    with pytest.raises(ValueError):
+        K7.l12_synth_step(sb, nch, act, L.L12State(v_blocks=v[:, :, :14]))
+    with pytest.raises(ValueError):
+        K7.l12_synth_step(sb, nch[:1], act, st)
+    with pytest.raises(ValueError):
+        K7.l12_synth_step(sb.transpose(0, 1).contiguous().transpose(0, 1),
+                          nch, act, st)
+    got = {(layer, exact, f): FS.launch_instance(exact, float_pcm=f,
+                                                 layer=layer)
+           for layer in (1, 2) for f in (False, True)
+           for exact in (False, True)}
+    assert sorted(got.values()) == list(range(13, 21))
+    assert got[(1, False, False)] == 13 and got[(2, True, True)] == 20
+    with pytest.raises(ValueError):
+        FS.launch_instance(family=1, layer=2)
+    with pytest.raises(ValueError):
+        FS.launch_instance(layer=4)
+
+
+# ---- on the card -----------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _counter(exact, float_pcm):
+    return ("LAUNCHES" + ("_FLOAT" if float_pcm else "")
+            + ("_EXACT" if exact else ""))
+
+
+def _pair(sb, nch, act, v0, exact, float_pcm):
+    """K7 and the plain version on the same CUDA operands from v0; the
+    instance's counter checked."""
+    name = _counter(exact, float_pcm)
+    n0 = getattr(K7, name)
+    sk = L.L12State(v_blocks=v0.clone())
+    pk, sk = K7.l12_synth_step(sb, nch, act, sk, exact, float_pcm)
+    assert getattr(K7, name) == n0 + 1
+    sr = L.L12State(v_blocks=v0.clone())
+    pr, sr = K7.l12_synth_step_ref(sb, nch, act, sr, exact, float_pcm)
+    torch.cuda.synchronize()
+    return pk, sk.v_blocks, pr, sr.v_blocks
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", IDLE_SEAMS)
+@pytest.mark.parametrize("n", RAGGED_B)
+def test_k7_ragged_batches_and_idle_seams_on_cuda(n, pattern):
+    """The eight instances at B = 1, 2, grid - 1, grid + 1, 2 grid + 3
+    with idle slots at the seams of the slot ring, two chained steps from
+    a hostile FIFO, every third slot mono, subnormal subband samples in
+    slot 0: PCM bits and FIFO bitwise equal to the plain version, idle
+    slots silent and frozen."""
+    dev = _cuda()
+    for layer, S in LAYERS.items():
+        for exact in (False, True):
+            for float_pcm in (False, True):
+                grid = FS.granule_launch_info(dev, exact, layer=layer,
+                                              float_pcm=float_pcm)["grid"]
+                B = ragged_batch(n, grid)
+                idle = idle_slots(pattern, B, grid)
+                sb, nch, act, v = _operands(S, B, B + S, idle=idle,
+                                            mono=range(0, B, 3))
+                for s, x in enumerate(HOSTILE[:B]):
+                    v[s, s % 2, 5:9, 3:40] = x
+                sb[0, 0, :, :8] = np.float32(3e-39)   # subnormal
+                sb, nch, act = (torch.from_numpy(a).to(dev)
+                                for a in (sb, nch, act))
+                v0 = torch.from_numpy(v).to(dev)
+                what = (layer, exact, float_pcm, n, pattern)
+                for t in range(2):
+                    pk, vk, pr, vr = _pair(sb, nch, act, v0, exact,
+                                           float_pcm)
+                    assert torch.equal(_bits(pk), _bits(pr)), what + (t,)
+                    assert torch.equal(_bits(vk), _bits(vr)), what + (t,)
+                    assert not pk[idle].any(), what
+                    assert torch.equal(_bits(vk[idle]), _bits(v0[idle]))
+                    v0 = vr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [1, 2])
+def test_k7_decodes_the_wire_in_place_on_cuda(layer):
+    """decode_l12_wire at F = 2 on a device wire (sb read in place, nch
+    a strided int16 view, active int16): one K7 launch a frame, PCM and
+    FIFO bitwise equal to the CPU's plain version on the same wire."""
+    dev = _cuda()
+    S, B, F = LAYERS[layer], 300, 2
+    lay = L.l12_layout(B, layer, F)
+    buf = torch.zeros(lay["total"], dtype=torch.uint8)
+    w = L.l12_sections(buf, B, layer, F)
+    for f in range(F):
+        sb, nch, act, v = _operands(S, B, f, mono=range(1, B, 5),
+                                    idle=range(f, B, 7))
+        w["sb"][f] = torch.from_numpy(sb)
+        w["meta"][f, :, 0] = torch.from_numpy(nch.astype(np.int16))
+        w["active"][f] = torch.from_numpy(act.astype(np.int16))
+    for exact in (False, True):
+        n0 = getattr(K7, _counter(exact, False))
+        st = L.L12State(v_blocks=torch.from_numpy(v).to(dev))
+        pcm, st = L.decode_l12_wire(buf.to(dev), st, B, layer, F, exact)
+        assert getattr(K7, _counter(exact, False)) == n0 + F
+        ref = L.L12State(v_blocks=torch.from_numpy(v.copy()))
+        want, ref = L.decode_l12_wire(buf, ref, B, layer, F, exact)
+        assert torch.equal(pcm.cpu(), want)
+        assert torch.equal(_bits(st.v_blocks.cpu()), _bits(ref.v_blocks))
+
+
+@pytest.mark.cuda
+def test_k7_refuses_misaligned_operands_on_cuda():
+    """sb, v_blocks off 16-byte alignment raise before any launch; the
+    counters do not move."""
+    dev = _cuda()
+    sb, nch, act, v = (torch.from_numpy(a).to(dev)
+                       for a in _operands(36, 2, 4))
+    flat = torch.zeros(sb.numel() + 1, device=dev)
+    bad_sb = flat[1:].view(sb.shape)
+    vflat = torch.zeros(v.numel() + 1, device=dev)
+    bad_v = L.L12State(v_blocks=vflat[1:].view(v.shape))
+    n0 = K7.LAUNCHES
+    with pytest.raises(ValueError):
+        K7.l12_synth_step(bad_sb, nch, act, L.L12State(v_blocks=v.clone()),
+                          exact=False)
+    with pytest.raises(ValueError):
+        K7.l12_synth_step(sb, nch, act, bad_v, exact=False)
+    with pytest.raises(ValueError):
+        K7.l12_synth_step(sb, nch.to(torch.int64), act,
+                          L.L12State(v_blocks=v.clone()), exact=False)
+    assert K7.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+def test_k7_launch_geometry_on_cuda():
+    """Instances 13-20: 128 / 384 threads' worth of registers without
+    spills, shared memory as the layout gives it, a persistent grid."""
+    dev = _cuda()
+    smem = {(1, False): 39472, (1, True): 41008, (2, False): 67120,
+            (2, True): 71728}
+    for layer in (1, 2):
+        for float_pcm in (False, True):
+            for exact in (False, True):
+                info = FS.granule_launch_info(dev, exact, layer=layer,
+                                              float_pcm=float_pcm)
+                assert info["dynamic_smem_bytes"] == smem[(layer,
+                                                           float_pcm)]
+                assert info["local_bytes"] == 0
+                assert info["blocks_per_sm"] >= (3 if layer == 2 else 5)
+                assert info["grid"] == (info["sm_count"]
+                                        * info["blocks_per_sm"])
