@@ -216,16 +216,22 @@ library from ``pdmp3_tpu_torch/host/src``.
     of phase 18's corpus per layer at B, decoded from the wire in place
     (nch a strided int16 view), from a random FIFO; on a FIFO whose rows
     drive five slots' sums to NaN, +-inf and past int32 with subnormal
-    subband samples in one slot (the corpus has mono slots); at B = 1,
-    2, grid - 1, grid + 1 and 2 grid + 3 with idle slots at the seams of
-    the slot ring; PCM and FIFO bitwise; timed at B, the launch geometry
+    subband samples in one slot (the corpus has mono slots); on the
+    hazards of K7's mirrored NWIN rows (a silent slot, rows whose dot
+    with a unique row cancels to zero, +-0 and subnormal samples, +-inf:
+    the signed zeros and NaN bits of the FIFO count); at B = 1, 2, grid
+    - 1, grid + 1 and 2 grid + 3 with idle slots at the seams of the
+    slot ring; PCM and FIFO bitwise; timed at B, the launch geometry
     printed;
 36. K8, the resampler kernel, against its plain version
     (``ops.resample.resample_block_ref``) at B: int16 and f32 in and
     out, C = 1 and 2, five steps of 1,152, 576, 384, 10 (fewer than
-    taps - 1) and 1,152 samples carrying the phase, 44.1 -> 48 kHz;
-    outputs, carries and phases bitwise; timed at the serving pool's
-    shape (N = 1,152, C = 2, int16).
+    taps - 1) and 1,152 samples carrying the phase, 44.1 -> 48 kHz, and
+    the same sizes cut from [B, N + 1, 2] at sample 1 (address and
+    stream stride off 16-byte alignment: staged by plain loads in the
+    kernel, where a serving block is bulk-staged); outputs, carries and
+    phases bitwise; timed at the serving pool's shape (N = 1,152, C = 2,
+    int16), its geometry printed.
 
 The trace tools (``tools.drain_trace``, ``tools.kernel_trace``) and the
 fuzzer (``tools.fuzz``) run as their own commands, not here: a
@@ -1885,6 +1891,37 @@ def compare_k7(fr: dict, exact: bool, float_pcm: bool, what: str,
             "v_blocks_bitwise_equal": v_eq, "max_abs_err": float(err)}
 
 
+def mirror_rows(fr: dict) -> dict:
+    """fr with slots 7-10's subband samples replaced by the hazards of
+    K7's mirrored NWIN rows: slot 7 silent (every dot +-0, whose sign the
+    mirrored row's own sum sets), slot 8 rows whose dot with a unique
+    row cancels to zero (two products that are exact negations, the rest
+    +-0), slot 9 +-0 samples in even time steps and subnormal ones in
+    odd ones, slot 10 +-inf in one row of each channel (NaN dots)."""
+    from pdmp3_tpu_torch.ops.consts import host_consts
+
+    nwin = host_consts(0)["nwin"]
+    sb = fr["sb"].clone()
+    S = sb.shape[2]
+    rng = np.random.default_rng(35)
+    cancel = np.zeros((2, S, 32), np.float32)
+    for c in range(2):
+        for t in range(S):
+            r = (c * S + t) % 17                      # a unique row 0..16
+            k1, k2 = rng.choice(32, 2, replace=False)
+            cancel[c, t, k1] = nwin[r, k2]
+            cancel[c, t, k2] = -nwin[r, k1]
+    zeros = np.where(rng.random((2, (S + 1) // 2, 32)) < 0.5,
+                     np.float32(-0.0), np.float32(0.0))
+    sb[7] = 0.0
+    sb[8] = torch.from_numpy(cancel).to(sb.device)
+    sb[9, :, ::2] = torch.from_numpy(zeros).to(sb.device)
+    sb[9, :, 1::2, :5] = 3e-41
+    sb[10, 0, 3, 7] = float("inf")
+    sb[10, 1, 5, 2] = float("-inf")
+    return dict(fr, sb=sb)
+
+
 def l12_bound(n_slots: int, n_active: int, S: int, exact: bool,
               float_pcm: bool) -> dict:
     """K7's bound for one step: per slot the int16 nch and active read
@@ -1905,10 +1942,10 @@ def phase_k7(dev) -> dict:
     """Phase 35: K7's eight instances against their plain version on
     l12_frame(layer) at B (the corpus has mono slots), from its random
     FIFO and from one whose rows drive slots 0-4's sums to NaN, +-inf
-    and past int32 with subnormal subband samples in slot 6; at B = 1,
-    2, grid - 1, grid + 1 and 2 grid + 3 with idle slots at the seams of
-    the slot ring; bitwise (compare_k7); each instance timed at B, with
-    its bound and launch geometry."""
+    and past int32 with subnormal subband samples in slot 6; on
+    mirror_rows(fr); at B = 1, 2, grid - 1, grid + 1 and 2 grid + 3 with
+    idle slots at the seams of the slot ring; bitwise (compare_k7); each
+    instance timed at B, with its bound and launch geometry."""
     from pdmp3_tpu_torch.models.l12 import L12State
     from pdmp3_tpu_torch.ops import fused_step as FS
     from pdmp3_tpu_torch.ops import l12_synth as K7
@@ -1923,6 +1960,7 @@ def phase_k7(dev) -> dict:
             hostile[s, s % 2, 5:9, 3:40] = x
         sub = dict(fr, sb=fr["sb"].clone())
         sub["sb"][6, :, :, :8] = 3e-39
+        hazards = mirror_rows(fr)
         for exact in (False, True):
             for float_pcm in (False, True):
                 name = l12_kernel(exact, float_pcm)
@@ -1933,6 +1971,9 @@ def phase_k7(dev) -> dict:
                                                 hostile)
                 r["subnormal_samples"] = compare_k7(
                     sub, exact, float_pcm, what + " subnormal samples")
+                r["mirror_hazards"] = compare_k7(
+                    hazards, exact, float_pcm,
+                    what + " silent / cancelling / signed-zero rows")
                 launch = FS.granule_launch_info(dev, exact, layer=layer,
                                                 float_pcm=float_pcm)
                 grid = launch["grid"]
@@ -1964,10 +2005,11 @@ def phase_k7(dev) -> dict:
 def phase_k8(dev) -> dict:
     """Phase 36: K8 against its plain version at B, 44.1 -> 48 kHz:
     int16 and f32 in and out, C = 1 and 2, steps of RESAMPLE_BLOCKS
-    samples carrying the phase (one shorter than taps - 1): outputs,
-    carries and phases bitwise; then K8 timed at the serving pool's
-    shape (N = 1,152, C = 2, int16 in and out) with its plain version
-    and bound."""
+    samples carrying the phase (one shorter than taps - 1), and the same
+    sizes cut from [B, N + 1, 2] at sample 1 (off 16-byte alignment):
+    outputs, carries and phases bitwise; then K8 timed at the serving
+    pool's shape (N = 1,152, C = 2, int16 in and out) with its plain
+    version, bound and geometry (k8_geometry: one bulk-staged chunk)."""
     from pdmp3_tpu_torch.ops import resample as RS
     from pdmp3_tpu_torch.ops.resample import StreamResampler
 
@@ -2006,13 +2048,37 @@ def phase_k8(dev) -> dict:
                               "out": str(out_dt),
                               "blocks": list(RESAMPLE_BLOCKS),
                               "bitwise_equal": True})
+    # the same sizes off 16-byte alignment: a view of [B, N + 1, 2] from
+    # sample 1 (its address and stream stride), int16 in and out
+    k = StreamResampler(*RESAMPLE_PAIR, B, 2, device=dev)
+    r = StreamResampler(*RESAMPLE_PAIR, B, 2, device=dev)
+    for t, n in enumerate(RESAMPLE_BLOCKS):
+        wide = (torch.randn((B, n + 1, 2), generator=g, device=dev) * 9e3)\
+            .round().clamp(-32768, 32767).to(torch.int16)
+        x = wide[:, 1:]
+        n_out = (n * r.up - r.phase + r.down - 1) // r.down
+        yr, r.carry = RS.resample_block_ref(r.carry, x, r.phase, r.up,
+                                            r.down, r.H, n_out)
+        r.phase += n_out * r.down - n * r.up
+        yk = k(x)
+        torch.cuda.synchronize()
+        same = (torch.equal(yk, yr) and torch.equal(
+            k.carry.view(torch.int32), r.carry.view(torch.int32))
+            and k.phase == r.phase)
+        check(same, f"phase 36 unaligned step {t} (N={n}): K8 differs "
+                    "from its plain version")
+    cases.append({"channels": 2, "in": str(torch.int16),
+                  "out": str(torch.int16), "blocks": list(RESAMPLE_BLOCKS),
+                  "stream_stride_off_16_bytes": True, "bitwise_equal": True})
     rs = StreamResampler(*RESAMPLE_PAIR, B, 2, device=dev)
     pcm = (torch.randn((B, 1152, 2), generator=g, device=dev) * 9e3).round()\
         .clamp(-32768, 32767).to(torch.int16)
     n_out = (1152 * rs.up + rs.down - 1) // rs.down
     args = (rs.carry, pcm, 0, rs.up, rs.down, rs.H, n_out, torch.int16)
     res = {"cases": cases, "max_abs_err": err, "batch_slots": B,
-           "block": 1152, "n_out": n_out}
+           "block": 1152, "n_out": n_out,
+           "geometry": RS.k8_geometry(rs.up, rs.down, rs.taps, 2, n_out,
+                                      1152, 0, 2, True)}
     kernel_timing(res, lambda: RS.resample_block(*args))
     res["plain_ms"] = plain_ms(lambda: RS.resample_block_ref(*args))
     taps = rs.taps
@@ -3257,7 +3323,7 @@ def main() -> int:
                      max(r[k]["max_abs_err"] if k else r["max_abs_err"]
                          for r in (r1, r2)
                          for k in (None, "nan_inf_state",
-                                   "subnormal_samples")),
+                                   "subnormal_samples", "mirror_hazards")),
                      r2, r2, launches_by_path=by_path,
                      launch={"layer1": r1["launch"], "layer2": r2["launch"]},
                      layer1={"ms": r1["kernel_ms"],

@@ -101,16 +101,19 @@ def ensure_built() -> str:
 def ptxas_summary(log: str) -> list[str]:
     """Registers, shared memory and spills of each kernel instance from
     nvcc's -Xptxas -v report (the text of LOG): a template instance as
-    name<args>, a kernel without template arguments by its name."""
+    name<args> (a type argument by its C name: resample_kernel<short,
+    float,2,24>), a kernel without template arguments by its name."""
+    types = {"s": "short", "f": "float", "i": "int"}
     out, name = [], "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
-                      r"(?:I((?:L[a-z]\d+E)+)E)?", ln)
+                      r"(?:I((?:[a-z]|L[a-z]\d+E)+)E)?", ln)
         if m:
-            args = re.findall(r"L([a-z])(\d+)E", m.group(2) or "")
+            args = re.findall(r"L([a-z])(\d+)E|([a-z])", m.group(2) or "")
             name = m.group(1) + ("<" + ",".join(
+                types.get(ty, ty) if ty else
                 ("true" if v == "1" else "false") if t == "b" else v
-                for t, v in args) + ">" if args else "")
+                for t, v, ty in args) + ">" if args else "")
         elif "spill stores" in ln:
             out.append(f"{name}: {ln.split(',', 1)[1].strip()}")
         elif "registers" in ln and out:
@@ -142,9 +145,9 @@ def load() -> C.CDLL:
         "pdmp3_l12_synth": [ptr, ptr, i32, i64, ptr, i32, i64, ptr, ptr, ptr]
         + [i32] * 4 + [ptr],
         # carry, in, its stream stride, in_f32, H, new carry, out,
-        # out_f32, B, N, C, taps, up, down, phase, n_out, chunk, chunks,
-        # shared bytes
-        "pdmp3_resample": [ptr, ptr, i64, i32, ptr, ptr, ptr] + [i32] * 12
+        # out_f32, B, N, C, taps, up, down, phase, n_out, p_first, p_end,
+        # p_chunk, chunks, hstride, win, bulk, shared bytes
+        "pdmp3_resample": [ptr, ptr, i64, i32, ptr, ptr, ptr] + [i32] * 17
         + [ptr],
     }
     for name, argtypes in sigs.items():

@@ -59,6 +59,22 @@ POW43_MAX = 8206     # largest |ix| the table covers (pdmp3.c:2117)
 SMEM_COS36, SMEM_IWIN, SMEM_C3P, SMEM_W2P = 0, 648, 792, 2736
 SMEM_NWIN_T, SMEM_SYND, SMEM_FLOATS = 2844, 4892, 5404
 
+# float offsets of the sections of l12_smem_image(), K7's table image
+# (csrc/l12_synth.cu kK7*): the NWIN rows that need a dot, transposed and
+# packed [32, L12_COLS] (k, packed column); synth_d [16, 32]; the packed
+# columns' store map, int32 bit patterns [L12_COLS]
+L12_COLS = 36
+L12_UT, L12_SYND, L12_MAP = 0, 32 * L12_COLS, 32 * L12_COLS + 512
+L12_FLOATS = L12_MAP + L12_COLS
+# a store-map entry: bits 0-7 the FIFO column the dot goes to, bits 8-15
+# the column that mirrors it, bit 16 set when the mirror is the negation,
+# bit 17 set when the mirror's dot over a row of +0.0 samples is -0.0
+# (every coefficient of the mirror row has its sign bit set); a column
+# number of L12_NONE or more stores nothing
+L12_NONE = 64
+L12_NEG = 1 << 16
+L12_ZERO_NEG = 1 << 17
+
 
 def compose_reorder(src: np.ndarray, family: int = 0) -> np.ndarray:
     """out[l, i] = src[l, perm_l[i]]: a per-(layout, line) map read in
@@ -130,6 +146,62 @@ def granule_smem_image(c: dict) -> np.ndarray:
     return out
 
 
+def nwin_row_map(nwin: np.ndarray) -> list[tuple[int, bool]]:
+    """For each row j of the matrixing table nwin [64, 32]: (r, neg), the
+    first row r <= j whose bits equal row j's (neg False) or their
+    negation (neg True).  r == j marks a row that needs a dot of its own;
+    any other row's dot is that of r, or its negation."""
+    bits = np.ascontiguousarray(nwin, np.float32).view(np.uint32)
+    out = []
+    for j in range(bits.shape[0]):
+        for r in range(j + 1):
+            if np.array_equal(bits[r], bits[j]):
+                out.append((r, False))
+                break
+            if np.array_equal(bits[r] ^ np.uint32(0x80000000), bits[j]):
+                out.append((r, True))
+                break
+    return out
+
+
+def l12_smem_image(c: dict) -> np.ndarray:
+    """K7's shared-memory table image from the tables c (host_consts'
+    entries), f32 [L12_FLOATS]: the unique rows of nwin_row_map(nwin)
+    packed in order into the columns of ut [32, L12_COLS] (ut[k, q] =
+    nwin[u_q, k]; the columns past the last unique row are zero), synth_d
+    as it is, and per packed column q its store map: the FIFO column
+    u_q, and the one row m != u_q that mirrors u_q, if any, with its
+    sign (L12_NONE where there is none), and the sign of the mirror's dot
+    over a row of +0.0 samples (a sum of signed zeros is -0.0 exactly
+    when every term is, in any order).  The kernel computes the packed
+    columns' dots and writes each mirrored row from them: a copy, or the
+    negation where the dot is nonzero and not NaN, that signed zero for
+    a row of +0.0 samples, else its own dot with the negated
+    coefficients.  Raises if the table needs more packed columns or more
+    mirrors than the kernel holds."""
+    nwin = np.asarray(c["nwin"], np.float32)
+    rows = nwin_row_map(nwin)
+    unique = [j for j, (r, _) in enumerate(rows) if r == j]
+    mirrors = {u: [(j, neg) for j, (r, neg) in enumerate(rows)
+                   if r == u and j != u] for u in unique}
+    if len(unique) > L12_COLS or any(len(m) > 1 for m in mirrors.values()):
+        raise ValueError(f"K7 packs {L12_COLS} NWIN rows with one mirror "
+                         f"each; the table has {len(unique)} unique rows")
+    ut = np.zeros((32, L12_COLS), np.float32)
+    cmap = np.full(L12_COLS, L12_NONE | (L12_NONE << 8), np.int32)
+    signs = np.ascontiguousarray(nwin).view(np.uint32) >> 31
+    for q, u in enumerate(unique):
+        ut[:, q] = nwin[u]
+        m, neg = mirrors[u][0] if mirrors[u] else (L12_NONE, False)
+        zneg = m < L12_NONE and bool(signs[m].all())
+        cmap[q] = (u | (m << 8) | (L12_NEG if neg else 0)
+                   | (L12_ZERO_NEG if zneg else 0))
+    out = np.concatenate([ut.ravel(), c["synth_d"].ravel(),
+                          cmap.view(np.float32)]).astype(np.float32)
+    assert out.size == L12_FLOATS
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def host_consts(family: int = 0) -> dict:
     """Every constant of the family's step as numpy arrays (float32
@@ -150,7 +222,7 @@ def host_consts(family: int = 0) -> dict:
     form); maps int16 (line_maps(family), the only family-dependent
     entry); inv_sqrt2, two32 and k32767 f32 scalars (0-d, so products
     with them stay in f32); granule_smem, the table image of
-    granule_smem_image()."""
+    granule_smem_image(); l12_smem, K7's, of l12_smem_image()."""
     cos12 = np.asarray(T.COS_N12, np.float32)
     c3 = np.zeros((18, 36), np.float32)
     for k in range(18):
@@ -181,6 +253,7 @@ def host_consts(family: int = 0) -> dict:
         k32767=np.float32(32767.0),
     )
     out["granule_smem"] = granule_smem_image(out)
+    out["l12_smem"] = l12_smem_image(out)
     return {k: np.array(v, order="C") for k, v in out.items()}
 
 

@@ -16,8 +16,13 @@ Counterpart of the JAX package's ``pdmp3_tpu/models/l12.py``
   Layer II (S = 36), fast or exact, S16 or float PCM.  There is no
   fallback between them: a CUDA tensor either runs the kernel or raises.
 
-The kernel brings each slot's sb and FIFO rows into shared memory by
-bulk copies, which need 16-byte aligned sb, v_blocks and PCM
+The kernel computes the dots of NWIN's 33 unique rows only and writes
+the 31 rows that copy or negate one of them from those dots, by the row
+map that ``consts.l12_smem_image`` derives from the table (where a
+negated row's dot is zero or NaN it takes the image's signed zero for a
+row of +0.0 samples, else sums that row again), so it stays bitwise
+equal to the plain version.  It brings each slot's sb and
+FIFO rows into shared memory by bulk copies, which need 16-byte aligned sb, v_blocks and PCM
 (``fused_step.check_bulk_alignment`` raises otherwise); it reads nch and
 active where they lie, int16 or int32 at any element stride (the pool's
 wire holds nch as a strided int16 view), so the wire is decoded in
@@ -87,7 +92,9 @@ def l12_synth_step(sb, nch, active, state, exact: bool = True,
     if B == 0:
         return pcm, state
     check_bulk_alignment(sb=sb, v_blocks=state.v_blocks, pcm=pcm)
-    image = device_consts(str(sb.device))["granule_smem"]
+    # K7's table image: the unique NWIN rows packed, synth_d, and the
+    # store map of the mirrored rows (consts.l12_smem_image)
+    image = device_consts(str(sb.device))["l12_smem"]
     # launched on the operands' device (the C entry point uses the
     # current one)
     with torch.cuda.device(sb.device):

@@ -19,8 +19,10 @@ implementations with one contract: ``resample_block_ref``, plain PyTorch
 per tap, summed from the first tap on), the path for CPU tensors and
 the reference the tests hold the kernel against; and K8, the
 hand-written CUDA kernel of ``csrc/resample.cu``, launched for CUDA
-tensors, which reads the window where it lies and computes the window
-starts and phases from the host's integer phase.  Both sum in the same
+tensors, which stages each stream's window in shared memory (by bulk
+copy where the block is 16-byte aligned) and walks the window starts
+from the host's integer phase: a thread takes four consecutive starts
+and every output that starts there, their windows in registers.  Both sum in the same
 order, so a streamed output equals the one-shot output bit for bit, and
 the kernel equals the plain version.  There is no fallback between
 them: a CUDA tensor either runs the kernel or raises.
@@ -36,22 +38,70 @@ import torch
 # Launches of K8 since the last reset.
 LAUNCHES = 0
 
-# the shared memory a block of K8 may take (an H100's 227 KB), and the
-# input samples a channel of the window one of its units stages
+# the shared memory a block of K8 may take (an H100's 227 KB), the input
+# samples a channel of the window one of its units stages when a
+# stream's window is split into chunks, and the window positions a
+# thread of K8 takes at once (csrc/resample.cu kRsRun)
 MAX_SMEM_BYTES = 232448
 K8_WINDOW = 4096
+K8_RUN = 4
 
 
-def k8_geometry(up: int, down: int, taps: int, channels: int,
-                n_out: int) -> tuple[int, int, int]:
-    """K8's split of a stream's n_out outputs into chunks whose input
-    windows fit K8_WINDOW samples a channel, and its shared memory a
-    block (the filter bank [taps][up] and the longest window, f32):
-    (chunk, chunks, bytes)."""
-    chunk = max(1, min(n_out, (K8_WINDOW - taps) * up // down))
-    window = ((chunk - 1) * down + up - 1) // up + taps
-    return (chunk, max(1, -(-n_out // chunk)),
-            4 * (up * taps + channels * window))
+def k8_period(down: int) -> int:
+    """The window positions after which K8's output phases repeat: a
+    multiple of down, at least K8_RUN (csrc/resample.cu rs_period)."""
+    return down if down >= K8_RUN else down * -(-K8_RUN // down)
+
+
+def k8_hstride(taps: int) -> int:
+    """K8's row stride of the filter bank in shared memory: taps rounded
+    up to a multiple of 4, made an odd number of float4s (rows of
+    different phases then start in different banks)."""
+    t4 = -(-taps // 4) * 4
+    return t4 + 4 if (t4 // 4) % 2 == 0 else t4
+
+
+def k8_geometry(up: int, down: int, taps: int, channels: int, n_out: int,
+                n_in: int, phase: int, in_bytes: int = 2,
+                bulk: bool = False) -> dict:
+    """K8's launch geometry for a block of n_in samples whose n_out
+    outputs start at phase: the window positions [p_first, p_end) of the
+    outputs (output j starts at (phase + j * down) // up); their split
+    into `chunks` chunks of p_chunk positions (one chunk, the whole x,
+    when carry and block fit K8_WINDOW samples a channel; else chunks
+    whose windows do, a multiple of k8_period positions each); the
+    staged window's capacity `win` (samples a channel); `bulk`, whether
+    the blocks are staged by bulk copy (asked for by the caller, who
+    knows their alignment, and only with one chunk); `hstride`; and
+    `smem`, the shared memory a block, bytes (csrc/resample.cu RsSmem):
+    the bank f32 [up][hstride], the class table, two stages of the raw
+    block in the bulk path, the window f32 [win][C], two mbarriers."""
+    K = taps - 1
+    if n_out:
+        p_first = phase // up
+        p_end = (phase + (n_out - 1) * down) // up + 1
+    else:
+        p_first = p_end = 0
+    L = k8_period(down)
+    span = p_end - p_first
+    if K + n_in <= K8_WINDOW:
+        p_chunk, chunks = max(span, 1), 1
+    else:
+        p_chunk = max(L, (K8_WINDOW - K) // L * L)
+        chunks = max(1, -(-span // p_chunk))
+    win = K + n_in if chunks == 1 else p_chunk + K
+    bulk = bool(bulk and chunks == 1 and n_in > 0)
+    hstride = k8_hstride(taps)
+    classes = -(-L // K8_RUN)
+
+    def align(x, a):
+        return -(-x // a) * a
+    stage = align(4 * up * hstride + 8 * classes, 16)
+    stage_bytes = align(n_in * channels * in_bytes, 16) if bulk else 0
+    bar = align(stage + 2 * stage_bytes + 4 * channels * win, 8)
+    return dict(p_first=p_first, p_end=p_end, p_chunk=p_chunk,
+                chunks=chunks, win=win, bulk=bulk, hstride=hstride,
+                smem=bar + 16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,14 +172,19 @@ def resample_block(carry, pcm, phase: int, up: int, down: int, H,
             or not (carry.is_contiguous() and H.is_contiguous())):
         raise ValueError("pcm needs contiguous channels and samples, carry "
                          "and H contiguous")
-    chunk, chunks, smem = k8_geometry(up, down, taps, C, n_out)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{up} x {taps} taps and a window of {C} channels "
-                         f"at {up}/{down} need {smem} B of K8's shared "
-                         "memory")
     if phase + n_out * down >= 2 ** 31:
         raise ValueError("K8 indexes a block in int32: phase + n_out x down "
                          "must stay below 2^31")
+    # the bulk copies need each stream's block 16-byte aligned in address
+    # and size; other blocks are staged by plain loads in the kernel
+    es = pcm.element_size()
+    aligned = (pcm.data_ptr() % 16 == 0 and (pcm.stride(0) * es) % 16 == 0
+               and (N * C * es) % 16 == 0)
+    geo = k8_geometry(up, down, taps, C, n_out, N, int(phase), es, aligned)
+    if geo["smem"] > MAX_SMEM_BYTES:
+        raise ValueError(f"{up} x {taps} taps and a window of {C} channels "
+                         f"at {up}/{down} need {geo['smem']} B of K8's "
+                         "shared memory")
     from . import _build
 
     lib = _build.load()
@@ -144,8 +199,9 @@ def resample_block(carry, pcm, phase: int, up: int, down: int, H,
         rc = lib.pdmp3_resample(
             carry.data_ptr(), pcm.data_ptr(), pcm.stride(0), f32[pcm.dtype],
             H.data_ptr(), new_carry.data_ptr(), y.data_ptr(), f32[dtype], B,
-            N, C, taps, up, down, int(phase), n_out, chunk, chunks, smem,
-            stream)
+            N, C, taps, up, down, int(phase), n_out, geo["p_first"],
+            geo["p_end"], geo["p_chunk"], geo["chunks"], geo["hstride"],
+            geo["win"], int(geo["bulk"]), geo["smem"], stream)
     if rc != 0:
         raise RuntimeError("resample launch failed: "
                            + lib.pdmp3_cuda_error_string(rc).decode())

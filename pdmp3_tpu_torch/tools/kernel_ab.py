@@ -8,9 +8,13 @@ Builds both checkouts' kernel libraries, then:
 
 1. times K1, K2, K3 (fast and exact, both LSF families), K4 (both
    modes, at B = 8192 and at one slot), K5 at ng = 2 (the MPEG-1
-   instance over two granules, parities (0, 1)) and K6 (one 2^24-input
+   instance over two granules, parities (0, 1)), K6 (one 2^24-input
    chunk, the three rounding points: one launch, or one launch per point
-   in a tree without the three-in-one kernel) of each checkout on the
+   in a tree without the three-in-one kernel), K7's eight instances (B =
+   8192 slots of one synthetic Layer I / II frame, every slot active,
+   mono in one slot of seven; ``k7_l{layer}_{fast,exact}_{s16,float}``)
+   and K8 at the resampling pool's shape (B = 8192 streams, a 1,152-sample
+   int16 block, C = 2, 44.1 -> 48 kHz, int16 out) of each checkout on the
    same synthetic operands, each kernel three ways
    (``pdmp3_tpu_torch/timing.py``, this checkout's copy for both
    trees): ``ms``, its device time per launch
@@ -86,8 +90,9 @@ def timing():
 def time_kernels(tree: str) -> dict:
     """Device times (timing.kernel_times) of K1, K2, K3
     (k3_f{family}_{fast,exact}), K4 exact and fast at B and at one slot,
-    K5 at ng = 2 and K6 per chunk of `tree`'s package on synthetic
-    operands, and the interleaved K1 / K5-at-ng=1 pair."""
+    K5 at ng = 2, K6 per chunk, K7's eight instances and K8 of `tree`'s
+    package on synthetic operands, and the interleaved K1 / K5-at-ng=1
+    pair."""
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -150,7 +155,74 @@ def time_kernels(tree: str) -> dict:
             for c in R.CONSTRUCTIONS}
         res["k6_ms_per_chunk"] = sum(r["ms"] for r in
                                      res["k6_single"].values())
+    res.update(time_k7_k8(dev, times))
     return res
+
+
+def time_k7_k8(dev, times) -> dict:
+    """times() of K7's eight instances (k7_l{layer}_{mode}_{pcm}) on
+    l12_operands and of K8 on resample_operands, when the tree has them
+    (ops/l12_synth.py, ops/resample.py resample_block)."""
+    import importlib
+
+    out = {}
+    try:
+        K7 = importlib.import_module("pdmp3_tpu_torch.ops.l12_synth")
+        from pdmp3_tpu_torch.models.l12 import L12State
+    except ImportError:
+        K7 = None
+    for layer, S in ((1, 12), (2, 36)) if K7 else ():
+        sb, nch, act, v = l12_operands(dev, S)
+        for exact in (False, True):
+            for float_pcm in (False, True):
+                st = L12State(v_blocks=v.clone())
+                name = (f"k7_l{layer}_{'exact' if exact else 'fast'}_"
+                        f"{'float' if float_pcm else 's16'}")
+                out[name] = times(lambda: K7.l12_synth_step(
+                    sb, nch, act, st, exact, float_pcm))
+    RS = importlib.import_module("pdmp3_tpu_torch.ops.resample")
+    if hasattr(RS, "resample_block"):
+        args = resample_operands(dev, RS)
+        out["k8"] = times(lambda: RS.resample_block(*args))
+    return out
+
+
+def l12_operands(dev, S: int, B: int = B) -> tuple:
+    """K7's operands for B slots from a seeded generator: sb f32 [B, 2,
+    S, 32] of subband samples in [-1, 1) that fade with the subband, nch
+    int16 (every seventh slot mono), active int16 (all 1), a random FIFO
+    f32 [B, 2, 15, 64]."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(7 + S)
+    sb = (g.uniform(-1, 1, (B, 2, S, 32))
+          / (1 + np.arange(32))).astype(np.float32)
+    nch = np.full(B, 2, np.int16)
+    nch[::7] = 1
+    v = (g.standard_normal((B, 2, 15, 64)) * 0.1).astype(np.float32)
+    return (torch.from_numpy(sb).to(dev), torch.from_numpy(nch).to(dev),
+            torch.ones(B, dtype=torch.int16, device=dev),
+            torch.from_numpy(v).to(dev))
+
+
+def resample_operands(dev, RS, B: int = B) -> tuple:
+    """resample_block's arguments at the resampling pool's shape: B
+    streams of a seeded 1,152-sample int16 block, C = 2, 44.1 -> 48 kHz
+    from phase 0, a seeded carry, int16 out."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(8)
+    up, down, taps = 160, 147, 24
+    pcm = np.clip(g.standard_normal((B, 1152, 2)) * 9000, -32768,
+                  32767).astype(np.int16)
+    carry = np.round(g.standard_normal((B, taps - 1, 2)) * 9000)
+    H = torch.from_numpy(RS.polyphase_filter(up, down, taps)).to(dev)
+    n_out = (1152 * up + down - 1) // down
+    return (torch.from_numpy(carry.astype(np.float32)).to(dev),
+            torch.from_numpy(pcm).to(dev), 0, up, down, H, n_out,
+            torch.int16)
 
 
 def synthetic_operands(dev, B: int = B) -> tuple:

@@ -9,12 +9,19 @@ S = 12 and 36, S16 and float PCM, with mono and idle slots; two frames
 carried through decode_l12_wire at F = 2; a directed fixture whose sums
 reach NaN, +-inf and beyond int32 (the quantize's out-of-range mask);
 Layer I's new FIFO, 3 carried rows then the 12 new ones; the wrapper's
-refusals and its CPU path, which never loads the kernel library.
+refusals and its CPU path, which never loads the kernel library.  K7's
+arithmetic: the NWIN row map of its table image (consts.l12_smem_image)
+against the table, bit for bit, and a PyTorch emulation of its
+matrixing (the unique rows' dots, the mirrored rows copied, negated, or
+recomputed where the dot is zero or NaN) bitwise equal to
+dsp.subband_synthesis, FIFO included, in both summation orders, on rows
+that are silent, cancel to +-0, hold +-0, subnormals and +-inf.
 
 On the card (``cuda``-marked, skipped without one): the eight instances
 against the plain version at B = 1, 2, grid - 1, grid + 1 and 2 grid + 3
 with idle slots at the seams of the slot ring, from a hostile state, with
-subnormal subband samples and mono slots; the wire decoded in place
+subnormal subband samples and mono slots; on the emulation's silent,
+cancelling and signed-zero rows (PCM and FIFO bits); the wire decoded in place
 (nch a strided int16 view); the alignment refusal; the launch counters
 moving once a call; the launch geometry.
 
@@ -33,6 +40,8 @@ from pdmp3_tpu.models import l12 as JL
 from pdmp3_tpu.testing import mp3gen
 from pdmp3_tpu_torch.models import l12 as L
 from pdmp3_tpu_torch.ops import _build
+from pdmp3_tpu_torch.ops import consts as CC
+from pdmp3_tpu_torch.ops import dsp as D
 from pdmp3_tpu_torch.ops import fused_step as FS
 from pdmp3_tpu_torch.ops import l12_synth as K7
 from test_torch_fused_step import (IDLE_SEAMS, RAGGED_B, idle_slots,
@@ -255,6 +264,146 @@ def test_refusals_and_instances():
         FS.launch_instance(layer=4)
 
 
+def _image():
+    """K7's table image, split: ut [32, L12_COLS], synth_d [16, 32] and
+    the store map decoded to (column, mirror, negated, the mirror's dot
+    over a row of +0.0 is -0.0) per packed column."""
+    im = CC.host_consts(0)["l12_smem"]
+    cmap = im[CC.L12_MAP:CC.L12_FLOATS].view(np.int32)
+    return (im[CC.L12_UT:CC.L12_SYND].reshape(32, CC.L12_COLS),
+            im[CC.L12_SYND:CC.L12_MAP].reshape(16, 32),
+            [(int(m) & 0xff, (int(m) >> 8) & 0xff, bool(m & CC.L12_NEG),
+              bool(m & CC.L12_ZERO_NEG)) for m in cmap])
+
+
+def test_k7_row_map_matches_the_table():
+    """Every packed column of K7's image holds an NWIN row bit for bit,
+    its mirror is that row's copy or negation bit for bit, the zero-row
+    sign bit is set exactly when every coefficient of the mirror has its
+    sign bit set, the columns and mirrors write each of the 64 FIFO
+    columns once, 33 rows take a dot (31 mirror another), and synth_d is
+    the table's."""
+    c = CC.host_consts(0)
+    nwin = c["nwin"].view(np.uint32)
+    ut, synd, cmap = _image()
+    written = []
+    for q, (j, mir, neg, zneg) in enumerate(cmap):
+        col = ut[:, q].view(np.uint32)
+        if j >= CC.L12_NONE:
+            assert mir >= CC.L12_NONE and not col.any(), q
+            continue
+        np.testing.assert_array_equal(col, nwin[j], err_msg=str(q))
+        written.append(j)
+        if mir < CC.L12_NONE:
+            flip = np.uint32(0x80000000) if neg else np.uint32(0)
+            np.testing.assert_array_equal(nwin[mir], nwin[j] ^ flip,
+                                          err_msg=str(q))
+            assert zneg == bool((nwin[mir] >> 31).all()), q
+            written.append(mir)
+    assert sorted(written) == list(range(64))
+    assert sum(j < CC.L12_NONE for j, _, _, _ in cmap) == 33
+    assert sum(m < CC.L12_NONE for _, m, _, _ in cmap) == 31
+    np.testing.assert_array_equal(synd.view(np.uint32),
+                                  c["synth_d"].view(np.uint32))
+    assert [r for r, _ in CC.nwin_row_map(c["nwin"])].count(0) == 2
+
+
+def _mirror_synthesis(x_time, v_blocks, exact, naive=False):
+    """K7's matrixing emulated in PyTorch from its table image: the
+    packed columns' dots (dsp's order), each mirrored column the copy,
+    the negation, or, where a negated row's dot is zero or NaN: over a
+    row of +0.0 samples the image's signed zero, else its own dot with
+    the negated coefficients (naive: the negation always); then
+    dsp.subband_synthesis's FIR.  Returns (sums, new_v, counts of
+    negated, zero-row and recomputed values)."""
+    ut, synd, cmap = (torch.from_numpy(np.ascontiguousarray(a))
+                      if isinstance(a, np.ndarray) else a
+                      for a in _image())
+    dot = D._dot_seq if exact else D._dot_tree
+    xs = x_time.transpose(-1, -2)                        # [B,2,S,32]
+    u = dot(xs, ut)
+    zero_row = (xs.contiguous().view(torch.int32) == 0).all(-1)
+    nb = torch.full(xs.shape[:-1] + (64,), float("nan"))
+    negated = zeroed = redone = 0
+    for q, (j, mir, neg, zneg) in enumerate(cmap):
+        if j < CC.L12_NONE:
+            nb[..., j] = u[..., q]
+        if mir >= CC.L12_NONE:
+            continue
+        if not neg:
+            nb[..., mir] = u[..., q]
+            continue
+        d = u[..., q]
+        redo = ((d == 0) | d.isnan()) & (not naive)
+        zero = torch.full_like(d, -0.0 if zneg else 0.0)
+        alt = torch.where(zero_row & (d == 0), zero,
+                          dot(xs, -ut[:, q:q + 1])[..., 0])
+        nb[..., mir] = torch.where(redo, alt, -d)
+        negated += int((~redo).sum())
+        zeroed += int((redo & zero_row & (d == 0)).sum())
+        redone += int((redo & ~(zero_row & (d == 0))).sum())
+    S = xs.shape[2]
+    blocks = torch.cat([v_blocks, nb], 2)
+    acc = torch.zeros_like(nb[..., :32])
+    for j in range(16):
+        half = 32 * (j & 1)
+        acc = acc + synd[j] * blocks[:, :, 15 - j:15 + S - j,
+                                     half:half + 32]
+    return acc, blocks[:, :, S:], negated, zeroed, redone
+
+
+def _mirror_fixture(S, seed):
+    """sb f32 [6, 2, S, 32] and a FIFO: random rows, with slot 1 silent,
+    slot 2's rows cancelling a unique NWIN row's dot to zero (two
+    products that are exact negations, the rest +-0 products), slot 3
+    holding -0.0 and +0.0 only in some rows and subnormals in others,
+    slot 4 +-inf in one row of each channel."""
+    sb, _, _, v = _operands(S, 6, seed)
+    nwin = CC.host_consts(0)["nwin"]
+    rng = np.random.default_rng(seed)
+    sb[1] = 0.0
+    sb[2] = 0.0
+    for c in range(2):
+        for s in range(S):
+            r = (c * S + s) % 17                     # a unique row 0..16
+            k1, k2 = rng.choice(32, 2, replace=False)
+            sb[2, c, s, k1] = nwin[r, k2]
+            sb[2, c, s, k2] = -nwin[r, k1]
+            if s % 3 == 0:
+                sb[2, c, s, (k1 + 1) % 32] = -0.0
+    sb[3, :, ::2] = np.where(rng.random((2, (S + 1) // 2, 32)) < 0.5,
+                             np.float32(-0.0), np.float32(0.0))
+    sb[3, :, 1::2, :5] = np.float32(3e-41)
+    sb[4, 0, 3, 7] = np.inf
+    sb[4, 1, 5, 2] = -np.inf
+    return sb, v
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("layer", [1, 2])
+def test_k7_mirror_rule_equals_subband_synthesis(layer, exact):
+    """The emulated mirror rule gives dsp.subband_synthesis's sums and
+    new FIFO bit for bit on random, silent, cancelling, signed-zero,
+    subnormal and infinite rows; each of the rule's branches is taken
+    (negations, zero rows' signed zeros, recomputes of zero and NaN
+    dots), and negating without the rule would differ."""
+    S = LAYERS[layer]
+    sb, v = _mirror_fixture(S, 60 + layer)
+    x_time = torch.from_numpy(sb).transpose(-1, -2)
+    vb = torch.from_numpy(v)
+    want_s, want_v = D.subband_synthesis(x_time, vb, exact)
+    got_s, got_v, negated, zeroed, redone = _mirror_synthesis(x_time, vb,
+                                                              exact)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert negated > 0 and zeroed > 0 and redone > 0
+    # the rule is needed: negating a silent row's +0 gives -0, and a
+    # NaN's negation flips its sign bit
+    _, naive_v, _, _, _ = _mirror_synthesis(x_time, vb, exact, naive=True)
+    assert not torch.equal(naive_v.view(torch.int32),
+                           want_v.view(torch.int32))
+
+
 # ---- on the card -----------------------------------------------------------
 
 def _cuda():
@@ -324,6 +473,32 @@ def test_k7_ragged_batches_and_idle_seams_on_cuda(n, pattern):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layer", [1, 2])
+def test_k7_silent_and_cancelling_rows_on_cuda(layer):
+    """The eight instances on _mirror_fixture's slots (silent, cancelling
+    a unique row's dot to zero, +-0 and subnormal samples, +-inf) beside
+    random ones, slot 5 mono, two chained steps: PCM and FIFO bit for
+    bit equal to the plain version, signed zeros and NaN bits
+    included."""
+    dev = _cuda()
+    S = LAYERS[layer]
+    sb, v = _mirror_fixture(S, 70 + layer)
+    nch = np.full(6, 2, np.int32)
+    nch[5] = 1
+    sb, nch, act = (torch.from_numpy(a).to(dev)
+                    for a in (sb, nch, np.ones(6, np.int32)))
+    for exact in (False, True):
+        for float_pcm in (False, True):
+            v0 = torch.from_numpy(v).to(dev)
+            for t in range(2):
+                pk, vk, pr, vr = _pair(sb, nch, act, v0, exact, float_pcm)
+                what = (layer, exact, float_pcm, t)
+                assert torch.equal(_bits(pk), _bits(pr)), what
+                assert torch.equal(_bits(vk), _bits(vr)), what
+                v0 = vr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [1, 2])
 def test_k7_decodes_the_wire_in_place_on_cuda(layer):
     """decode_l12_wire at F = 2 on a device wire (sb read in place, nch
     a strided int16 view, active int16): one K7 launch a frame, PCM and
@@ -376,10 +551,12 @@ def test_k7_refuses_misaligned_operands_on_cuda():
 @pytest.mark.cuda
 def test_k7_launch_geometry_on_cuda():
     """Instances 13-20: 128 / 384 threads' worth of registers without
-    spills, shared memory as the layout gives it, a persistent grid."""
+    spills (Layer I five blocks per SM, Layer II two), shared memory as the layout gives it (K7's 6,800 B table
+    image, the ring, the new FIFO rows, the PCM row), a persistent
+    grid."""
     dev = _cuda()
-    smem = {(1, False): 39472, (1, True): 41008, (2, False): 67120,
-            (2, True): 71728}
+    smem = {(1, False): 36032, (1, True): 37568, (2, False): 63680,
+            (2, True): 68288}
     for layer in (1, 2):
         for float_pcm in (False, True):
             for exact in (False, True):
@@ -388,6 +565,7 @@ def test_k7_launch_geometry_on_cuda():
                 assert info["dynamic_smem_bytes"] == smem[(layer,
                                                            float_pcm)]
                 assert info["local_bytes"] == 0
-                assert info["blocks_per_sm"] >= (3 if layer == 2 else 5)
+                # Layer II's tiles budget 85 registers (two blocks)
+                assert info["blocks_per_sm"] >= (2 if layer == 2 else 5)
                 assert info["grid"] == (info["sm_count"]
                                         * info["blocks_per_sm"])

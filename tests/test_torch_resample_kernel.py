@@ -12,7 +12,10 @@ one, C = 1 and 2, int16 and f32 output; against the JAX package's
 ``tests/test_torch_resample.py`` (f32 within FLOAT_TOL, int16 within 1
 LSB: JAX's einsum sums in its own order), including a block shorter than
 taps - 1 and state restored from a JAX resampler; the refusals; K8's
-split of a stream's outputs into chunks (``k8_geometry``); the CPU
+geometry (``k8_geometry``: one bulk-staged chunk for a serving block,
+chunks whose windows fit K8_WINDOW for long blocks); a model of K8's
+walk over window starts, which computes every output once with the
+(m, p) of divmod over every running phase of five rate pairs; the CPU
 path, which never loads the kernel library.
 
 On the card (``cuda``-marked, skipped without one): K8 against the plain
@@ -20,7 +23,8 @@ version bitwise, int16 and f32 in and out, C = 1 and 2, N = 1152, 576,
 384, 10 and 0, several steps carrying the phase, three rate pairs, at B
 = 1, 2 and 2,053 (past the persistent grid), on blocks long enough to
 take several chunks a stream, and on a strided view of a longer signal
-(the resample sweep's blocks); one launch a call; the refusals.
+(the resample sweep's blocks) and on blocks whose address and stream
+stride are off 16-byte alignment; one launch a call; the refusals.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -152,24 +156,121 @@ def test_block_refusals():
 
 @pytest.mark.parametrize("from_rate,to_rate", PAIRS + [(48000, 8000)])
 def test_k8_geometry_covers_each_stream(from_rate, to_rate):
-    """K8's chunks cover a stream's outputs, each chunk's input window
-    fits K8_WINDOW samples a channel and the shared memory it sizes; a
-    serving block (1,152 samples) is one chunk."""
+    """K8's chunks cover the window positions of a stream's outputs, each
+    chunk's window fits K8_WINDOW samples a channel (or is the whole x,
+    when that does) and the shared memory sized for it; a serving block
+    (1,152 samples) is one chunk, bulk-staged when asked, and no block of
+    10 or more than K8_WINDOW samples is."""
     rs = StreamResampler(from_rate, to_rate, 1, 2, device="cpu")
     up, down, taps = rs.up, rs.down, rs.taps
+    K = taps - 1
     for n_in in (0, 10, 1152, 9216, 100000):
-        n_out = (n_in * up + down - 1) // down
-        chunk, chunks, smem = RS.k8_geometry(up, down, taps, 2, n_out)
-        assert chunk >= 1 and chunks * chunk >= n_out
-        assert (chunks - 1) * chunk < max(n_out, 1)
         for phase in (0, down - 1):
-            for j0 in range(0, n_out, chunk):
-                j1 = min(j0 + chunk, n_out) - 1
-                n = (phase + j1 * down) // up - (phase + j0 * down) // up
-                assert n + taps <= min(RS.K8_WINDOW, smem // 8 - up * taps
-                                       // 2)
-        if n_in == 1152:
-            assert chunks == 1
+            n_out = (n_in * up - phase + down - 1) // down
+            g = RS.k8_geometry(up, down, taps, 2, n_out, n_in, phase, 2,
+                               True)
+            span = g["p_end"] - g["p_first"]
+            assert g["chunks"] * g["p_chunk"] >= span
+            assert (g["chunks"] - 1) * g["p_chunk"] < max(span, 1)
+            if n_out:
+                assert g["p_first"] == phase // up
+                assert g["p_end"] - 1 + K < K + n_in   # windows inside x
+            if g["chunks"] == 1:
+                assert g["win"] == K + n_in
+            else:
+                assert g["win"] == g["p_chunk"] + K <= RS.K8_WINDOW
+                assert g["p_chunk"] % RS.k8_period(down) == 0
+            assert g["bulk"] == (g["chunks"] == 1 and n_in > 0)
+            stage = 2 * (-(-n_in * 4 // 16) * 16) if g["bulk"] else 0
+            assert g["smem"] >= (4 * up * g["hstride"] + stage
+                                 + 8 * g["win"])
+            if n_in == 1152:
+                assert g["chunks"] == 1 and g["bulk"]
+            if n_in > RS.K8_WINDOW:
+                assert g["chunks"] > 1 and not g["bulk"]
+
+
+def _k8_walk(up, down, taps, n_in, phase):
+    """A model of K8's enumeration of one stream's outputs
+    (csrc/resample.cu resample_kernel): per chunk of k8_geometry, the
+    class table (one divmod per class), the runs (c, k) with k fastest,
+    K8_RUN positions a run and every output that starts there, stepped
+    by adds and compares.  Returns the (j, m, p) of the outputs computed,
+    in order, and checks each run's register window against the staged
+    window."""
+    n_out = (n_in * up - phase + down - 1) // down
+    g = RS.k8_geometry(up, down, taps, 2, n_out, n_in, phase)
+    K, R, L = taps - 1, RS.K8_RUN, RS.k8_period(down)
+    classes, f, j_step = -(-L // R), up // down, L // down * up
+    out = []
+    for q in range(g["chunks"]):
+        P0 = g["p_first"] + q * g["p_chunk"]
+        P1 = min(P0 + g["p_chunk"], g["p_end"])
+        W0, W1 = ((0, K + n_in) if g["chunks"] == 1
+                  else (P0, min(P1 + K, K + n_in)))
+        assert W1 - W0 <= g["win"]
+        table = []
+        for c in range(classes):
+            m = P0 + c * R
+            j = -((phase - m * up) // down)        # ceil((m up - phase) / down)
+            table.append((j, phase + j * down - m * up))
+        periods = -(-(P1 - P0) // L) if P1 > P0 else 0
+        for t in range(classes * periods):
+            c, k = divmod(t, periods)
+            m0 = P0 + k * L + c * R
+            j, phi = table[c][0] + k * j_step, table[c][1]
+            assert 0 <= phi < down
+            for i in range(R):
+                pos_ok = c * R + i < L and m0 + i < P1
+                cnt = f + (phi + f * down < up)
+                for r in range(cnt):
+                    if pos_ok and 0 <= j + r < n_out:
+                        assert W0 <= m0 + i and m0 + i + K < W1
+                        out.append((j + r, m0 + i, phi + r * down))
+                j += cnt
+                phi += cnt * down - up
+    return out, n_out
+
+
+@pytest.mark.parametrize("from_rate,to_rate", [
+    (44100, 48000), (48000, 44100), (22050, 48000), (48000, 8000),
+    (8000, 48000)])
+def test_k8_walk_equals_divmod_over_every_phase(from_rate, to_rate):
+    """The model of K8's stepped walk computes every output of a serving
+    block exactly once, with (m, p) = divmod(phase + j down, up), for
+    every running phase 0 .. down - 1; and so for two blocks split into
+    chunks (9,216 samples)."""
+    rs = StreamResampler(from_rate, to_rate, 1, 2, device="cpu")
+    up, down, taps = rs.up, rs.down, rs.taps
+    cases = [(1152, ph) for ph in range(down)] + [(9216, 0),
+                                                  (9216, down - 1)]
+    for n_in, phase in cases:
+        got, n_out = _k8_walk(up, down, taps, n_in, phase)
+        want = [(j, *divmod(phase + j * down, up)) for j in range(n_out)]
+        assert sorted(got) == want, (n_in, phase)
+
+
+def test_k8_instances_named_in_build_log():
+    """_build.ptxas_summary names each of K8's instances by its type and
+    value arguments, so the registers and spills of the sixteen stay
+    apart."""
+    from pdmp3_tpu_torch.ops._build import ptxas_summary
+    mangled = {
+        "resample_kernel<short,float,2,24>":
+        "_ZN50_INTERNAL_0a1b2c3d_11_resample_cu_9f8e7d6c15resample_kernel"
+        "IsfLi2ELi24EEEvPKfPKT_xS1_PfPT0_iiiiiiiiiiiiiii",
+        "resample_kernel<float,short,1,0>":
+        "_ZN50_INTERNAL_0a1b2c3d_11_resample_cu_9f8e7d6c15resample_kernel"
+        "IfsLi1ELi0EEEvPKfPKT_xS1_PfPT0_iiiiiiiiiiiiiii"}
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{m}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {m}\n    0 bytes stack "
+        f"frame, {k} bytes spill stores, 0 bytes spill loads\nptxas info"
+        f"    : Used {60 + k} registers, used 1 barriers\n"
+        for k, m in enumerate(mangled.values()))
+    got = ptxas_summary(log)
+    assert [g.split(":")[0] for g in got] == list(mangled)
+    assert "Used 61 registers" in got[1]
 
 
 def test_cpu_path_never_loads_the_library(monkeypatch):
@@ -252,6 +353,36 @@ def test_k8_reads_a_strided_block_on_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("int16", [True, False], ids=["int16", "f32"])
+def test_k8_unaligned_stream_stride_on_cuda(int16):
+    """Blocks of every size of SIZES cut from [B, N + 1, C] at sample 1
+    (address and stream stride off 16-byte alignment: the kernel stages
+    them by plain loads) and the same blocks copied contiguous (a
+    serving block is bulk-staged), C = 1 and 2, B = 700, carrying the
+    phase: both bitwise equal to the plain version."""
+    dev = _cuda()
+    for C in (1, 2):
+        k = StreamResampler(44100, 48000, 700, C, device=dev)
+        a = StreamResampler(44100, 48000, 700, C, device=dev)
+        r = StreamResampler(44100, 48000, 700, C, device=dev)
+        for t, x in enumerate(_blocks(40 + C, 700, C, int16=int16)):
+            n = x.shape[1]
+            wide = np.zeros((700, n + 1, C), x.dtype)
+            wide[:, 1:] = x
+            view = torch.from_numpy(wide).to(dev)[:, 1:]
+            assert n == 0 or view.stride(0) * view.element_size() % 16
+            dense = torch.from_numpy(x).to(dev)
+            n_out = (n * r.up - r.phase + r.down - 1) // r.down
+            yr, r.carry = RS.resample_block_ref(r.carry, dense, r.phase,
+                                                r.up, r.down, r.H, n_out)
+            r.phase += n_out * r.down - n * r.up
+            yk, ya = k(view), a(dense)
+            torch.cuda.synchronize()
+            assert _same(yk, yr) and _same(ya, yr), (C, t, n)
+            assert _same(k.carry, r.carry) and _same(a.carry, r.carry)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("from_rate,to_rate", [(44100, 48000),
                                                (48000, 8000)])
 def test_k8_long_blocks_in_chunks_on_cuda(from_rate, to_rate):
@@ -265,7 +396,8 @@ def test_k8_long_blocks_in_chunks_on_cuda(from_rate, to_rate):
         for x in _blocks(C, 3, C, (9216, 9216, 577)):
             n_out = (x.shape[1] * k.up - k.phase + k.down - 1) // k.down
             assert x.shape[1] < 1000 or RS.k8_geometry(
-                k.up, k.down, k.taps, C, n_out)[1] > 1
+                k.up, k.down, k.taps, C, n_out, x.shape[1],
+                k.phase)["chunks"] > 1
             assert _same(k(torch.from_numpy(x).to(dev)).cpu(),
                          r(torch.from_numpy(x)))
             assert torch.equal(k.carry.cpu(), r.carry)
