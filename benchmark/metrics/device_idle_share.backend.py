@@ -1,0 +1,8 @@
+"""device_idle_share.backend: the share of the traced window in which no
+kernel, copy or set ran on the card (torch.profiler), in %."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
