@@ -49,6 +49,7 @@ from ..ops.back_half import float_granule_step, split_granule_step
 from ..ops.dsp import META_WORDS
 from ..ops.frame_step import frame_step
 from ..ops.fused_step import fused_granule_step
+from ..utils.trace import span
 
 # The frame-fused opt-in, the JAX package's own: read once at import from
 # PDMP3_FRAME_FUSED; set the module attribute to change it in a process.
@@ -236,13 +237,16 @@ def decode_frame_soa(ix2, scf_l2, scf_s2, meta2, active, state,
                           bug_compat)
     pcms = []
     for gr in range(2):
-        b = _batch_from_meta(ix2[gr], scf_l2[gr], scf_s2[gr], meta2[gr],
-                             active, gr)
-        pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
-                                        b.active, b.gr1, state, bug_compat,
-                                        exact, float_pcm=float_pcm)
+        with span("step.widen"):
+            b = _batch_from_meta(ix2[gr], scf_l2[gr], scf_s2[gr],
+                                 meta2[gr], active, gr)
+        with span("step.launch"):
+            pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
+                                            b.active, b.gr1, state,
+                                            bug_compat, exact,
+                                            float_pcm=float_pcm)
         pcms.append(pcm)
-    return torch.cat(pcms, 1), state
+    return _join(pcms), state
 
 
 def _packed_layout(sections) -> dict:
@@ -273,7 +277,10 @@ def _active_shape(B: int, F: int) -> tuple:
 
 
 def _join(pcms: list):
-    return pcms[0] if len(pcms) == 1 else torch.cat(pcms, 1)
+    if len(pcms) == 1:
+        return pcms[0]
+    with span("step.join"):
+        return torch.cat(pcms, 1)
 
 
 def soa_layout(B: int, F: int = 1) -> dict:
@@ -363,12 +370,14 @@ def decode_frame_lsf_soa(ix, scf_l, scf_s, meta, is_pos, active, state,
         raise ValueError(f"LSF family must be 1 or 2, got {family!r}")
     pcms = []
     for f in range(ix.shape[0]):
-        b = _batch_from_meta(ix[f], scf_l[f], scf_s[f], meta[f], active[f],
-                             0)
-        pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
-                                        b.active, 0, state, bug_compat,
-                                        exact, family, is_pos[f],
-                                        float_pcm=float_pcm)
+        with span("step.widen"):
+            b = _batch_from_meta(ix[f], scf_l[f], scf_s[f], meta[f],
+                                 active[f], 0)
+        with span("step.launch"):
+            pcm, state = fused_granule_step(b.ix, b.scf_l, b.scf_s, b.meta,
+                                            b.active, 0, state, bug_compat,
+                                            exact, family, is_pos[f],
+                                            float_pcm=float_pcm)
         pcms.append(pcm)
     return _join(pcms), state
 

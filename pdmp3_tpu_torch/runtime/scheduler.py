@@ -25,6 +25,7 @@ from ..host import (PROFILE_L12, PROFILE_LSF, PROFILE_SPEC_INTENSITY,
 from ..models import decoder as M
 from ..models import l12 as L
 from ..ops.dsp import M_NCH
+from ..utils.trace import span
 
 
 class LoopFeeder:
@@ -107,7 +108,8 @@ class _Pool:
         then may the host write to it."""
         done = self._uploaded[self._cur]
         if done is not None:
-            done.synchronize()
+            with span("pool.wait_upload"):
+                done.synchronize()
             self._uploaded[self._cur] = None
 
     # ---- host side ----
@@ -123,8 +125,9 @@ class _Pool:
         native call for the whole batch).  Returns the number of active
         slot-frames."""
         self._reclaim()
-        return self._fn(self._handle_arr, self.n, self.parse_threads,
-                        self.F, *self._packer_args())
+        with span("pool.parse"):
+            return self._fn(self._handle_arr, self.n, self.parse_threads,
+                            self.F, *self._packer_args())
 
     # ---- device side ----
 
@@ -142,34 +145,39 @@ class _Pool:
         """A step's first part: the current buffer's parsed wire on the
         pool's device (on CUDA an asynchronous copy, fenced so the host
         writes that buffer again only once the copy has read it)."""
-        host = self._wires_t[self._cur][:self._upload_len()]
-        if self.device.type != "cuda":
-            return host
-        wire = host.to(self.device, non_blocking=True)
-        # the fence goes on the stream the upload went to (the pool's
-        # device, which need not be the current one)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        self._uploaded[self._cur] = ev
-        return wire
+        with span("pool.upload"):
+            host = self._wires_t[self._cur][:self._upload_len()]
+            if self.device.type != "cuda":
+                return host
+            wire = host.to(self.device, non_blocking=True)
+            # the fence goes on the stream the upload went to (the pool's
+            # device, which need not be the current one)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._uploaded[self._cur] = ev
+            return wire
 
     def advance(self, wire):
         """A step's second part: decode `wire` (``upload``'s) and move
         the pool to the next step; the step's PCM as a device tensor."""
-        pcm, self.state = self._decode(wire)
-        # swap to the other wire buffer for the next parse; carry this
-        # step's active/meta over so post-decode queries keep working.
-        # The other buffer's upload (the previous step's) may still be
-        # queued behind the device's work: reclaim it before writing.
-        act, meta = self.active.copy(), self.meta.copy()
-        self._cur ^= 1
-        self._bind_views()
-        self._reclaim()
-        self.active[:] = act
-        self.meta[:] = meta
-        if self._resampler is not None:
-            pcm = self._resampler(pcm)
-        return pcm
+        with span("pool.advance"):
+            with span("pool.decode"):
+                pcm, self.state = self._decode(wire)
+            # swap to the other wire buffer for the next parse; carry
+            # this step's active/meta over so post-decode queries keep
+            # working.  The other buffer's upload (the previous step's)
+            # may still be queued behind the device's work: reclaim it
+            # before writing.
+            with span("pool.carry"):
+                act, meta = self.active.copy(), self.meta.copy()
+                self._cur ^= 1
+                self._bind_views()
+                self._reclaim()
+                self.active[:] = act
+                self.meta[:] = meta
+            if self._resampler is not None:
+                pcm = self._resampler(pcm)
+            return pcm
 
     def decode_step_pipelined(self):
         """decode_step with an asynchronous PCM drain: decodes this step,
@@ -194,21 +202,22 @@ class _Pool:
     def _drain(self, pcm):
         """Start the copy of a step's PCM to the host: (host tensor, event
         that marks the copy done, or None on the CPU)."""
-        if pcm.device.type != "cuda":
-            return pcm, None
-        if self._drain_stream is None:
-            self._drain_stream = torch.cuda.Stream(self.device)
-        computed = torch.cuda.Event()
-        computed.record(torch.cuda.current_stream(pcm.device))
-        host = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
-        self._drain_stream.wait_event(computed)
-        with torch.cuda.stream(self._drain_stream):
-            host.copy_(pcm, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        # the allocator must not hand pcm's memory out before the copy
-        pcm.record_stream(self._drain_stream)
-        return host, done
+        with span("pool.drain"):
+            if pcm.device.type != "cuda":
+                return pcm, None
+            if self._drain_stream is None:
+                self._drain_stream = torch.cuda.Stream(self.device)
+            computed = torch.cuda.Event()
+            computed.record(torch.cuda.current_stream(pcm.device))
+            host = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
+            self._drain_stream.wait_event(computed)
+            with torch.cuda.stream(self._drain_stream):
+                host.copy_(pcm, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            # the allocator must not hand pcm's memory out before the copy
+            pcm.record_stream(self._drain_stream)
+            return host, done
 
     @staticmethod
     def _fetch(pending):
@@ -216,7 +225,8 @@ class _Pool:
             return None
         host, done = pending
         if done is not None:
-            done.synchronize()
+            with span("pool.wait_pcm"):
+                done.synchronize()
         return host.numpy()
 
 
