@@ -496,8 +496,9 @@ def bench_serving_at_size(dev, B: int = 4096, steps: int = 24,
     they were decoded live, their PCM held bitwise against the live
     steps', then `trials` windows of `steps` replays.  A replayed step
     (``replay_step_ms``, host clock; bench.py's ``device_step_ms_tunnel``)
-    is the host copy of its recorded wire into the pool's pinned buffer
-    (``host_copy_ms_per_step``) and then ``decode_step``: the upload and
+    is the host copy of its recorded wire into the pool's pinned buffer,
+    after that buffer's upload fence (``host_copy_ms_per_step``), and
+    then ``decode_step``: the upload and
     two K1 launches (``device_step_ms``, CUDA events around them; the
     host clock off CUDA).  ``device_feed_only_rtf`` is bench.py's, over
     the replayed step."""
@@ -521,20 +522,18 @@ def bench_serving_at_size(dev, B: int = 4096, steps: int = 24,
         t0 = time.perf_counter()
         dec.parse_step()
         t_parse.append(time.perf_counter() - t0)
-        recorded.append((dec.wire.copy(), dec.active.copy(),
-                         dec.meta.copy()))
+        recorded.append(dec.wire.copy())    # active and meta included
         live.append(dec.decode_step(fetch=False))
         n_steps += 1
 
     def copy_in(k):
-        # the race of a pinned double buffer: a queued non_blocking
-        # upload reads the buffer when the stream reaches it, so the host
-        # writes it only once its fence has passed; the last decode_step
-        # (advance) reclaimed the buffer it swapped to
-        w, a, m = recorded[k % len(recorded)]
-        dec.wire[...] = w
-        dec.active[:] = a
-        dec.meta[:] = m
+        # into the buffer that the next upload reads, as parse_step
+        # writes it: the race of a pinned double buffer (a queued
+        # non_blocking upload reads the buffer when the stream reaches
+        # it) lets the host write it only once its fence has passed
+        dec._reclaim()
+        dec._sets[dec._cur]["wire"][...] = recorded[k % len(recorded)]
+        dec._show(dec._cur)
 
     for n in ("store", "v_blocks", "prev_lines"):
         getattr(dec.state, n).copy_(getattr(st0, n))

@@ -25,7 +25,7 @@ from ..host import (PROFILE_L12, PROFILE_LSF, PROFILE_SPEC_INTENSITY,
 from ..models import decoder as M
 from ..models import l12 as L
 from ..ops.dsp import M_NCH
-from ..utils.trace import span
+from ..utils.trace import count, span
 
 
 class LoopFeeder:
@@ -58,10 +58,15 @@ class LoopFeeder:
 class _Pool:
     """What the serving pools share: one native handle per slot, the
     pinned double-buffered wire with an upload fence per buffer, the step
-    (upload, decode, buffer swap) and the pipelined PCM drain.  A pool
-    sets the wire's layout and views (``_bind_views``), the native
-    packer (``_fn``, ``_packer_args``) and the device decode
-    (``_decode``)."""
+    (parse, upload, decode, buffer flip) and the pipelined PCM drain.  A
+    pool sets the wire's layout and host views (``_host_views``), the
+    native packer (``_fn``, ``_packer_args``) and the device decode
+    (``_decode``).
+
+    The next parse and upload use buffer ``_cur``.  The pool's views
+    (``active``, ``meta``, the wire's sections) show the buffer last
+    parsed or decoded: after ``advance`` the one just decoded, after
+    ``parse_step`` the one it parsed."""
 
     def _open(self, n_slots: int, profile: int, parse_threads: int,
               frames_per_step: int, device, nbytes: int, dtype) -> None:
@@ -87,9 +92,11 @@ class _Pool:
         cuda = self.device.type == "cuda"
         self._wires_t = [torch.zeros(nbytes, dtype=dtype, pin_memory=cuda)
                          for _ in range(2)]
+        # each buffer's numpy views, bound once; a step selects a set
+        self._sets = [self._host_views(w) for w in self._wires_t]
         self._uploaded = [None, None]
         self._cur = 0
-        self._bind_views()
+        self._show(0)
         # the pipelined drain: the previous step's PCM copy in flight
         self._pending = None
         self._drain_stream = None
@@ -112,6 +119,27 @@ class _Pool:
                 done.synchronize()
             self._uploaded[self._cur] = None
 
+    def _show(self, i: int) -> None:
+        """Point the pool's views at buffer i's."""
+        self._shown = i
+        self.__dict__.update(self._sets[i])
+
+    def _keep_idle_meta(self, last: dict, views: dict) -> None:
+        """The packers write meta only for the slot-frames they make
+        active; an idle slot-frame keeps its slot's meta of the step that
+        `last` (the views the pool showed) holds, which ``nch`` reads
+        and the next upload carries.  Copies only those rows: none when
+        every slot-frame is active."""
+        active = views["active"]
+        idle = active.size - np.count_nonzero(active)
+        count("pool.meta_kept", idle)
+        if not idle or last is views:
+            return
+        f, s = np.nonzero(active.reshape(self.F, self.n) == 0)
+        meta = views["meta"]
+        shape = (self.F, -1, self.n, meta.shape[-1])
+        meta.reshape(shape)[f, :, s] = last["meta"].reshape(shape)[f, :, s]
+
     # ---- host side ----
 
     def feed(self, slot: int, data: bytes) -> int:
@@ -121,13 +149,18 @@ class _Pool:
         return self.handles[slot].inbuf_free()
 
     def parse_step(self) -> int:
-        """Parse F frames per slot into the current wire buffer (one
-        native call for the whole batch).  Returns the number of active
-        slot-frames."""
+        """Parse F frames per slot into the buffer that the next step
+        uploads (one native call for the whole batch), once its last
+        upload has read it; keep the idle slot-frames' meta and show the
+        buffer.  Returns the number of active slot-frames."""
         self._reclaim()
+        views = self._sets[self._cur]
         with span("pool.parse"):
-            return self._fn(self._handle_arr, self.n, self.parse_threads,
-                            self.F, *self._packer_args())
+            n = self._fn(self._handle_arr, self.n, self.parse_threads,
+                         self.F, *self._packer_args(views))
+        self._keep_idle_meta(self._sets[self._shown], views)
+        self._show(self._cur)
+        return n
 
     # ---- device side ----
 
@@ -158,23 +191,15 @@ class _Pool:
             return wire
 
     def advance(self, wire):
-        """A step's second part: decode `wire` (``upload``'s) and move
-        the pool to the next step; the step's PCM as a device tensor."""
+        """A step's second part: decode `wire` (``upload``'s) and turn
+        the pool to the other buffer for the next parse and upload; the
+        step's PCM as a device tensor.  The views show the decoded
+        buffer until that parse."""
         with span("pool.advance"):
             with span("pool.decode"):
                 pcm, self.state = self._decode(wire)
-            # swap to the other wire buffer for the next parse; carry
-            # this step's active/meta over so post-decode queries keep
-            # working.  The other buffer's upload (the previous step's)
-            # may still be queued behind the device's work: reclaim it
-            # before writing.
             with span("pool.carry"):
-                act, meta = self.active.copy(), self.meta.copy()
                 self._cur ^= 1
-                self._bind_views()
-                self._reclaim()
-                self.active[:] = act
-                self.meta[:] = meta
             if self._resampler is not None:
                 pcm = self._resampler(pcm)
             return pcm
@@ -315,8 +340,8 @@ class StreamDecoder(_Pool):
                        + [C.c_void_p] * len(sections))
         return fn, sections
 
-    def _packer_args(self) -> list:
-        return [getattr(self, name).ctypes.data_as(C.c_void_p)
+    def _packer_args(self, views: dict) -> list:
+        return [views[name].ctypes.data_as(C.c_void_p)
                 for name in self._sections]
 
     def _upload_len(self) -> int:
@@ -333,14 +358,13 @@ class StreamDecoder(_Pool):
                                      exact=self.exact,
                                      float_pcm=self.float_pcm)
 
-    def _bind_views(self):
-        """numpy views of the current wire buffer, by section: [F*2,B,...]
-        per granule for MPEG-1, [F,B,...] for LSF, active [B] for F = 1,
-        else [F,B]."""
-        host = self._wires_t[self._cur]
-        self.wire = host.numpy()
-        for name, t in self._views(host).items():
-            setattr(self, name, t.numpy())
+    def _host_views(self, host) -> dict:
+        """numpy views of a wire buffer: the whole (``wire``) and its
+        sections, [F*2,B,...] per granule for MPEG-1, [F,B,...] for LSF,
+        active [B] for F = 1, else [F,B]."""
+        views = {name: t.numpy() for name, t in self._views(host).items()}
+        views["wire"] = host.numpy()
+        return views
 
     def nch(self, slot: int) -> int:
         return max(int(self.meta[0, slot, M_NCH]), 1)
@@ -466,9 +490,9 @@ class SparseStreamDecoder(StreamDecoder):
                        + [C.POINTER(C.c_longlong)])
         return fn, sections
 
-    def _packer_args(self) -> list:
-        return [self.ix_flat.ctypes.data_as(C.c_void_p), self._cap_full,
-                *super()._packer_args(), C.byref(self._used)]
+    def _packer_args(self, views: dict) -> list:
+        return [views["ix_flat"].ctypes.data_as(C.c_void_p), self._cap_full,
+                *super()._packer_args(views), C.byref(self._used)]
 
     def _bucket_blocks(self) -> int:
         """The step's blocks rounded up to 1/8ths of the worst case, and
@@ -530,14 +554,12 @@ class L12StreamDecoder(_Pool):
         self._fn.argtypes = [C.c_void_p, C.c_size_t, C.c_int, C.c_size_t,
                              C.c_int, C.c_void_p, C.c_void_p, C.c_void_p]
 
-    def _bind_views(self):
-        host = self._wires_t[self._cur]
-        for name, t in L.l12_sections(host, self.n, self.layer,
-                                      self.F).items():
-            setattr(self, name, t.numpy())
+    def _host_views(self, host) -> dict:
+        return {name: t.numpy() for name, t in
+                L.l12_sections(host, self.n, self.layer, self.F).items()}
 
-    def _packer_args(self) -> list:
-        return [self.layer] + [getattr(self, name).ctypes.data_as(C.c_void_p)
+    def _packer_args(self, views: dict) -> list:
+        return [self.layer] + [views[name].ctypes.data_as(C.c_void_p)
                                for name in ("sb", "meta", "active")]
 
     def _decode(self, wire):

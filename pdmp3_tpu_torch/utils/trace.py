@@ -11,7 +11,9 @@ Counterpart of ``pdmp3_tpu/utils/trace.py``, and three things:
   benchmark's traced runs read (``RECORDER.spans()``); otherwise it is a
   shared no-op and records nothing.  Inside ``Trace`` it is besides a
   profiler annotation, so it lands in the trace beside the device's
-  kernels and copies, on the same clock.
+  kernels and copies, on the same clock.  ``count(name, n)`` adds to a
+  ``RECORDER`` count under the same rule (``RECORDER.counts``; the
+  pools' ``pool.meta_kept``: the idle slot-frames of a parse step).
 - ``Trace(dir)``: a ``torch.profiler`` session over the CPU and the
   card that writes one Chrome trace for perfetto or chrome://tracing.
   A profiler session can lose kernel launches on an H100: the benchmark
@@ -126,6 +128,13 @@ def span(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _On(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` to ``RECORDER``'s count `name` while a ``torch.profiler``
+    session records; else nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        RECORDER.counts[name] += n
 
 
 @contextlib.contextmanager

@@ -7,8 +7,10 @@ them (``pool.advance`` holds ``pool.decode``, which holds the model
 step's ``step.widen`` / ``step.launch`` / ``step.join``, then
 ``pool.carry``), each around the work its metric names, and the recorder
 counts one of each a step or a granule step; without a session the
-recorder stays empty, and the PCM is the same bits either way.  On the
-card, the served loop's two waits are spans too."""
+recorder stays empty, and the PCM is the same bits either way.  The
+advance copies no wire view and selects no views: the reclaim, the idle
+slot-frames' meta and the views' selection belong to the parse step.  On
+the card, the served loop's two waits are spans too."""
 import collections
 import json
 
@@ -40,13 +42,14 @@ def _streams(family):
 # innermost program span each probe must sit in.  Moving work across
 # these spans redefines the metrics that read them.
 ENCLOSED = {"probe.decode": "pool.decode", "probe.widen": "step.widen",
-            "probe.launch": "step.launch", "probe.copy": "pool.carry",
-            "probe.bind_views": "pool.carry", "probe.reclaim": "pool.carry"}
+            "probe.launch": "step.launch"}
+# The pool's work between steps, inside each parse_step (probed), in this
+# order, and never inside pool.advance.
+PARSE_STEP = ("probe.reclaim", "probe.keep_meta", "probe.show")
 
 
 class _Probed(np.ndarray):
-    """A wire view whose copies (the carry's active and meta) are
-    probed."""
+    """A wire view whose copies are probed."""
 
     def copy(self, *args, **kwargs):
         with torch.profiler.record_function("probe.copy"):
@@ -68,14 +71,13 @@ def _probe_pool(dec, monkeypatch):
                         _probe(M.fused_granule_step, "probe.launch"))
     dec._decode = _probe(dec._decode, "probe.decode")
     dec._reclaim = _probe(dec._reclaim, "probe.reclaim")
-    bind = dec._bind_views
-
-    def bind_probed():
-        bind()
-        dec.active = dec.active.view(_Probed)
-        dec.meta = dec.meta.view(_Probed)
-    dec._bind_views = _probe(bind_probed, "probe.bind_views")
-    bind_probed()
+    dec._keep_idle_meta = _probe(dec._keep_idle_meta, "probe.keep_meta")
+    dec._show = _probe(dec._show, "probe.show")
+    dec.parse_step = _probe(dec.parse_step, "probe.parse_step")
+    for views in dec._sets:
+        for name, a in views.items():
+            views[name] = a.view(_Probed)
+    dec.__dict__.update(dec._sets[dec._shown])
 
 
 def _serve(family, monkeypatch=None, device="cpu"):
@@ -115,16 +117,18 @@ def served(request, tmp_path_factory):
     trace.RECORDER.reset()
     off = _serve(family)
     spans_off = trace.RECORDER.spans()
+    report_off = trace.RECORDER.report()
     out = tmp_path_factory.mktemp("trace")
     with pytest.MonkeyPatch.context() as monkeypatch:
         with Trace(str(out)):
             on = _serve(family, monkeypatch)
     spans_on = trace.RECORDER.spans()
+    kept = trace.RECORDER.counts.get("pool.meta_kept")
     trace.RECORDER.reset()
     files = sorted(out.glob("*.pt.trace.json"))
     assert len(files) == 1
     return dict(family=family, off=off, on=on, spans_off=spans_off,
-                spans_on=spans_on,
+                report_off=report_off, spans_on=spans_on, kept=kept,
                 notes=_events(files[0], ("pool.", "step.")),
                 probes=_events(files[0], ("probe.",)),
                 cats=_events(files[0], ("aten::cat",)))
@@ -161,19 +165,18 @@ def test_spans_enclose_the_work_their_metrics_name(served):
     """Inside each pool.advance, every probed piece of work sits in the
     span that its metric reads (ENCLOSED), innermost: the model step's
     call in pool.decode, the widening in step.widen, the granule step's
-    call in step.launch, and the active / meta copies, the views' binding
-    and the reclaim in pool.carry; and the MPEG-1 granules' concatenation
-    is the step.join."""
+    call in step.launch, and nothing else is probed there; and the
+    MPEG-1 granules' concatenation is the step.join."""
     notes = served["notes"]
     granules = 1 if served["family"] else 2
     want = {"probe.decode": 1, "probe.widen": granules,
-            "probe.launch": granules, "probe.copy": 2,
-            "probe.bind_views": 1, "probe.reclaim": 1}
+            "probe.launch": granules}
     for a0, a1, _ in (n for n in notes if n[2] == "pool.advance"):
         seen = collections.Counter()
         for p0, p1, probe in served["probes"]:
             if not (a0 <= p0 and p1 <= a1):
                 continue
+            assert probe in ENCLOSED, probe
             around = [n for n in notes if n[0] <= p0 and p1 <= n[1]]
             innermost = min(around, key=lambda n: n[1] - n[0])
             assert innermost[2] == ENCLOSED[probe], (probe, innermost)
@@ -186,9 +189,40 @@ def test_spans_enclose_the_work_their_metrics_name(served):
                 if j0 <= c[0] and c[1] <= j1] == ["aten::cat"]
 
 
+def test_advance_copies_no_wire_view_and_selects_no_views(served):
+    """No pool.advance holds the reclaim, the idle slot-frames' meta or a
+    selection of views, and no copy of a wire view runs anywhere in the
+    served loop: the advance writes no host byte."""
+    advances = [n for n in served["notes"] if n[2] == "pool.advance"]
+    assert len(advances) == STEPS
+    probes = served["probes"]
+    assert not [p for p in probes if p[2] == "probe.copy"]
+    for p0, p1, probe in probes:
+        if probe in PARSE_STEP:
+            assert not any(a0 <= p0 and p1 <= a1 for a0, a1, _ in advances)
+
+
+def test_the_reclaim_and_the_idle_meta_sit_under_parse_step(served):
+    """Each parse step holds one reclaim, one keep of the idle
+    slot-frames' meta and one selection of views, in that order, around
+    its native parse (the program's pool.parse); none runs outside a
+    parse step."""
+    parses = [p for p in served["probes"] if p[2] == "probe.parse_step"]
+    assert len(parses) == STEPS
+    inner = [p for p in served["probes"] if p[2] in PARSE_STEP]
+    assert len(inner) == len(PARSE_STEP) * STEPS
+    for s0, s1, _ in parses:
+        held = [p for p in inner if s0 <= p[0] and p[1] <= s1]
+        assert tuple(p[2] for p in held) == PARSE_STEP
+        (parse,) = [n for n in served["notes"] if n[2] == "pool.parse"
+                    and s0 <= n[0] and n[1] <= s1]
+        assert held[0][1] <= parse[0] and parse[1] <= held[1][0]
+
+
 def test_recorder_counts_every_step_and_granule_step(served):
     """The recorder's counts equal the steps run and the granule steps
-    they launched, and the annotations in the trace."""
+    they launched, and the annotations in the trace; every slot is
+    active, so no parse step keeps a meta row (``pool.meta_kept``)."""
     granules = 1 if served["family"] else 2
     want = {"pool.parse": STEPS, "pool.upload": STEPS,
             "pool.advance": STEPS, "pool.decode": STEPS,
@@ -199,6 +233,7 @@ def test_recorder_counts_every_step_and_granule_step(served):
         want["step.join"] = STEPS
     spans = served["spans_on"]
     assert {k: c for k, (_, c) in spans.items()} == want
+    assert served["kept"] == 0
     names = [n[2] for n in served["notes"]]
     assert {k: names.count(k) for k in want} == want
     # the decode and the carry make up the advance, less the spans' cost
@@ -209,6 +244,7 @@ def test_recorder_counts_every_step_and_granule_step(served):
 
 def test_recorder_stays_empty_without_a_profiler(served):
     assert served["spans_off"] == {}
+    assert served["report_off"] == {}
 
 
 def test_pcm_is_the_same_with_the_profiler_on_and_off(served):
@@ -272,10 +308,11 @@ def test_spans_are_annotations_inside_trace_alone(tmp_path):
 @pytest.mark.parametrize("family", [0, 1], ids=["mpeg1", "lsf"])
 def test_the_served_loops_waits_are_spans_on_the_card(family, tmp_path):
     """On the card the pipelined loop's two waits are spans, each once
-    a wait: the upload fence in the advance's reclaim, inside pool.carry,
-    on every step but the first (whose other buffer was never uploaded),
-    and the drain's in the fetch of each step's PCM, outside
-    pool.advance (the last at the flush)."""
+    a wait: the upload fence in the parse step's reclaim, before its
+    native parse and outside pool.advance, on every step but the first
+    two (whose buffers were never uploaded), and the drain's in the
+    fetch of each step's PCM, outside pool.advance (the last at the
+    flush)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     trace.RECORDER.reset()
@@ -284,19 +321,20 @@ def test_the_served_loops_waits_are_spans_on_the_card(family, tmp_path):
     spans = trace.RECORDER.spans()
     trace.RECORDER.reset()
     assert pcm.shape == (STEPS, SLOTS, 576 if family else 1152, 2)
-    assert spans["pool.wait_upload"][1] == STEPS - 1
+    assert spans["pool.wait_upload"][1] == STEPS - 2
     assert spans["pool.wait_pcm"][1] == STEPS
     assert spans["pool.advance"][1] == STEPS
     files = sorted(tmp_path.glob("*.pt.trace.json"))
     assert len(files) == 1
     notes = _events(files[0], ("pool.", "step."))
-    carries = [n for n in notes if n[2] == "pool.carry"]
     advances = [n for n in notes if n[2] == "pool.advance"]
     for w0, w1, name in notes:
-        if name == "pool.wait_upload":
-            assert any(c0 <= w0 and w1 <= c1 for c0, c1, _ in carries)
-        elif name == "pool.wait_pcm":
+        if name in ("pool.wait_upload", "pool.wait_pcm"):
             assert not any(a0 <= w0 and w1 <= a1 for a0, a1, _ in advances)
+        if name == "pool.wait_upload":
+            after = [n[2] for n in notes if n[0] >= w1 and n[2] in (
+                "pool.parse", "pool.upload", "pool.advance")]
+            assert after[0] == "pool.parse"
     names = [n[2] for n in notes]
-    assert names.count("pool.wait_upload") == STEPS - 1
+    assert names.count("pool.wait_upload") == STEPS - 2
     assert names.count("pool.wait_pcm") == STEPS
