@@ -1,18 +1,19 @@
 """The comparison that decides ``correct``: each watched slot's delivered
-frames against the plain reference (``reference.decode``), which decodes
-from the same bytes the slot was fed and nothing the program made."""
+frames against the plain reference that the configuration names
+(``benchmark/reference/<name>.py``), which decodes from the same bytes
+the slot was fed and nothing the program made."""
 from __future__ import annotations
 
 import numpy as np
 
-from .reference import decode as R
-
 
 class Reference:
-    """The frames the watched slots should deliver, by slot and count."""
+    """The frames the watched slots should deliver, by slot and count:
+    the reference module's ``periods`` over each slot's source, in the
+    configuration's format fmt."""
 
-    def __init__(self, corpus, family: int, tf32: bool = False):
-        self.c, self.family, self.tf32 = corpus, family, tf32
+    def __init__(self, corpus, module, fmt: dict, tf32: bool = False):
+        self.c, self.module, self.fmt, self.tf32 = corpus, module, fmt, tf32
         self._periods = {}
 
     def frames(self, j: int, count: int) -> np.ndarray:
@@ -22,8 +23,8 @@ class Reference:
         key = int(self.c.source[slot]), int(self.c.rotation[slot])
         if key not in self._periods:
             st = self.c.streams[key[0]]
-            self._periods[key] = R.periods(st["data"], st["offsets"], key[1],
-                                           self.family, self.tf32)
+            self._periods[key] = self.module.periods(
+                st["data"], st["offsets"], key[1], self.fmt, self.tf32)
         first, second = self._periods[key]
         n = len(first)
         out = second[(np.arange(count) - n) % n]

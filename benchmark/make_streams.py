@@ -31,7 +31,7 @@ import os
 
 import numpy as np
 
-from . import sideinfo
+from .readers import layer3
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FRAMES = 32
@@ -178,7 +178,7 @@ def make(name: str, rate: int) -> dict:
     segs, meta = [], []
     for seed in range(SEED, SEED + PIECES):
         stream, settings = encode(piece(seed, rate, seconds), rate)
-        last = sideinfo.frames(stream)[FRAMES - 1]
+        last = layer3.frames(stream)[FRAMES - 1]
         segs.append(stream[:last["offset"] + last["size"]])
         meta.append({"seed": seed, "bytes": len(segs[-1])})
     data = b"".join(segs)
@@ -189,7 +189,7 @@ def make(name: str, rate: int) -> dict:
             "seconds_encoded": seconds,
             "sha256": hashlib.sha256(data).hexdigest(),
             "segments": meta,
-            "stats": sideinfo.stats([sideinfo.frames(s) for s in segs])}
+            "stats": layer3.stats([layer3.frames(s) for s in segs])}
     with open(os.path.join(HERE, "streams", name + ".json"), "w") as f:
         json.dump(info, f, indent=1)
         f.write("\n")

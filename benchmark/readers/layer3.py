@@ -1,8 +1,17 @@
-"""The frames of an MPEG audio Layer III stream and their side information,
-read without decoding the main data: where each frame lies, where its
-main data starts, and what its granules code (bits, block types, stereo
-mode).  The corpus finds a slot's entry frames with it and reports the
-streams' content from it."""
+"""layer3: the stream reader of MPEG audio Layer III streams (MPEG-1 and
+the LSF families), which reads each frame's side information without
+decoding the main data: where each frame lies, where its main data
+starts, and what its granules code (bits, block types, stereo mode).  A
+slot may enter a stream at a frame whose main data starts at its own
+side information (``main_data_begin`` 0), so that no frame it is fed
+borrows bytes it was not fed.
+
+A stream reader is a file ``benchmark/readers/<name>.py`` that a
+configuration names under "reader".  It has ``frames(data)``, a dict per
+frame with at least its byte ``offset``, its ``size`` and ``entry``
+(whether a slot may enter the stream there), and ``stats(frame_lists)``,
+the streams' content that a run logs at set-up.  It imports nothing of
+the program and not torch."""
 from __future__ import annotations
 
 import numpy as np
@@ -32,7 +41,8 @@ class _Bits:
 def frames(data: bytes) -> list:
     """Every frame of data, which holds whole Layer III frames back to
     back: a dict each with its byte offset, size, bitrate, sample rate,
-    main-data capacity in bits, main_data_begin, the MS flag, and per
+    main-data capacity in bits, main_data_begin, whether a slot may
+    enter there (``entry``: main_data_begin 0), the MS flag, and per
     granule and channel its part2_3_length, big_values, block type and
     mixed flag."""
     out, pos = [], 0
@@ -58,6 +68,7 @@ def frames(data: bytes) -> list:
              "ms": mode == 1 and bool(ext & 2),
              "main_data_begin": b.get(8 if lsf else 9),
              "granules": []}
+        f["entry"] = f["main_data_begin"] == 0
         b.get((1 if nch == 1 else 2) if lsf else (5 if nch == 1 else 3))
         if not lsf:
             b.get(4 * nch)                       # scfsi

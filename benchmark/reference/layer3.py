@@ -1,4 +1,12 @@
-"""What the plain reference says a watched slot should have delivered.
+"""layer3: what the plain Layer III reference says a watched slot should
+have delivered.
+
+A plain reference is a file ``benchmark/reference/<name>.py`` that a
+configuration names under "reference".  It has ``periods(data, offsets,
+r, fmt, tf32)``, below, for the configuration's "format" `fmt`, and
+``TF32 = True`` where ``tf32=True`` is its path for the
+``reference_tf32`` control.  It imports nothing of the program and not
+torch.
 
 A slot's source is a stream of N frames, looped, entered at a frame r
 whose main data starts at its own side information (main_data_begin 0),
@@ -24,6 +32,9 @@ from .frontend import Frontend
 from .oracle import OracleDSP
 
 F32 = np.float32
+
+# periods(..., tf32=True) is the reference_tf32 control
+TF32 = True
 
 
 def _tf32(x):
@@ -92,21 +103,22 @@ def decode_frames(data: bytes, n: int, family: int,
     return out
 
 
-def history(family: int) -> int:
+def history(fmt: dict) -> int:
     """Frames whose decode a frame's PCM depends on besides its own: the
     two granules before it."""
-    return 1 if family == 0 else 2
+    return 1 if fmt["family"] == 0 else 2
 
 
-def periods(data: bytes, offsets: list, r: int, family: int,
+def periods(data: bytes, offsets: list, r: int, fmt: dict,
             tf32: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """int16 [N, spf, 2] twice: the looped stream data (N frames) from
     frame r decoded from the zero state, its first pass and its second;
     ValueError unless the frames after the second pass repeat its first
-    ones (then every later pass is the second)."""
-    n, h = len(offsets), history(family)
+    ones (then every later pass is the second).  fmt's "family" is 0 for
+    MPEG-1, 1 or 2 for the LSF families."""
+    n, h = len(offsets), history(fmt)
     rot = data[offsets[r]:] + data[:offsets[r]]
-    pcm = decode_frames(rot * 4, 2 * n + h + 1, family, tf32)
+    pcm = decode_frames(rot * 4, 2 * n + h + 1, fmt["family"], tf32)
     if not np.array_equal(pcm[2 * n:], pcm[n:n + h + 1]):
         raise ValueError("the looped stream's decode does not repeat after "
                          "its second pass")

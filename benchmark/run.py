@@ -3,13 +3,15 @@
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-from the root of a checkout.  Set-up loads the configuration's streams
-and gives each slot its source from the seed (``corpus``), and builds
+from the root of a checkout.  Set-up loads the configuration's streams,
+reads their frames with the stream reader it names and gives each slot
+its source from the seed (``corpus``), and builds
 the configuration's pool of ``pdmp3_tpu_torch`` (whose kernel and host
 libraries build into ``build/`` inside the checkout on a first run);
 the traffic mix's driver (``drivers/<name>.py``) then prepares and warms the cell's
 own shapes and runs the window for the given seconds; after it, the
-plain reference checks what the watched slots delivered (``check``).  With ``--trace 1``
+plain reference that the configuration names checks what the watched
+slots delivered (``check``).  With ``--trace 1``
 the window runs under ``torch.profiler`` and the line carries the
 cell's per-layer metrics, else its end-to-end ones.  The last line of
 standard output is the result as one JSON object; the numbers compared
@@ -113,7 +115,6 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
 
     from . import check, corpus, drive, spec
     from . import trace as tracing
-    from .roofline import granule_launch_bytes
 
     ov = overrides or {}
     tr = _merge(cell.traffic, {k: v for k, v in ov.items() if k != "pool"})
@@ -123,6 +124,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
         cfg = _merge(cfg, {"pool": cfg["control"]["pool"]})
     cfg = _merge(cfg, {"pool": ov.get("pool", {})})
     fmt, pool_cfg, kern = cfg["format"], cfg["pool"], cfg["kernel"]
+    reader, reference = spec.named(cfg, "reader"), spec.named(cfg, "reference")
+    launch_bytes = spec.named(cfg, "kernel.bytes").launch_bytes
     cuda = device.type == "cuda"
     if cuda:
         from pdmp3_tpu_torch.host import lib
@@ -133,7 +136,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
         log(f"setup: kernel and host libraries ready in "
             f"{time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
-    cor = corpus.build(cfg["streams"], tr, pool_cfg["slots"], seed)
+    cor = corpus.build(cfg["streams"], tr, pool_cfg["slots"], seed, reader)
     log(f"setup: {len(cor.streams)} streams of {cor.period} frames in "
         f"{time.perf_counter() - t:.3f} s; {json.dumps(cor.encoder)}; "
         "content " + json.dumps(cor.stats()))
@@ -158,20 +161,20 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     # every launch of a step covers its slots; its bytes follow from the
     # step's active slots
     kernel_bytes = summary and rec.steps and summary["launches"] * sum(
-        granule_launch_bytes(B, n, lsf=bool(fmt["family"]))
-        for n in rec.window_active) / rec.steps
+        launch_bytes(B, n, fmt) for n in rec.window_active) / rec.steps
+    if summary is not None:
+        log(f"trace: {kernel_bytes} bytes in the launches of {kern['name']}")
     pool = None   # the program's state goes before the reference
     if cuda:
         torch.cuda.empty_cache()
     t = time.perf_counter()
     got, missing = drive.watched_frames(rec)
-    family = fmt["family"]
-    ref = check.Reference(cor, family)
+    ref = check.Reference(cor, reference, fmt)
     sound = None
     if control and cfg["control"]["kind"] == "reference_tf32":
         sound = check.judge(check.numbers(got, missing, ref),
                             cfg["limits"])[1]
-        low = check.Reference(cor, family, tf32=True)
+        low = check.Reference(cor, reference, fmt, tf32=True)
         got = [low.frames(j, len(g)) for j, g in enumerate(got)]
     nums = check.numbers(got, missing, ref)
     ok, checks = check.judge(nums, cfg["limits"])

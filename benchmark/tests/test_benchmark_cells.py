@@ -86,11 +86,24 @@ def read(run):
 '''
 
 
-def test_a_new_cell_is_only_new_files(tmp_path):
+# (folder, module copied, its copy): the modules a configuration of a
+# new format names, here copies of the Layer III ones under new names
+COPIES = [("readers", "layer3", "copy3"), ("reference", "layer3", "copy3"),
+          ("kernel_bytes", "granule", "copy_granule")]
+
+
+@pytest.mark.parametrize("new_format", [False, True],
+                         ids=["same_format", "new_format"])
+def test_a_new_cell_is_only_new_files(tmp_path, new_format):
     """Copy the benchmark, add a configuration, a traffic mix with a
     driver of its own, a metric and a cell as files and entries, and run
     the new cell's set-up, window and reference at a tiny size; no file
-    that was there changes."""
+    that was there changes.  In a new format the configuration also names
+    a stream reader, a plain reference and a launch-byte count of its own,
+    each a new file, and its streams lie in a file of another name that a
+    new description names: the cell comes out correct, its control (the
+    TF32 reference) not correct, and the run loads none of the modules it
+    does not name."""
     root = tmp_path / "checkout"
     shutil.copytree(os.path.join(ROOT, "benchmark"), root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -101,8 +114,19 @@ def test_a_new_cell_is_only_new_files(tmp_path):
                      .read_text())
     cfg["pool"]["exact"] = True
     cfg["kernel"] = {"name": "fused_granule_kernel<true>",
-                     "counter": "fused_granule_exact"}
+                     "counter": "fused_granule_exact", "bytes": "granule"}
     cfg["limits"] = {"max_abs_lsb": 0, "off_share": 0}
+    if new_format:
+        for folder, old, copy in COPIES:
+            shutil.copy(b / folder / (old + ".py"), b / folder / (copy + ".py"))
+        cfg.update(reader="copy3", reference="copy3", streams="copy_44k1")
+        cfg["kernel"]["bytes"] = "copy_granule"
+        info = json.loads((b / "streams" / "lame_44k1_stereo.json")
+                          .read_text())
+        info["file"] = "copy_44k1.mp2"
+        (b / "streams" / "copy_44k1.json").write_text(json.dumps(info))
+        shutil.copy(b / "streams" / "lame_44k1_stereo.mp3",
+                    b / "streams" / "copy_44k1.mp2")
     (b / "configs" / "mp3_44k1_128k_js_exact.json").write_text(
         json.dumps(cfg))
     mix = json.loads((b / "traffic" / "backend.json").read_text())
@@ -130,24 +154,37 @@ def test_a_new_cell_is_only_new_files(tmp_path):
                                "layer": "harness", "moves": "backend_rtf",
                                "workloads": [cell]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    candidates = [f"benchmark.{f}.{m}" for f, old, copy in COPIES
+                  for m in (old, copy)]
     code = f"""
-import json, time, torch
+import json, sys, time, torch
 from benchmark import spec
 from benchmark.run import run_cell
 from benchmark.tests.conftest import TINY
 cell = spec.cell({cell!r})
 out = run_cell(cell, 5, 0.3, False, torch.device("cpu"), time.perf_counter(),
                TINY)
-print(json.dumps([out, cell.config["pool"]["exact"],
-                  [m["name"] for m in cell.per_layer]]))
+ctl = run_cell(cell, 5, 0.3, False, torch.device("cpu"), time.perf_counter(),
+               TINY, control=True) if {new_format!r} else None
+named = sorted(set(sys.modules) & set({candidates!r}))
+print(json.dumps([out, ctl, cell.config["pool"]["exact"],
+                  [m["name"] for m in cell.per_layer], named]))
 """
     env = dict(os.environ, PYTHONPATH=f"{root}{os.pathsep}{ROOT}")
     res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
-    out, exact, per_layer = json.loads(res.stdout.strip().splitlines()[-1])
+    out, ctl, exact, per_layer, named = json.loads(
+        res.stdout.strip().splitlines()[-1])
     assert out["correct"], out["checks"]
     assert exact and per_layer == ["wait_ms.backend"]
     assert {"backend_rtf", "setup_s"} == set(out["metrics"])
+    if new_format:
+        assert not ctl["correct"], ctl["checks"]
+        assert named == sorted(f"benchmark.{f}.{c}" for f, _, c in COPIES)
+    else:
+        assert named == ["benchmark.kernel_bytes.granule",
+                         "benchmark.readers.layer3",
+                         "benchmark.reference.layer3"]
     assert all(p.read_bytes() == data for p, data in before.items()
                if p.name != "BENCHMARK.json")

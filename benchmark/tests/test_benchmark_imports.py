@@ -1,6 +1,7 @@
 """What the harness and the reference load: never JAX or the JAX package
 (top-level module names compared whole: the port's name begins with the
-JAX package's), and the reference nothing of the program."""
+JAX package's); the plain references, the stream readers, the launch-byte
+counts and the streams' maker nothing of the program and not torch."""
 import ast
 import glob
 import json
@@ -8,9 +9,18 @@ import os
 import subprocess
 import sys
 
+from benchmark.spec import NAMED
 from benchmark.tests.conftest import ROOT
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "pdmp3_tpu"}
+# the folders of the modules a configuration names (reference/ among
+# them) and the streams' maker: plain Python and NumPy alone
+YARDSTICK = [os.path.join(ROOT, "benchmark", f, "") for f in NAMED.values()]
+
+
+def _yardstick(path: str) -> bool:
+    return path.startswith(tuple(YARDSTICK)) or os.path.basename(
+        path) == "make_streams.py"
 
 
 def _top_level_after(code: str) -> set:
@@ -40,16 +50,23 @@ assert out["correct"]
 
 
 def test_the_reference_loads_nothing_of_the_program():
+    """Every module of the references', the readers' and the launch-byte
+    counts' folders, the roofline and the streams' maker, imported."""
+    mods = ["benchmark.roofline", "benchmark.make_streams"] + [
+        os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".")
+        for d in YARDSTICK for p in glob.glob(d + "*.py")]
+    assert {"benchmark.readers.layer3", "benchmark.reference.layer3",
+            "benchmark.kernel_bytes.granule"} <= set(mods)
     names = _top_level_after(
-        "from benchmark.reference import decode, frontend, oracle, tables\n"
-        "from benchmark import roofline, sideinfo, make_streams")
+        "import importlib\n" + "".join(
+            f"importlib.import_module({m!r})\n" for m in mods))
     assert not names & (FORBIDDEN | {"pdmp3_tpu_torch", "torch"})
 
 
 def test_no_source_of_the_benchmark_imports_jax():
     """Every import statement under benchmark/, read from the source; the
-    reference, the side-information reader and the streams' maker import
-    nothing of the program."""
+    references, the stream readers, the launch-byte counts and the
+    streams' maker import nothing of the program and not torch."""
     for path in glob.glob(os.path.join(ROOT, "benchmark", "**", "*.py"),
                           recursive=True):
         tree = ast.parse(open(path).read())
@@ -62,6 +79,5 @@ def test_no_source_of_the_benchmark_imports_jax():
                 continue
             tops = {n.split(".")[0] for n in names}
             assert not tops & FORBIDDEN, (path, names)
-            if os.sep + "reference" + os.sep in path or os.path.basename(
-                    path) in ("sideinfo.py", "make_streams.py"):
-                assert "pdmp3_tpu_torch" not in tops, (path, names)
+            if _yardstick(path):
+                assert not tops & {"pdmp3_tpu_torch", "torch"}, (path, names)

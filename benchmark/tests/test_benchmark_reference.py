@@ -8,8 +8,9 @@ import json
 import numpy as np
 import pytest
 
-from benchmark import corpus, roofline, sideinfo
-from benchmark.reference import decode as R
+from benchmark import corpus, roofline
+from benchmark.readers import layer3 as L3
+from benchmark.reference import layer3 as R
 from benchmark.reference.frontend import Frontend
 from benchmark.reference import tables as T
 
@@ -42,8 +43,8 @@ def test_periods_equal_a_decode_of_the_looped_bytes(name):
     every later one is."""
     s = corpus.load(name)[0][62 if name == "lame_44k1_stereo" else 5]
     fam = STREAMS[name][0]
-    off = [f["offset"] for f in sideinfo.frames(s)]
-    first, second = R.periods(s, off, 0, fam)
+    off = [f["offset"] for f in L3.frames(s)]
+    first, second = R.periods(s, off, 0, {"family": fam})
     got = R.decode_frames(s * 5, 4 * len(off) + 3, fam)
     want = second[(np.arange(len(got)) - len(off)) % len(off)]
     want[:len(off)] = first
@@ -60,12 +61,14 @@ def test_streams_are_lame_at_its_defaults(name):
     fam, want = STREAMS[name]
     assert {k: info["encoder"][k] for k in want} == want
     assert info["encoder"]["mode"] == "joint stereo"
-    fs = [sideinfo.frames(s) for s in segs]
+    fs = [L3.frames(s) for s in segs]
     assert len(segs) == 64 and {len(f) for f in fs} == {32}
     assert all(f[0]["main_data_begin"] == 0 for f in fs)
+    assert {tuple(i for i, fr in enumerate(f) if fr["entry"])
+            for f in fs} == {(0,)}
     assert {(fr["kbps"], fr["sample_rate"]) for f in fs for fr in f} == {
         (want["kbps"], info["sample_rate"])}
-    st = sideinfo.stats(fs)
+    st = L3.stats(fs)
     assert json.loads(json.dumps(st)) == info["stats"]
     assert st["fill"] > 0.95 and st["big_values_max"] > 200
     assert st["block_share"]["short"] > 0 and 0 < st["ms_frame_share"] < 1
@@ -77,7 +80,7 @@ def test_side_information_as_the_reference_reads_it(name):
     fam = STREAMS[name][0]
     fe = Frontend(lsf=bool(fam))
     fe.feed(s[:8000])
-    for f in sideinfo.frames(s)[:12]:
+    for f in L3.frames(s)[:12]:
         res, fd = fe.read_frame()
         assert res == T.OK
         side, ngr = fd.side, 1 if fam else 2
@@ -137,8 +140,8 @@ def test_trace_summary_and_lost_launches():
 @pytest.mark.cuda
 def test_a_traced_run_on_the_card():
     """One traced run of the MPEG-1 replay cell at a small size: the
-    profiler sees every launch the port counted, and every device metric
-    is reported."""
+    profiler sees every launch the port counted, and every per-layer
+    metric of the cell is reported."""
     import time
 
     import torch
@@ -153,5 +156,6 @@ def test_a_traced_run_on_the_card():
                    time.perf_counter(), dict(TINY, pool={"slots": 512}))
     assert out["correct"], out["checks"]
     assert {"decode_ms.backend", "kernel_roofline.backend",
-            "device_idle_share.backend"} == set(out["metrics"])
+            "device_idle_share.backend"} <= set(out["metrics"])
+    assert {m["name"] for m in cell.per_layer} == set(out["metrics"])
     assert 0 < out["metrics"]["kernel_roofline.backend"]["value"] <= 100
