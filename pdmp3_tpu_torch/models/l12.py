@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.l12_synth import l12_synth_step
+from ..utils.trace import span
 
 
 @dataclass
@@ -162,14 +163,21 @@ def l12_sections(buf, B: int, layer: int, F: int = 1) -> dict:
 
 def decode_l12_wire(buf, state: L12State, B: int, layer: int, F: int = 1,
                     exact: bool = True, float_pcm: bool = False):
-    """decode_l12_frames over the F frames of the packed Layer I/II wire.
-    Returns (pcm int16 [B, F*S*32, 2], f32 with float_pcm; the new
-    L12State)."""
+    """decode_l12_frames over the F frames of the packed Layer I/II wire,
+    each frame's call into K7 in the program's span ``step.launch`` and
+    the frames' join (F > 1) in ``step.join``, as the granule steps'
+    (``models.decoder``).  Returns (pcm int16 [B, F*S*32, 2], f32 with
+    float_pcm; the new L12State)."""
     w = l12_sections(buf, B, layer, F)
     active = w["active"].view(F, B)
     pcms = []
     for f in range(F):
-        pcm, state = decode_l12_frames(w["sb"][f], w["meta"][f, :, 0],
-                                       active[f], state, exact, float_pcm)
+        with span("step.launch"):
+            pcm, state = decode_l12_frames(w["sb"][f], w["meta"][f, :, 0],
+                                           active[f], state, exact,
+                                           float_pcm)
         pcms.append(pcm)
-    return (pcms[0] if F == 1 else torch.cat(pcms, 1)), state
+    if F == 1:
+        return pcms[0], state
+    with span("step.join"):
+        return torch.cat(pcms, 1), state

@@ -1,5 +1,6 @@
 """The program's spans (pdmp3_tpu_torch/utils/trace.py ``span``,
-``RECORDER``) on a tiny CPU pool, MPEG-1 and LSF.
+``RECORDER``) on a tiny CPU pool, MPEG-1 and LSF, and on a Layer II
+pool, whose model step is K7's launches.
 
 Under a profiler session (``utils.trace.Trace``) the pipelined serving
 loop's spans land in the session's Chrome trace, nested as the step runs
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
+from pdmp3_tpu_torch import L12StreamDecoder, LoopFeeder, StreamDecoder
 from pdmp3_tpu_torch.models import decoder as M
 from pdmp3_tpu_torch.testing import mp3gen
 from pdmp3_tpu_torch.utils import Trace, trace
@@ -302,6 +303,62 @@ def test_spans_are_annotations_inside_trace_alone(tmp_path):
     assert trace.RECORDER.spans()["pool.own"][1] == 2
     assert trace._annotate is False
     trace.RECORDER.reset()
+
+
+def _serve_l12(F):
+    """STEPS parse + decode_step_pipelined steps of a looping 4-slot
+    Layer II pool of F frames a step, then the flush: the PCM of every
+    step."""
+    dec = L12StreamDecoder(SLOTS, layer=2, frames_per_step=F, device="cpu")
+    feeder = LoopFeeder(dec, [mp3gen.make_l12_stream(
+        layer=2, n_frames=6, seed=90 + i, bitrate_index=12,
+        mode=[0, 1, 1, 3][i], mode_extension=i) for i in range(SLOTS)])
+    out = []
+    for _ in range(STEPS):
+        feeder.step()
+        assert dec.parse_step() == SLOTS * F
+        pcm = dec.decode_step_pipelined()
+        if pcm is not None:
+            out.append(pcm)
+    out.append(dec.drain_pending())
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("F", [1, 2])
+def test_layer2_pool_decode_holds_a_launch_a_frame(F, tmp_path):
+    """In a Layer II pool's pool.decode, the model step's call into K7 for
+    each of its F frames is a step.launch, in turn, then (F > 1) one
+    step.join around the frames' concatenation; the recorder counts
+    STEPS x F launches; the PCM is the same bits with the profiler off."""
+    trace.RECORDER.reset()
+    off = _serve_l12(F)
+    assert trace.RECORDER.spans() == {}
+    with Trace(str(tmp_path)):
+        on = _serve_l12(F)
+    spans = trace.RECORDER.spans()
+    trace.RECORDER.reset()
+    assert off.shape == (STEPS, SLOTS, F * 1152, 2)
+    np.testing.assert_array_equal(on, off)
+    want = {"pool.advance": STEPS, "pool.decode": STEPS,
+            "step.launch": F * STEPS}
+    if F > 1:
+        want["step.join"] = STEPS
+    assert {k: spans[k][1] for k in want} == want
+    assert spans["step.launch"][0] <= spans["pool.decode"][0]
+    (path,) = sorted(tmp_path.glob("*.pt.trace.json"))
+    notes = _events(path, ("pool.", "step."))
+    cats = _events(path, ("aten::cat",))
+    decodes = [n for n in notes if n[2] == "pool.decode"]
+    assert len(decodes) == STEPS
+    for d0, d1, _ in decodes:
+        inner = [n for n in notes if d0 <= n[0] and n[1] <= d1
+                 and n[2] != "pool.decode"]
+        assert [n[2] for n in inner] == (["step.launch"] * F
+                                         + ["step.join"] * (F > 1))
+        assert all(p[1] <= n[0] for p, n in zip(inner, inner[1:]))
+        for j0, j1, _ in inner[F:]:
+            assert [c[2] for c in cats
+                    if j0 <= c[0] and c[1] <= j1] == ["aten::cat"]
 
 
 @pytest.mark.cuda
