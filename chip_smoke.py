@@ -210,19 +210,22 @@ library from ``pdmp3_tpu_torch/host/src``.
     grid + 3 with idle slots at the seams of the slot ring, MPEG-1 also
     on phase 5's subnormal band-12 carry; bitwise, timed, the launch
     geometry printed;
-35. K7, the Layer I/II synthesis kernel, all eight instances (Layer I /
-    II, fast / exact, S16 / float) against its plain version
-    (``ops.l12_synth.l12_synth_step_ref``) on one natively parsed frame
-    of phase 18's corpus per layer at B, decoded from the wire in place
-    (nch a strided int16 view), from a random FIFO; on a FIFO whose rows
-    drive five slots' sums to NaN, +-inf and past int32 with subnormal
-    subband samples in one slot (the corpus has mono slots); on the
-    hazards of K7's mirrored NWIN rows (a silent slot, rows whose dot
-    with a unique row cancels to zero, +-0 and subnormal samples, +-inf:
-    the signed zeros and NaN bits of the FIFO count); at B = 1, 2, grid
-    - 1, grid + 1 and 2 grid + 3 with idle slots at the seams of the
-    slot ring; PCM and FIFO bitwise; timed at B, the launch geometry
-    printed;
+35. K9, the Layer I/II requantization kernel, against its plain version
+    (``ops.l12_requant.l12_requant_ref``, on the card) on one natively
+    parsed frame of phase 18's corpus per layer at B, as the pool's
+    coded wire holds it, and on its first 1, 2 and 1,000 slots, bitwise,
+    timed at B with its bound; then K7, the Layer I/II synthesis kernel,
+    all eight instances (Layer I / II, fast / exact, S16 / float)
+    against its plain version (``ops.l12_synth.l12_synth_step_ref``) on
+    that frame as K9 requantizes it (nch a strided int16 view), from a
+    random FIFO; on a FIFO whose rows drive five slots' sums to NaN,
+    +-inf and past int32 with subnormal subband samples in one slot (the
+    corpus has mono slots); on the hazards of K7's mirrored NWIN rows (a
+    silent slot, rows whose dot with a unique row cancels to zero, +-0
+    and subnormal samples, +-inf: the signed zeros and NaN bits of the
+    FIFO count); at B = 1, 2, grid - 1, grid + 1 and 2 grid + 3 with
+    idle slots at the seams of the slot ring; PCM and FIFO bitwise;
+    timed at B, the launch geometry printed;
 36. K8, the resampler kernel, against its plain version
     (``ops.resample.resample_block_ref``) at B: int16 and f32 in and
     out, C = 1 and 2, five steps of 1,152, 576, 384, 10 (fewer than
@@ -312,7 +315,10 @@ REPLACES = {"fused_granule": "pdmp3_tpu/ops/pallas_step.py:771",
             "l12_synth_exact": "pdmp3_tpu/models/l12.py:44",
             "l12_synth_float": "pdmp3_tpu/models/l12.py:44",
             "l12_synth_float_exact": "pdmp3_tpu/models/l12.py:44",
-            "resample": "pdmp3_tpu/ops/resample.py:47"}
+            "resample": "pdmp3_tpu/ops/resample.py:47",
+            # K9 replaces no TPU kernel: the JAX package requantizes Layer
+            # I/II on the host (its native parse_l2)
+            "l12_requant": "pdmp3_tpu/host/src/frame.cc:1411"}
 # the card's peak rates for the bounds (NVIDIA H100 SXM data sheet):
 # memory bytes/s, f32 and f64 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -449,11 +455,16 @@ def launched() -> dict:
 
 def launch_counts(path: str, kernel: str) -> int:
     """The launches of `kernel` since the last reset; every other kernel
-    must have launched no time on the path."""
+    must have launched no time on the path, but K9 on a K7 path: a Layer
+    I/II pool (one frame a step) requantizes its coded frames once before
+    each K7 launch, so there K9 must have launched as often as K7."""
     from pdmp3_tpu_torch.tools import launches
 
     counts = launches()
-    others = {k: n for k, n in counts.items() if k != kernel and n}
+    beside = {"l12_requant": counts[kernel]} if kernel.startswith(
+        "l12_synth") else {}
+    others = {k: n for k, n in counts.items()
+              if k != kernel and n != beside.get(k, 0)}
     check(not others, f"{path}: launched {others} beside {kernel}")
     return counts[kernel]
 
@@ -1782,8 +1793,8 @@ def l12_kernel(exact: bool, float_pcm: bool = False) -> str:
 def phase_l12(dev) -> dict:
     """Phase 18: Layer I/II pools at B slots, both layers and precisions,
     NEW_TIMED_STEPS timed steps each, parsed on L12_PARSE_THREADS
-    threads, K7 once a step and once a replayed step in the pool's
-    instance and nothing else; watched slots against the native
+    threads, K9 and K7 once a step and once a replayed step (K7 in the
+    pool's instance) and nothing else; watched slots against the native
     decoder; Layer II float PCM, fast and exact, against the S16 of its
     precision."""
     from pdmp3_tpu_torch import L12StreamDecoder, LoopFeeder
@@ -1843,11 +1854,13 @@ def phase_l12(dev) -> dict:
 
 def l12_frame(layer: int, dev) -> dict:
     """One natively parsed Layer I/II frame of phase 18's corpus for B
-    slots on the card, as the pool's wire holds it (sb f32 [B,2,S,32]
-    in place, nch a strided int16 view of meta, active int16; the
+    slots on the card, as the pool's coded wire holds it (its sections
+    body, side and geom: ``codes``) and as K9 requantizes it (sb f32
+    [B,2,S,32]), nch a strided int16 view of meta, active int16 (the
     INACTIVE slots idle), and a random FIFO v0 [B,2,15,64]."""
     from pdmp3_tpu_torch import L12StreamDecoder, LoopFeeder
     from pdmp3_tpu_torch.models import l12 as L
+    from pdmp3_tpu_torch.ops import l12_requant as RQ
 
     dec = L12StreamDecoder(B, layer=layer, parse_threads=L12_PARSE_THREADS,
                            device=dev)
@@ -1857,11 +1870,60 @@ def l12_frame(layer: int, dev) -> dict:
     del dec
     w = L.l12_sections(wire, B, layer)
     w["active"][list(INACTIVE)] = 0
+    codes = (w["body"], w["side"], w["geom"])
     g = torch.Generator(device=dev).manual_seed(35 + layer)
-    return {"sb": w["sb"][0], "nch": w["meta"][0, :, 0],
-            "active": w["active"],
+    return {"sb": RQ.l12_requant(*codes, layer)[0],
+            "nch": w["meta"][0, :, 0], "active": w["active"],
+            "codes": codes,
             "v0": torch.randn((B, 2, 15, 64), generator=g, device=dev)
             * 0.1}
+
+
+def k9_bound(codes, layer: int) -> dict:
+    """K9's bound for one launch over the slot-frames of `codes` (body,
+    side, geom): each slot-frame's body up to its last code's byte in
+    whole 16-byte chunks, its side record (384 B) and geom (4 B) read,
+    its samples (2 x S x 32 f32) written; 4 f64 operations a sample."""
+    from pdmp3_tpu_torch.ops import l12_requant as RQ
+
+    geom = codes[2].reshape(-1, 2).to(torch.int64).cpu()
+    used = (geom[:, 0] + 12 * geom[:, 1] + 7) // 8
+    chunks = torch.where(used <= 0, 0, torch.clamp((used + 15) // 16 * 16,
+                                                   max=RQ.BODY_BYTES))
+    n = geom.shape[0]
+    samples = n * 2 * RQ.steps(layer) * 32
+    nbytes = int(chunks.sum()) + n * (RQ.SIDE_BYTES + 4) + 4 * samples
+    return bound(nbytes, 0, f64_ops=4 * samples)
+
+
+def phase_k9(dev, frames: dict) -> dict:
+    """Phase 35, K9: the requantization kernel against its plain version
+    (``ops.l12_requant.l12_requant_ref``, on the card) on each layer's
+    l12_frame wire at B and on its first 1, 2 and 1,000 slots, bitwise
+    (signed zeros included); timed at B with its bound."""
+    from pdmp3_tpu_torch.ops import l12_requant as RQ
+
+    res = {}
+    for layer, fr in frames.items():
+        what = f"phase 35 K9 layer {layer}"
+        r = {}
+        for n in (B, 1, 2, 1000):
+            codes = [t[:, :n] for t in fr["codes"]]
+            got = RQ.l12_requant(*codes, layer)
+            want = RQ.l12_requant_ref(*codes, layer)
+            torch.cuda.synchronize()
+            eq = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            check(eq, f"{what} B={n}: K9 differs from its plain version")
+            r[f"bitwise_equal_b{n}"] = eq
+        out = torch.empty_like(fr["sb"][None])
+        kernel_timing(r, lambda: RQ.l12_requant(*fr["codes"], layer,
+                                                out=out))
+        r["plain_ms"] = plain_ms(lambda: RQ.l12_requant_ref(
+            *fr["codes"], layer, out=out))
+        r.update(k9_bound(fr["codes"], layer))
+        r["max_abs_err"] = 0.0
+        res[layer] = r
+    return res
 
 
 def compare_k7(fr: dict, exact: bool, float_pcm: bool, what: str,
@@ -1938,10 +2000,11 @@ def l12_bound(n_slots: int, n_active: int, S: int, exact: bool,
                  else 0)
 
 
-def phase_k7(dev) -> dict:
+def phase_k7(dev, frames: dict) -> dict:
     """Phase 35: K7's eight instances against their plain version on
-    l12_frame(layer) at B (the corpus has mono slots), from its random
-    FIFO and from one whose rows drive slots 0-4's sums to NaN, +-inf
+    frames[layer] (l12_frame(layer)) at B (the corpus has mono slots),
+    from its random FIFO and from one whose rows drive slots 0-4's sums
+    to NaN, +-inf
     and past int32 with subnormal subband samples in slot 6; on
     mirror_rows(fr); at B = 1, 2, grid - 1, grid + 1 and 2 grid + 3 with
     idle slots at the seams of the slot ring; bitwise (compare_k7); each
@@ -1952,7 +2015,7 @@ def phase_k7(dev) -> dict:
 
     res = {}
     for layer, S in L12_S.items():
-        fr = l12_frame(layer, dev)
+        fr = frames[layer]
         n_active = int((fr["active"] != 0).sum())
         hostile = fr["v0"].clone()
         for s, x in enumerate((float("nan"), float("inf"), float("-inf"),
@@ -3146,7 +3209,16 @@ def main() -> int:
                          {False: m["_pcm"], True: exact_pcm})
     print("phase 17 float PCM serving:", json.dumps(fp))
     lap("phase 17 routes")
-    k7 = phase_k7(dev)
+    l12_frames = {layer: l12_frame(layer, dev) for layer in L12_S}
+    k9 = phase_k9(dev, l12_frames)
+    for layer, r in k9.items():
+        print(f"phase 35 K9 layer {layer} vs plain:", json.dumps(r))
+        print(f"phase 35 K9 layer {layer} ptxas:", next(
+            (p for p in ptxas
+             if p.startswith(f"subband_requant_kernel<{L12_S[layer]}>")),
+            "no ptxas report"))
+    k7 = phase_k7(dev, l12_frames)
+    del l12_frames
     for (layer, name), r in k7.items():
         print(f"phase 35 K7 layer {layer} {name} vs plain:", json.dumps(r))
         print(f"phase 35 K7 layer {layer} {name} launch:", launch_line(
@@ -3340,6 +3412,13 @@ def main() -> int:
         return {"ms": r["kernel_ms"], "burst_ms": r["kernel_burst_ms"],
                 "per_call_ms": r["kernel_per_call_ms"],
                 "plain_ms": r["plain_ms"]}
+    # K9: once a step of every Layer I/II pool, as often as its K7
+    k9_paths = {f"l12_pools_phase_18_{p}": r["kernel_launches"]
+                for p, r in l12.items() if isinstance(r, dict)}
+    k9_paths["layer2_files_phase_21"] = files["batched_layer2"][
+        "kernel_launches"]
+    k9_paths["sharded_layer2_phase_22"] = sum(
+        sh["layer2_exact"]["launches"].values())
     k4e, k4f = k4["exact"], k4["fast"]
     print(json.dumps({"kernels": [
         entry("fused_granule", "fused_granule.cu",
@@ -3419,6 +3498,12 @@ def main() -> int:
           for exact in (False, True)),
         *(k7_entry(exact, float_pcm) for float_pcm in (False, True)
           for exact in (False, True)),
+        entry("l12_requant", "l12_requant.cu", sum(k9_paths.values()),
+              max(r["max_abs_err"] for r in k9.values()), k9[2], k9[2],
+              launches_by_path=k9_paths,
+              layer1={k: k9[1][k] for k in ("kernel_ms", "kernel_burst_ms",
+                                            "kernel_per_call_ms", "plain_ms",
+                                            "bound_ms", "bound_by")}),
         entry("resample", "resample.cu", rs["k8_launches"] + rsw["blocks"],
               k8["max_abs_err"], k8, k8,
               launches_by_path={"resampled_pool_phase_20": rs["k8_launches"],

@@ -1,15 +1,18 @@
 """Batched Layer I/II decode: the polyphase synthesis of requantized
 subband samples (the reference rejects layer != 3, pdmp3.c:1240/1312).
 
-Counterpart of ``pdmp3_tpu/models/l12.py``.  The native frontend (or
-``frontend.py``) parses AND requantizes a Layer I/II frame, so the
-device step is the synthesis filterbank alone:
+Counterpart of ``pdmp3_tpu/models/l12.py``.  The frontend
+(``frontend.py``, the native parse) parses AND requantizes a Layer I/II
+frame for the per-stream and oracle routes, so their device step is the
+synthesis filterbank alone:
 
     sb_samples f32 [B, 2, S, 32]  ->  synthesis  ->  PCM [B, S*32, 2]
 
 with S = 12 (Layer I) or 36 (Layer II) time steps per frame and the same
 per-slot v_blocks FIFO as Layer III (``ops.dsp.subband_synthesis``
-takes any S).  One layer per batch, as one family per LSF pool.
+takes any S).  One layer per batch, as one family per LSF pool.  The
+pools' wire carries the coded frames instead, and their step requantizes
+on the device first (``decode_l12_wire``).
 
 The JAX package runs this step as XLA ops with no Pallas kernel; here
 it is ``ops.l12_synth.l12_synth_step``: K7, a hand-written CUDA kernel
@@ -21,11 +24,14 @@ oracle's synthesis.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..ops.l12_requant import BODY_BYTES, SIDE_BYTES, l12_requant
+from ..ops.l12_requant import steps as l12_steps
 from ..ops.l12_synth import l12_synth_step
 from ..utils.trace import span
 
@@ -116,64 +122,79 @@ class TorchL12:
 
 
 # ---------------------------------------------------------------------------
-# The Layer I/II pool wire (the native packer pdmp3_parse_step_wire_l12):
-# sb f32 [F,B,2,S,32], meta int16 [F,B,4] {nch, rate / 25, layer,
-# family}, active int16 [B] for F = 1, else [F,B].  The port packs the
-# three sections into one byte buffer, each 16-byte aligned, so a step
-# is one upload.
+# The Layer I/II pool wire (the native packer
+# pdmp3_parse_step_wire_l12_codes, host/src/wire_l12_codes.cc): each
+# slot-frame's coded body bytes uint8 [F,B,2000] and side record uint8
+# [F,B,384] (class, scalefactor indices and code offset by (ch, sb)),
+# meta int16 [F,B,4] {nch, rate / 25, layer, family}, geom int16 [F,B,2]
+# {the samples' first bit, a group's bits}, active int16 [B] for F = 1,
+# else [F,B].  The port packs the sections into one byte buffer, each
+# 16-byte aligned, so a step is one upload; the device requantizes
+# (ops.l12_requant, K9) before the synthesis.
 # ---------------------------------------------------------------------------
-
-def l12_steps(layer: int) -> int:
-    """Synthesis time steps S of a Layer I (12) or II (36) frame."""
-    if layer not in (1, 2):
-        raise ValueError(f"layer must be 1 or 2, got {layer!r}")
-    return 12 if layer == 1 else 36
-
 
 def l12_layout(B: int, layer: int, F: int = 1) -> dict:
     """Byte offsets of the sections of the packed Layer I/II wire: name
     -> (offset, bytes), plus 'total'."""
-    S = l12_steps(layer)
-    off, pos = {}, 0
-    for name, n in (("sb", F * B * 2 * S * 32 * 4), ("meta", F * B * 4 * 2),
+    return dict(_layout(B, layer, F))
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(B: int, layer: int, F: int) -> tuple:
+    l12_steps(layer)
+    off, pos = [], 0
+    for name, n in (("body", F * B * BODY_BYTES), ("side", F * B * SIDE_BYTES),
+                    ("meta", F * B * 4 * 2), ("geom", F * B * 2 * 2),
                     ("active", F * B * 2)):
-        off[name] = (pos, n)
+        off.append((name, (pos, n)))
         pos += -(-n // 16) * 16
-    off["total"] = pos
-    return off
+    return tuple(off) + (("total", pos),)
 
 
 def l12_sections(buf, B: int, layer: int, F: int = 1) -> dict:
     """Views of the packed Layer I/II wire (uint8 [l12_layout(B, layer,
-    F)['total']], host or device) by section: sb f32 [F,B,2,S,32], meta
-    int16 [F,B,4], active int16 [B] for F = 1, else [F,B]."""
+    F)['total']], host or device) by section: body uint8 [F,B,2000],
+    side uint8 [F,B,384], meta int16 [F,B,4], geom int16 [F,B,2], active
+    int16 [B] for F = 1, else [F,B]."""
     off = l12_layout(B, layer, F)
     if buf.dtype != torch.uint8 or tuple(buf.shape) != (off["total"],):
         raise ValueError(f"wire must be uint8 [{off['total']}], got "
                          f"{buf.dtype} {tuple(buf.shape)}")
-    S = l12_steps(layer)
 
-    def sec(name, dtype, shape):
-        o, n = off[name]
-        return buf[o:o + n].view(dtype).view(shape)
-    return {"sb": sec("sb", torch.float32, (F, B, 2, S, 32)),
-            "meta": sec("meta", torch.int16, (F, B, 4)),
-            "active": sec("active", torch.int16, (B,) if F == 1 else (F, B))}
+    # one dtype view and a strided view a section: a step's enqueue
+    # takes these views of each uploaded wire
+    b16 = buf.view(torch.int16)
+
+    def sec(name, t, shape):
+        at = t.storage_offset() + off[name][0] // t.element_size()
+        strides = [1] * len(shape)
+        for i in range(len(shape) - 1, 0, -1):
+            strides[i - 1] = strides[i] * shape[i]
+        return t.as_strided(shape, strides, at)
+    return {"body": sec("body", buf, (F, B, BODY_BYTES)),
+            "side": sec("side", buf, (F, B, SIDE_BYTES)),
+            "meta": sec("meta", b16, (F, B, 4)),
+            "geom": sec("geom", b16, (F, B, 2)),
+            "active": sec("active", b16, (B,) if F == 1 else (F, B))}
 
 
 def decode_l12_wire(buf, state: L12State, B: int, layer: int, F: int = 1,
-                    exact: bool = True, float_pcm: bool = False):
-    """decode_l12_frames over the F frames of the packed Layer I/II wire,
-    each frame's call into K7 in the program's span ``step.launch`` and
-    the frames' join (F > 1) in ``step.join``, as the granule steps'
-    (``models.decoder``).  Returns (pcm int16 [B, F*S*32, 2], f32 with
-    float_pcm; the new L12State)."""
+                    exact: bool = True, float_pcm: bool = False, sb=None):
+    """The F frames of the packed Layer I/II wire: their requantization
+    (``ops.l12_requant``, K9 on CUDA: one launch) into `sb` (f32
+    [F,B,2,S,32], a buffer the caller keeps; made here when None) in the
+    program's span ``step.requant``, then decode_l12_frames a frame, each
+    call into K7 in ``step.launch`` and the frames' join (F > 1) in
+    ``step.join``, as the granule steps' (``models.decoder``).  Returns
+    (pcm int16 [B, F*S*32, 2], f32 with float_pcm; the new L12State)."""
     w = l12_sections(buf, B, layer, F)
     active = w["active"].view(F, B)
+    with span("step.requant"):
+        sb = l12_requant(w["body"], w["side"], w["geom"], layer, out=sb)
     pcms = []
     for f in range(F):
         with span("step.launch"):
-            pcm, state = decode_l12_frames(w["sb"][f], w["meta"][f, :, 0],
+            pcm, state = decode_l12_frames(sb[f], w["meta"][f, :, 0],
                                            active[f], state, exact,
                                            float_pcm)
         pcms.append(pcm)

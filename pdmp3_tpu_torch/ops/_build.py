@@ -144,6 +144,9 @@ def load() -> C.CDLL:
         # pcm, the table image, B, S, exact, float_pcm
         "pdmp3_l12_synth": [ptr, ptr, i32, i64, ptr, i32, i64, ptr, ptr, ptr]
         + [i32] * 4 + [ptr],
+        # body, side, geom, sb, the class tables cd, ci, scf, slot-frames,
+        # S
+        "pdmp3_l12_requant": [ptr] * 7 + [i64, i32, ptr],
         # carry, in, its stream stride, in_f32, H, new carry, out,
         # out_f32, B, N, C, taps, up, down, phase, n_out, p_first, p_end,
         # p_chunk, chunks, hstride, win, bulk, shared bytes

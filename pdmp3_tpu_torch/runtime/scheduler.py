@@ -525,17 +525,23 @@ class L12StreamDecoder(_Pool):
     rejects layer != 3, pdmp3.c:1240/1312).
 
     One layer per pool, as one family per LSF pool: the handles get
-    PROFILE_L12, the native frontend parses and requantizes (a Layer
-    I/II bitstream has no Huffman stage or reservoir), and the wire
-    carries f32 subband samples [F,B,2,S,32] (S = 12 Layer I, 36 Layer
-    II), meta int16 [F,B,4] and active, packed into one pinned byte
-    buffer per step (``models.l12.l12_layout``) and decoded by the
-    batched synthesis (``models.l12.decode_l12_wire``: K7, one launch
-    a frame, on CUDA).
+    PROFILE_L12, the native packer parses each frame's allocations and
+    scalefactors (a Layer I/II bitstream has no Huffman stage or
+    reservoir) and the wire carries the frames' coded bodies and side
+    records, meta int16 [F,B,4] and active, packed into one pinned byte
+    buffer per step (``models.l12.l12_layout``, 2,398 B a slot-frame).
+    The device requantizes them into the pool's own subband buffer f32
+    [F,B,2,S,32] (S = 12 Layer I, 36 Layer II; ``ops.l12_requant``: K9,
+    one launch a step, on CUDA), bit for bit the host's samples, and
+    runs the batched synthesis (``models.l12.decode_l12_wire``: K7, one
+    launch a frame).
     The surface is StreamDecoder's (feed, parse_step, decode_step, the
     pipelined drain, checkpoints); decode_step returns PCM int16
     [B, F*S*32, 2] (f32 with float_pcm).  The per-slot device state is
     the synthesis FIFO alone.  device is required."""
+
+    # the packer's sections, in its argument order
+    _SECTIONS = ("body", "side", "meta", "geom", "active")
 
     def __init__(self, n_slots: int, layer: int = 2, exact: bool = False,
                  parse_threads: int = 1, frames_per_step: int = 1,
@@ -550,9 +556,12 @@ class L12StreamDecoder(_Pool):
         self._open(n_slots, self.profile, parse_threads, frames_per_step,
                    device, self._lay["total"], torch.uint8)
         self.state = L.init_l12_state(n_slots, self.device)
-        self._fn = lib().pdmp3_parse_step_wire_l12
+        # the requantized samples of a step, written and read on the device
+        self._sb = torch.empty((frames_per_step, n_slots, 2, self.S, 32),
+                               dtype=torch.float32, device=self.device)
+        self._fn = lib().pdmp3_parse_step_wire_l12_codes
         self._fn.argtypes = [C.c_void_p, C.c_size_t, C.c_int, C.c_size_t,
-                             C.c_int, C.c_void_p, C.c_void_p, C.c_void_p]
+                             C.c_int] + [C.c_void_p] * len(self._SECTIONS)
 
     def _host_views(self, host) -> dict:
         return {name: t.numpy() for name, t in
@@ -560,11 +569,12 @@ class L12StreamDecoder(_Pool):
 
     def _packer_args(self, views: dict) -> list:
         return [self.layer] + [views[name].ctypes.data_as(C.c_void_p)
-                               for name in ("sb", "meta", "active")]
+                               for name in self._SECTIONS]
 
     def _decode(self, wire):
         return L.decode_l12_wire(wire, self.state, self.n, self.layer,
-                                 self.F, self.exact, self.float_pcm)
+                                 self.F, self.exact, self.float_pcm,
+                                 sb=self._sb)
 
     def nch(self, slot: int) -> int:
         return max(int(self.meta[0, slot, 0]), 1)

@@ -130,6 +130,7 @@ def counters() -> dict:
     from ..ops import back_half as BH
     from ..ops import frame_step as FR
     from ..ops import fused_step as FS
+    from ..ops import l12_requant as RQ
     from ..ops import l12_synth as L12
     from ..ops import resample as RS
     from ..ops import rounding as R
@@ -151,6 +152,7 @@ def counters() -> dict:
             "l12_synth_exact": (L12, "LAUNCHES_EXACT"),
             "l12_synth_float": (L12, "LAUNCHES_FLOAT"),
             "l12_synth_float_exact": (L12, "LAUNCHES_FLOAT_EXACT"),
+            "l12_requant": (RQ, "LAUNCHES"),
             "resample": (RS, "LAUNCHES")}
 
 

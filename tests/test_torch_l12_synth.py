@@ -5,8 +5,9 @@ through models.l12.decode_l12_frames.
 On the CPU (the plain version, which the wrapper takes for CPU tensors):
 against the JAX package's decode_l12_frames (pdmp3_tpu/models/l12.py, XLA)
 on seeded subband samples and on frames of mp3gen.make_l12_stream, for
-S = 12 and 36, S16 and float PCM, with mono and idle slots; two frames
-carried through decode_l12_wire at F = 2; a directed fixture whose sums
+S = 12 and 36, S16 and float PCM, with mono and idle slots; two random
+coded frames (``testing.l12wire``) requantized and carried through
+decode_l12_wire at F = 2; a directed fixture whose sums
 reach NaN, +-inf and beyond int32 (the quantize's out-of-range mask);
 Layer I's new FIFO, 3 carried rows then the 12 new ones; the wrapper's
 refusals and its CPU path, which never loads the kernel library.  K7's
@@ -21,8 +22,9 @@ On the card (``cuda``-marked, skipped without one): the eight instances
 against the plain version at B = 1, 2, grid - 1, grid + 1 and 2 grid + 3
 with idle slots at the seams of the slot ring, from a hostile state, with
 subnormal subband samples and mono slots; on the emulation's silent,
-cancelling and signed-zero rows (PCM and FIFO bits); the wire decoded in place
-(nch a strided int16 view); the alignment refusal; the launch counters
+cancelling and signed-zero rows (PCM and FIFO bits); a coded wire
+requantized by K9 and decoded (nch a strided int16 view); the alignment
+refusal; the launch counters
 moving once a call; the launch geometry.
 
 Tolerances: exact mode bitwise (PCM bits and v_blocks) against JAX;
@@ -43,7 +45,9 @@ from pdmp3_tpu_torch.ops import _build
 from pdmp3_tpu_torch.ops import consts as CC
 from pdmp3_tpu_torch.ops import dsp as D
 from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import l12_requant as RQ
 from pdmp3_tpu_torch.ops import l12_synth as K7
+from pdmp3_tpu_torch.testing.l12wire import coded_wire
 from test_torch_fused_step import (IDLE_SEAMS, RAGGED_B, idle_slots,
                                    ragged_batch)
 from test_torch_l12 import _frames
@@ -152,27 +156,29 @@ def test_step_matches_jax_on_generated_frames(layer, exact):
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
 @pytest.mark.parametrize("layer", [1, 2])
 def test_wire_two_frames_match_jax(layer, exact):
-    """decode_l12_wire at F = 2 on a packed wire (nch a strided int16
-    view of meta, active int16) equals two JAX steps, PCM concatenated
-    and the FIFO carried; float PCM too."""
+    """decode_l12_wire at F = 2 on a packed coded wire (random
+    allocations, codes and scalefactor indices, ``testing.l12wire``; nch
+    a strided int16 view of meta, active int16; slot 2 mono, slot 3 idle
+    in the second frame) equals two JAX steps fed the samples that the
+    plain requantization makes of it, PCM concatenated and the FIFO
+    carried; float PCM too."""
     S, B, F = LAYERS[layer], 4, 2
-    lay = L.l12_layout(B, layer, F)
     for float_pcm in (False, True):
-        buf = torch.zeros(lay["total"], dtype=torch.uint8)
+        buf = coded_wire(B, layer, F, seed=7 + layer, mono=(2,),
+                         idle=(B + 3,))
         w = L.l12_sections(buf, B, layer, F)
-        ops = [_operands(S, B, 7 * f + layer, mono=(2,),
-                         idle=(3,) if f else ()) for f in range(F)]
-        for f, (sb, nch, act, _) in enumerate(ops):
-            w["sb"][f] = torch.from_numpy(sb)
-            w["meta"][f, :, 0] = torch.from_numpy(nch.astype(np.int16))
-            w["active"][f] = torch.from_numpy(act.astype(np.int16))
-        v0 = ops[0][3]
+        sb = RQ.l12_requant_ref(w["body"], w["side"], w["geom"],
+                                layer).numpy()
+        assert sb.shape == (F, B, 2, S, 32) and sb[0, 0].any()
+        v0 = _operands(S, B, layer)[3]
         pcm, st = L.decode_l12_wire(
             buf, L.L12State(v_blocks=torch.from_numpy(v0.copy())), B, layer,
             F, exact, float_pcm)
         vj, want = v0, []
-        for sb, nch, act, _ in ops:
-            pj, vj = _jax(sb, nch, act, vj, exact, float_pcm)
+        for f in range(F):
+            nch = w["meta"][f, :, 0].numpy().astype(np.int32)
+            act = w["active"][f].numpy().astype(np.int32)
+            pj, vj = _jax(sb[f], nch, act, vj, exact, float_pcm)
             want.append(pj)
         _assert_vs_jax((pcm.numpy(), st.v_blocks.numpy()),
                        (np.concatenate(want, 1), vj), exact, float_pcm,
@@ -500,25 +506,23 @@ def test_k7_silent_and_cancelling_rows_on_cuda(layer):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layer", [1, 2])
 def test_k7_decodes_the_wire_in_place_on_cuda(layer):
-    """decode_l12_wire at F = 2 on a device wire (sb read in place, nch
-    a strided int16 view, active int16): one K7 launch a frame, PCM and
-    FIFO bitwise equal to the CPU's plain version on the same wire."""
+    """decode_l12_wire at F = 2 on a device coded wire (random frames,
+    ``testing.l12wire``; nch a strided int16 view, active int16): one K9
+    launch a step and one K7 launch a frame, PCM and FIFO bitwise equal
+    to the CPU's plain versions on the same wire."""
     dev = _cuda()
     S, B, F = LAYERS[layer], 300, 2
-    lay = L.l12_layout(B, layer, F)
-    buf = torch.zeros(lay["total"], dtype=torch.uint8)
-    w = L.l12_sections(buf, B, layer, F)
-    for f in range(F):
-        sb, nch, act, v = _operands(S, B, f, mono=range(1, B, 5),
-                                    idle=range(f, B, 7))
-        w["sb"][f] = torch.from_numpy(sb)
-        w["meta"][f, :, 0] = torch.from_numpy(nch.astype(np.int16))
-        w["active"][f] = torch.from_numpy(act.astype(np.int16))
+    buf = coded_wire(B, layer, F, seed=layer, mono=range(1, B, 5),
+                     idle=[f * B + b for f in range(F)
+                           for b in range(f, B, 7)])
+    v = _operands(S, B, 0)[3]
     for exact in (False, True):
         n0 = getattr(K7, _counter(exact, False))
+        r0 = RQ.LAUNCHES
         st = L.L12State(v_blocks=torch.from_numpy(v).to(dev))
         pcm, st = L.decode_l12_wire(buf.to(dev), st, B, layer, F, exact)
         assert getattr(K7, _counter(exact, False)) == n0 + F
+        assert RQ.LAUNCHES == r0 + 1
         ref = L.L12State(v_blocks=torch.from_numpy(v.copy()))
         want, ref = L.decode_l12_wire(buf, ref, B, layer, F, exact)
         assert torch.equal(pcm.cpu(), want)

@@ -1,6 +1,6 @@
 """The program's spans (pdmp3_tpu_torch/utils/trace.py ``span``,
 ``RECORDER``) on a tiny CPU pool, MPEG-1 and LSF, and on a Layer II
-pool, whose model step is K7's launches.
+pool, whose model step is K9's requantization and K7's launches.
 
 Under a profiler session (``utils.trace.Trace``) the pipelined serving
 loop's spans land in the session's Chrome trace, nested as the step runs
@@ -21,6 +21,7 @@ import torch
 
 from pdmp3_tpu_torch import L12StreamDecoder, LoopFeeder, StreamDecoder
 from pdmp3_tpu_torch.models import decoder as M
+from pdmp3_tpu_torch.models import l12 as L
 from pdmp3_tpu_torch.testing import mp3gen
 from pdmp3_tpu_torch.utils import Trace, trace
 
@@ -305,10 +306,16 @@ def test_spans_are_annotations_inside_trace_alone(tmp_path):
     trace.RECORDER.reset()
 
 
-def _serve_l12(F):
+def _serve_l12(F, monkeypatch=None):
     """STEPS parse + decode_step_pipelined steps of a looping 4-slot
     Layer II pool of F frames a step, then the flush: the PCM of every
-    step."""
+    step; with `monkeypatch`, the model step's requantization and its
+    calls into K7 probed."""
+    if monkeypatch is not None:
+        monkeypatch.setattr(L, "l12_requant",
+                            _probe(L.l12_requant, "probe.requant"))
+        monkeypatch.setattr(L, "decode_l12_frames",
+                            _probe(L.decode_l12_frames, "probe.launch"))
     dec = L12StreamDecoder(SLOTS, layer=2, frames_per_step=F, device="cpu")
     feeder = LoopFeeder(dec, [mp3gen.make_l12_stream(
         layer=2, n_frames=6, seed=90 + i, bitrate_index=12,
@@ -325,22 +332,25 @@ def _serve_l12(F):
 
 
 @pytest.mark.parametrize("F", [1, 2])
-def test_layer2_pool_decode_holds_a_launch_a_frame(F, tmp_path):
-    """In a Layer II pool's pool.decode, the model step's call into K7 for
-    each of its F frames is a step.launch, in turn, then (F > 1) one
-    step.join around the frames' concatenation; the recorder counts
-    STEPS x F launches; the PCM is the same bits with the profiler off."""
+def test_layer2_pool_decode_holds_a_launch_a_frame(F, tmp_path,
+                                                   monkeypatch):
+    """In a Layer II pool's pool.decode, the requantization of the step's
+    coded frames (K9's one launch) is a step.requant, then the model
+    step's call into K7 for each of its F frames is a step.launch, in
+    turn, then (F > 1) one step.join around the frames' concatenation;
+    the recorder counts STEPS requantizations and STEPS x F launches; the
+    PCM is the same bits with the profiler off."""
     trace.RECORDER.reset()
     off = _serve_l12(F)
     assert trace.RECORDER.spans() == {}
     with Trace(str(tmp_path)):
-        on = _serve_l12(F)
+        on = _serve_l12(F, monkeypatch)
     spans = trace.RECORDER.spans()
     trace.RECORDER.reset()
     assert off.shape == (STEPS, SLOTS, F * 1152, 2)
     np.testing.assert_array_equal(on, off)
     want = {"pool.advance": STEPS, "pool.decode": STEPS,
-            "step.launch": F * STEPS}
+            "step.requant": STEPS, "step.launch": F * STEPS}
     if F > 1:
         want["step.join"] = STEPS
     assert {k: spans[k][1] for k in want} == want
@@ -348,15 +358,24 @@ def test_layer2_pool_decode_holds_a_launch_a_frame(F, tmp_path):
     (path,) = sorted(tmp_path.glob("*.pt.trace.json"))
     notes = _events(path, ("pool.", "step."))
     cats = _events(path, ("aten::cat",))
+    probes = _events(path, ("probe.",))
+    assert [p[2] for p in probes].count("probe.requant") == STEPS
+    assert [p[2] for p in probes].count("probe.launch") == F * STEPS
+    for p0, p1, name in probes:
+        inner = min((n for n in notes if n[0] <= p0 and p1 <= n[1]),
+                    key=lambda n: n[1] - n[0])
+        assert inner[2] == {"probe.requant": "step.requant",
+                            "probe.launch": "step.launch"}[name]
     decodes = [n for n in notes if n[2] == "pool.decode"]
     assert len(decodes) == STEPS
     for d0, d1, _ in decodes:
         inner = [n for n in notes if d0 <= n[0] and n[1] <= d1
                  and n[2] != "pool.decode"]
-        assert [n[2] for n in inner] == (["step.launch"] * F
+        assert [n[2] for n in inner] == (["step.requant"]
+                                         + ["step.launch"] * F
                                          + ["step.join"] * (F > 1))
         assert all(p[1] <= n[0] for p, n in zip(inner, inner[1:]))
-        for j0, j1, _ in inner[F:]:
+        for j0, j1, _ in inner[1 + F:]:
             assert [c[2] for c in cats
                     if j0 <= c[0] and c[1] <= j1] == ["aten::cat"]
 
