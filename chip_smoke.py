@@ -439,10 +439,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def reset_launch_counts() -> None:
-    from pdmp3_tpu_torch.tools import counters
+    from pdmp3_tpu_torch.ops import launch
 
-    for mod, attr in counters().values():
-        setattr(mod, attr, 0)
+    launch.reset()
 
 
 def launched() -> dict:
@@ -823,6 +822,7 @@ def phase_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
     + 3 slots, a ragged B (grid: the instance's persistent grid, printed
     with its launch geometry); both timed per granule step."""
     from pdmp3_tpu_torch.ops import fused_step as FS
+    from pdmp3_tpu_torch.ops import launch as LA
 
     phase = ("phase 10" if family else "phase 5" if exact else "phase 2")
     step_k = functools.partial(FS.fused_granule_step, exact=exact,
@@ -831,7 +831,7 @@ def phase_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
                                family=family)
     grs = (0,) if family else (0, 1)
     res = compare_steps(fr, step_k, step_r, phase, grs=grs)
-    launch = FS.granule_launch_info(fr["ix"].device, exact, family)
+    launch = LA.granule_launch_info(fr["ix"].device, exact, family)
     n = 2 * launch["grid"] + 3
     res["launch"] = launch
     rfr = ragged_frame(fr, n)
@@ -862,6 +862,7 @@ def phase_float_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
     subnormal band-12 carry.  Bitwise (PCM bits and state), timed per
     granule step, with its launch geometry and bound."""
     from pdmp3_tpu_torch.ops import fused_step as FS
+    from pdmp3_tpu_torch.ops import launch as LA
 
     phase = f"phase 34 family {family} exact={exact}"
     step_k = functools.partial(FS.fused_granule_step, exact=exact,
@@ -877,7 +878,7 @@ def phase_float_kernel(fr: dict, exact: bool, family: int = 0) -> dict:
     res["nan_inf_state"] = compare_steps(fr, step_k, step_r,
                                          f"{phase} NaN/inf state", grs=grs,
                                          st0=hostile)
-    launch = FS.granule_launch_info(fr["ix"].device, exact, family,
+    launch = LA.granule_launch_info(fr["ix"].device, exact, family,
                                     float_pcm=True)
     grid = launch["grid"]
     n = 2 * grid + 3
@@ -969,11 +970,12 @@ def phase_frame_kernel(fr: dict, family: int = 0) -> dict:
     interleaved with K5's in one loop."""
     from pdmp3_tpu_torch.ops import frame_step as FR
     from pdmp3_tpu_torch.ops import fused_step as FS
+    from pdmp3_tpu_torch.ops import launch as LA
 
     phase = f"phase 14 family {family}"
     ops, parities, lsf = frame_operands(fr, family)
     res = compare_frame(ops, parities, lsf, fr["st0"], phase)
-    launch = FS.granule_launch_info(fr["ix"].device, family=family,
+    launch = LA.granule_launch_info(fr["ix"].device, family=family,
                                     frame=True)
     n = 2 * launch["grid"] + 3
     rfr = ragged_frame(fr, n)
@@ -1091,6 +1093,7 @@ def phase_back_half(fr: dict) -> dict:
     from pdmp3_tpu_torch.ops import back_half as BH
     from pdmp3_tpu_torch.ops import dsp as D
     from pdmp3_tpu_torch.ops import fused_step as FS
+    from pdmp3_tpu_torch.ops import launch as LA
 
     args = granule_args(fr, 0)
     f = D.fields(args[3])
@@ -1116,7 +1119,7 @@ def phase_back_half(fr: dict) -> dict:
             BH.back_half_step, one[0], s1, one[2], one[3], exact))
         r["one_slot"]["plain_ms"] = plain_ms(
             lambda: BH.back_half_step_ref(one[0], r1, one[2], one[3], exact))
-        r["launch"] = FS.granule_launch_info(xa.device, exact,
+        r["launch"] = LA.granule_launch_info(xa.device, exact,
                                              back_half=True)
         batch = GranuleBatch(*args)
         st = clone_state(fr["st0"])
@@ -1144,7 +1147,7 @@ def phase_k4_raw(fr: dict, exact: bool = False, family: int = 0,
     Phase 17's kernel part (MPEG-1, fast) and phase 32's."""
     from pdmp3_tpu_torch.ops import back_half as BH
     from pdmp3_tpu_torch.ops import dsp as D
-    from pdmp3_tpu_torch.ops import fused_step as FS
+    from pdmp3_tpu_torch.ops import launch as LA
 
     args = granule_args(fr, 0)
     f = D.fields(args[3])
@@ -1157,7 +1160,7 @@ def phase_k4_raw(fr: dict, exact: bool = False, family: int = 0,
     one = (xa[:1], slot_state(fr["st0"], 1), bt[:1], act[:1])
     res["one_slot"] = compare_back_half(*one, exact, what + " one slot",
                                         raw=True)
-    launch = FS.granule_launch_info(xa.device, exact, back_half=True,
+    launch = LA.granule_launch_info(xa.device, exact, back_half=True,
                                     raw=True)
     grid = launch["grid"]
     n = 2 * grid + 3
@@ -2010,8 +2013,8 @@ def phase_k7(dev, frames: dict) -> dict:
     idle slots at the seams of the slot ring; bitwise (compare_k7); each
     instance timed at B, with its bound and launch geometry."""
     from pdmp3_tpu_torch.models.l12 import L12State
-    from pdmp3_tpu_torch.ops import fused_step as FS
     from pdmp3_tpu_torch.ops import l12_synth as K7
+    from pdmp3_tpu_torch.ops import launch as LA
 
     res = {}
     for layer, S in L12_S.items():
@@ -2037,7 +2040,7 @@ def phase_k7(dev, frames: dict) -> dict:
                 r["mirror_hazards"] = compare_k7(
                     hazards, exact, float_pcm,
                     what + " silent / cancelling / signed-zero rows")
-                launch = FS.granule_launch_info(dev, exact, layer=layer,
+                launch = LA.granule_launch_info(dev, exact, layer=layer,
                                                 float_pcm=float_pcm)
                 grid = launch["grid"]
                 ragged = []

@@ -32,7 +32,7 @@ for bit; it is the route of the per-stream ``models.decoder.TorchDSP``.
 ``back_half_step_ref`` (the stage ops of ``ops/dsp.py``), taken for CPU
 tensors, and the CUDA kernel ``csrc/back_half.cu``, launched for CUDA
 tensors: persistent instances 6 (fast), 7 (exact) and 8 (fast, raw
-sums) of the granule body's pattern (``fused_step.granule_launch_info(
+sums) of the granule body's pattern (``launch.granule_launch_info(
 device, exact, back_half=True, raw=...)``), over the same back-half
 stages as K1 and K2.  Its
 bulk copies need 16-byte aligned xa, bt_eff, store, v_blocks and out;
@@ -40,19 +40,13 @@ bulk copies need 16-byte aligned xa, bt_eff, store, v_blocks and out;
 """
 from __future__ import annotations
 
-import ctypes as C
-
 import torch
 
 from . import dsp as D
-from .fused_step import (_check, check_bulk_alignment, check_operands,
-                         check_state, commit_state, latch_prev, table_ptrs)
+from .fused_step import (_check, check_state, commit_state, latch_prev,
+                         table_ptrs)
+from .launch import check_bulk_alignment, check_operands, launch
 from .rounding import qz_f64
-
-# Launches of the CUDA kernel since the last reset: instances 6 (fast) and
-# 7 (exact), and apart from them instance 8 (fast, raw sums).
-LAUNCHES = 0
-LAUNCHES_RAW = 0
 
 _F32 = torch.float32
 
@@ -73,7 +67,6 @@ def back_half_step(xa, state, bt_eff, active, exact: bool,
     slots; prev3 is x_time[0:3] of (ch0, subband 0) for every slot.  CPU
     tensors take the plain version; CUDA tensors launch the kernel
     (instance 7 when exact, else 8 with raw, else 6)."""
-    global LAUNCHES, LAUNCHES_RAW
     B = xa.shape[0]
     check_operands(xa.device, ("xa", xa, (B, 2, 32, 18), _F32),
                    ("bt_eff", bt_eff, (B, 2, 32), torch.int32),
@@ -83,9 +76,6 @@ def back_half_step(xa, state, bt_eff, active, exact: bool,
         return back_half_step_ref(xa, state, bt_eff, active, exact, raw)
     if xa.device.type != "cuda":
         raise ValueError(f"no back half for {xa.device}")
-    from . import _build
-
-    lib = _build.load()
     out = torch.empty((B, 2, 576), dtype=_F32, device=xa.device)
     prev3 = torch.empty((B, 3), dtype=_F32, device=xa.device)
     if B == 0:
@@ -95,20 +85,9 @@ def back_half_step(xa, state, bt_eff, active, exact: bool,
                          out=out)
     ptr = [t.data_ptr() for t in (xa, bt_eff, active, state.store,
                                   state.v_blocks, out, prev3)]
-    # launched on the operands' device (the C entry point uses the
-    # current one)
-    with torch.cuda.device(xa.device):
-        stream = torch.cuda.current_stream(xa.device).cuda_stream
-        rc = lib.pdmp3_back_half(*ptr, table_ptrs(xa.device), B,
-                                 int(bool(exact)), int(bool(raw)),
-                                 C.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError("back_half launch failed: "
-                           + lib.pdmp3_cuda_error_string(rc).decode())
-    if raw and not exact:
-        LAUNCHES_RAW += 1
-    else:
-        LAUNCHES += 1
+    launch("back_half_raw" if raw and not exact else "back_half",
+           "pdmp3_back_half", xa.device, *ptr, table_ptrs(xa.device), B,
+           int(bool(exact)), int(bool(raw)))
     return out, prev3
 
 

@@ -18,12 +18,12 @@ per granule.
   an LSF instance), launched for CUDA tensors.  There is no fallback: a
   CUDA tensor either runs the kernel or raises.
 
-K5 runs the persistent body of K1-K3 (``fused_step.granule_launch_info(
+K5 runs the persistent body of K1-K3 (``launch.granule_launch_info(
 device, family=f, frame=True)`` gives its grid): it bulk-copies each
 granule's ix and meta and each slot's store and v_blocks, and writes
 each granule's PCM back by bulk copy, so those need 16-byte aligned
 addresses; scf_l, scf_s, is_pos, prev_lines and active arrive by 4-byte
-copies (``fused_step.check_bulk_alignment``).
+copies (``launch.check_bulk_alignment``).
 
 The operands are the wire's per-granule sections stacked on a leading
 granule axis, slot-major (``[ng,B,...]``), which is how a frame of the
@@ -32,18 +32,11 @@ are, with no transposing or stacking copy.
 """
 from __future__ import annotations
 
-import ctypes as C
-
 import torch
 
 from . import dsp as D
-from .fused_step import (check_bulk_alignment, check_operands, check_state,
-                         fused_granule_step_ref, table_ptrs)
-
-# Launches of the CUDA kernel since the last reset: the MPEG-1 and the
-# LSF instance apart.
-LAUNCHES_FRAME = 0
-LAUNCHES_FRAME_LSF = 0
+from .fused_step import check_state, fused_granule_step_ref, table_ptrs
+from .launch import check_bulk_alignment, check_operands, launch
 
 
 def _check(ix, scf_l, scf_s, meta, active, parities, state, family,
@@ -88,7 +81,6 @@ def frame_step(ix, scf_l, scf_s, meta, active, parities, state,
     Returns (pcm int16 [B, ng*576, 2], the granules' PCM in order along
     time, state).  CPU tensors take the plain version; CUDA tensors
     launch K5."""
-    global LAUNCHES_FRAME, LAUNCHES_FRAME_LSF
     ng, B = _check(ix, scf_l, scf_s, meta, active, parities, state, family,
                    is_pos)
     if ix.device.type == "cpu":
@@ -96,9 +88,6 @@ def frame_step(ix, scf_l, scf_s, meta, active, parities, state,
                               state, bug_compat, family, is_pos)
     if ix.device.type != "cuda":
         raise ValueError(f"no frame step for {ix.device}")
-    from . import _build
-
-    lib = _build.load()
     pcm = torch.empty((B, ng * 576, 2), dtype=torch.int16, device=ix.device)
     if B == 0:
         return pcm, state
@@ -111,20 +100,10 @@ def frame_step(ix, scf_l, scf_s, meta, active, parities, state,
         ix, scf_l, scf_s, meta, active, is_pos if family else None,
         state.store, state.v_blocks, state.prev_lines, pcm)]
     bits = sum(int(p) << g for g, p in enumerate(parities))
-    # launched on the operands' device (the C entry point uses the
-    # current one)
-    with torch.cuda.device(ix.device):
-        stream = torch.cuda.current_stream(ix.device).cuda_stream
-        rc = lib.pdmp3_frame_fused(*ptr, table_ptrs(ix.device, family), B,
-                                   ng, bits, int(bool(bug_compat)),
-                                   int(family != 0), C.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError("frame_fused launch failed: "
-                           + lib.pdmp3_cuda_error_string(rc).decode())
-    if family:
-        LAUNCHES_FRAME_LSF += 1
-    else:
-        LAUNCHES_FRAME += 1
+    launch("frame_fused_lsf" if family else "frame_fused",
+           "pdmp3_frame_fused", ix.device, *ptr,
+           table_ptrs(ix.device, family), B, ng, bits,
+           int(bool(bug_compat)), int(family != 0))
     return pcm, state
 
 

@@ -23,15 +23,15 @@ the TPU kernel they launch, ``_kernel_full``.
   quantize).  There is no fallback between them: a CUDA tensor either
   runs a kernel or raises.
 
-K1, K2 and K3 are persistent (``granule_launch_info``: a grid of the SM
-count times the resident blocks per SM walks the B slots) and bring
-each slot's ix, meta, store and v_blocks into shared memory by bulk
-copies, which need 16-byte aligned addresses; scf_l, scf_s, prev_lines,
-active and K3's is_pos sidecar arrive by 4-byte copies (the packed LSF
-wire puts is_pos at F x B x 2,612 bytes, 16-byte aligned only when
-F x B % 4 == 0).  ``check_bulk_alignment`` raises on an operand that
-breaks either rule (a view at an odd element offset): there is no
-slower path for it.
+K1, K2 and K3 are persistent (``launch.granule_launch_info``: a grid of
+the SM count times the resident blocks per SM walks the B slots) and
+bring each slot's ix, meta, store and v_blocks into shared memory by
+bulk copies, which need 16-byte aligned addresses; scf_l, scf_s,
+prev_lines, active and K3's is_pos sidecar arrive by 4-byte copies (the
+packed LSF wire puts is_pos at F x B x 2,612 bytes, 16-byte aligned only
+when F x B % 4 == 0).  ``launch.check_bulk_alignment`` raises on an
+operand that breaks either rule (a view at an odd element offset): there
+is no slower path for it.
 
 Both read |x|^(4/3) from the frozen 8207-entry table ``T.POW43`` (the
 correctly rounded value).  The JAX fast path computes it with an
@@ -53,20 +53,7 @@ import torch
 
 from . import dsp as D
 from .consts import device_consts
-
-# Launches of the CUDA kernels since the last reset, each instance
-# apart: K1 (fast) and K2 (exact) for family 0, K3 fast and exact for the
-# LSF families, and the four again with float PCM (instances 9-12) (a
-# run sets them to 0, drives the path, and reads them back to prove the
-# path used the kernel).
-LAUNCHES = 0
-LAUNCHES_EXACT = 0
-LAUNCHES_LSF = 0
-LAUNCHES_LSF_EXACT = 0
-LAUNCHES_FLOAT = 0
-LAUNCHES_FLOAT_EXACT = 0
-LAUNCHES_LSF_FLOAT = 0
-LAUNCHES_LSF_FLOAT_EXACT = 0
+from .launch import check_bulk_alignment, check_operands, launch
 
 _F32 = torch.float32
 
@@ -76,15 +63,11 @@ TABLES = ("pow43", "cos36", "c3", "imdct_win", "win2", "nwin", "synth_d",
           "cs", "ca", "ratio_l", "ratio_r", "quarter_down", "quarter_up",
           "inv_sqrt2", "gain_quarter_true", "maps", "k0", "k1",
           "granule_smem")
-# byte alignment the persistent kernels (K1-K5, K7) need of each operand:
-# bulk-copied ones 16, the 4-byte copies 4
-BULK_ALIGN = {"ix": 16, "meta": 16, "store": 16, "v_blocks": 16, "pcm": 16,
-              "xa": 16, "bt_eff": 16, "out": 16, "sb": 16,
-              "scf_l": 4, "scf_s": 4, "prev_lines": 4, "active": 4,
-              "is_pos": 4}
-# granule_launch_info's fields, in the order of pdmp3_granule_launch_info
-LAUNCH_INFO = ("grid", "blocks_per_sm", "dynamic_smem_bytes", "registers",
-               "local_bytes", "sm_count")
+# the launch counter of each K1-K3 instance, by [lsf][float_pcm][exact]
+_COUNTERS = ((("fused_granule", "fused_granule_exact"),
+              ("fused_granule_float", "fused_granule_float_exact")),
+             (("fused_granule_lsf", "fused_granule_lsf_exact"),
+              ("fused_granule_lsf_float", "fused_granule_lsf_float_exact")))
 
 
 def table_ptrs(device, family: int = 0) -> C.Array:
@@ -94,99 +77,12 @@ def table_ptrs(device, family: int = 0) -> C.Array:
     return (C.c_void_p * len(TABLES))(*[c[k].data_ptr() for k in TABLES])
 
 
-def check_bulk_alignment(**operands) -> None:
-    """Raise ValueError unless each named operand (a key of BULK_ALIGN)
-    starts on the byte alignment the persistent kernels copy it with."""
-    for name, t in operands.items():
-        if t.data_ptr() % BULK_ALIGN[name]:
-            raise ValueError(f"{name} must be {BULK_ALIGN[name]}-byte "
-                             f"aligned for the kernels' copies (address "
-                             f"{t.data_ptr():#x})")
-
-
-def launch_instance(exact: bool = False, family: int = 0,
-                    frame: bool = False, back_half: bool = False,
-                    raw: bool = False, float_pcm: bool = False,
-                    layer: int = 3) -> int:
-    """The persistent kernel instance of pdmp3_granule_launch_info: 0 K1,
-    1 K2, 2 K3 fast, 3 K3 exact (family 1 or 2), 4 K5 MPEG-1, 5 K5 LSF
-    (frame; fast only), 6 K4 fast, 7 K4 exact, 8 K4 fast raw sums
-    (back_half; K4 takes post-antialias spectra of any family, so no
-    family; exact K4 always returns raw sums), 9-12 K1, K2, K3 fast and
-    K3 exact writing float PCM (float_pcm; granule steps only); with
-    layer 1 or 2, K7, the Layer I/II synthesis (csrc/l12_synth.cu):
-    13 + 4 (Layer II) + 2 (float_pcm) + 1 (exact).  ValueError for any
-    other combination."""
-    if layer in (1, 2):
-        if family or frame or back_half or raw:
-            raise ValueError("K7, the Layer I/II synthesis, takes no "
-                             "family, frame, back half or raw sums")
-        return 13 + 4 * (layer == 2) + 2 * bool(float_pcm) + int(exact)
-    if layer != 3:
-        raise ValueError(f"layer must be 1, 2 or 3, got {layer!r}")
-    if family not in (0, 1, 2):
-        raise ValueError(f"family must be 0, 1 or 2, got {family!r}")
-    if frame and exact:
-        raise ValueError("K5, the frame kernel, is fast only")
-    if back_half and (frame or family):
-        raise ValueError("K4, the back half, takes no frame and no family")
-    if raw and not back_half:
-        raise ValueError("raw sums come from K4, the back half, only")
-    if float_pcm and (frame or back_half):
-        raise ValueError("float PCM instances are granule steps (K1-K3)")
-    if back_half:
-        return 7 if exact else 8 if raw else 6
-    if frame:
-        return 4 + (family != 0)
-    return 9 * float_pcm + 2 * (family != 0) + int(exact)
-
-
-def granule_launch_info(device, exact: bool = False, family: int = 0,
-                        frame: bool = False, back_half: bool = False,
-                        raw: bool = False, float_pcm: bool = False,
-                        layer: int = 3) -> dict:
-    """The launch geometry of the persistent kernel that runs a step of
-    `family` in that precision (K1, K2 or K3, instances 9-12 with
-    float_pcm; K5 when frame; K4 when back_half, instance 8 with raw; K7
-    with layer 1 or 2) on a CUDA device, from the kernel library: the
-    persistent
-    grid (SM count x resident blocks per SM; min(B, grid) blocks launch),
-    blocks per SM, dynamic shared memory per block, registers and local
-    (spill) bytes per thread, SM count.  The arguments are checked
-    (launch_instance) before the library is loaded."""
-    instance = launch_instance(exact, family, frame, back_half, raw,
-                               float_pcm, layer)
-    from . import _build
-
-    lib = _build.load()
-    info = (C.c_int * len(LAUNCH_INFO))()
-    with torch.cuda.device(torch.device(device)):
-        rc = lib.pdmp3_granule_launch_info(instance, info)
-    if rc != 0:
-        raise RuntimeError("granule launch info failed: "
-                           + lib.pdmp3_cuda_error_string(rc).decode())
-    return dict(zip(LAUNCH_INFO, info))
-
-
 def check_state(state, B: int, device) -> None:
     """Raise ValueError unless state holds contiguous f32 store
     [B,2,32,18], v_blocks [B,2,15,64] and prev_lines [B,3] on device."""
     check_operands(device, ("store", state.store, (B, 2, 32, 18), _F32),
                    ("v_blocks", state.v_blocks, (B, 2, 15, 64), _F32),
                    ("prev_lines", state.prev_lines, (B, 3), _F32))
-
-
-def check_operands(device, *want) -> None:
-    """Raise ValueError unless each (name, tensor, shape, dtype) matches
-    and is contiguous on device."""
-    for name, t, shape, dtype in want:
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: want {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, want {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
 
 
 def _check(ix, scf_l, scf_s, meta, active, gr1, state, family=0,
@@ -243,9 +139,6 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
                                       is_pos, float_pcm)
     if ix.device.type != "cuda":
         raise ValueError(f"no fused granule step for {ix.device}")
-    from . import _build
-
-    lib = _build.load()
     pcm = torch.empty((B, 576, 2), device=ix.device,
                       dtype=_F32 if float_pcm else torch.int16)
     if B == 0:
@@ -258,21 +151,11 @@ def fused_granule_step(ix, scf_l, scf_s, meta, active, gr1: int, state,
     ptr = [None if t is None else t.data_ptr() for t in (
         ix, scf_l, scf_s, meta, active, is_pos if family else None,
         state.store, state.v_blocks, state.prev_lines, pcm)]
-    # the C entry point launches on the current device: make it the
-    # operands' (its stream and per-device launch cache are that device's)
-    with torch.cuda.device(ix.device):
-        stream = torch.cuda.current_stream(ix.device).cuda_stream
-        rc = lib.pdmp3_fused_granule(*ptr, table_ptrs(ix.device, family),
-                                     B, int(gr1), int(bool(bug_compat)),
-                                     int(bool(exact)), int(family != 0),
-                                     int(bool(float_pcm)),
-                                     C.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError("fused_granule launch failed: "
-                           + lib.pdmp3_cuda_error_string(rc).decode())
-    counter = ("LAUNCHES" + ("_LSF" if family else "")
-               + ("_FLOAT" if float_pcm else "") + ("_EXACT" if exact else ""))
-    globals()[counter] += 1
+    kernel = _COUNTERS[family != 0][bool(float_pcm)][bool(exact)]
+    launch(kernel, "pdmp3_fused_granule", ix.device, *ptr,
+           table_ptrs(ix.device, family), B, int(gr1),
+           int(bool(bug_compat)), int(bool(exact)), int(family != 0),
+           int(bool(float_pcm)))
     return pcm, state
 
 

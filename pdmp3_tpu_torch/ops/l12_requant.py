@@ -33,8 +33,7 @@ import functools
 import numpy as np
 import torch
 
-# Launches of K9 since the last reset (both layers)
-LAUNCHES = 0
+from .launch import check_bulk_alignment, check_operands, launch
 
 # the wire's per-slot-frame rows (host/src/wire_l12_codes.cc)
 BODY_BYTES = 2000
@@ -68,16 +67,11 @@ def host_tables() -> dict:
     return {"cd": cd, "ci": ci, "scf": scf}
 
 
-_DEVICE_TABLES: dict = {}
-
-
-def device_tables(device) -> dict:
-    """host_tables() as tensors on `device`, made once a device."""
-    key = torch.device(device)
-    if key not in _DEVICE_TABLES:
-        _DEVICE_TABLES[key] = {k: torch.from_numpy(v).to(device)
-                               for k, v in host_tables().items()}
-    return _DEVICE_TABLES[key]
+@functools.lru_cache(maxsize=None)
+def device_tables(device: str) -> dict:
+    """host_tables() as tensors on ``device`` (cached per device)."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in host_tables().items()}
 
 
 def _check(body, side, geom, layer, out):
@@ -90,18 +84,11 @@ def _check(body, side, geom, layer, out):
     if out is None:
         out = torch.empty((F, B, 2, S, 32), dtype=torch.float32,
                           device=body.device)
-    for name, t, shape, dtype in (
-            ("body", body, (F, B, BODY_BYTES), torch.uint8),
-            ("side", side, (F, B, SIDE_BYTES), torch.uint8),
-            ("geom", geom, (F, B, 2), torch.int16),
-            ("out", out, (F, B, 2, S, 32), torch.float32)):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if t.device != body.device:
-            raise ValueError(f"{name} is on {t.device}, want {body.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_operands(body.device,
+                   ("body", body, (F, B, BODY_BYTES), torch.uint8),
+                   ("side", side, (F, B, SIDE_BYTES), torch.uint8),
+                   ("geom", geom, (F, B, 2), torch.int16),
+                   ("out", out, (F, B, 2, S, 32), torch.float32))
     return (F, B, S), out
 
 
@@ -116,27 +103,14 @@ def l12_requant(body, side, geom, layer: int, out=None):
         return l12_requant_ref(body, side, geom, layer, out)
     if body.device.type != "cuda":
         raise ValueError(f"no Layer I/II requantization for {body.device}")
-    for name, t in (("body", body), ("side", side)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for K9's bulk "
-                             f"copies (address {t.data_ptr():#x})")
+    check_bulk_alignment(body=body, side=side)
     if F * B == 0:
         return out
-    from . import _build
-
-    lib = _build.load()
-    tab = device_tables(body.device)
-    with torch.cuda.device(body.device):
-        stream = torch.cuda.current_stream(body.device).cuda_stream
-        rc = lib.pdmp3_l12_requant(
-            body.data_ptr(), side.data_ptr(), geom.data_ptr(),
-            out.data_ptr(), tab["cd"].data_ptr(), tab["ci"].data_ptr(),
-            tab["scf"].data_ptr(), F * B, S, stream)
-    if rc != 0:
-        raise RuntimeError("l12_requant launch failed: "
-                           + lib.pdmp3_cuda_error_string(rc).decode())
-    global LAUNCHES
-    LAUNCHES += 1
+    tab = device_tables(str(body.device))
+    launch("l12_requant", "pdmp3_l12_requant", body.device, body.data_ptr(),
+           side.data_ptr(), geom.data_ptr(), out.data_ptr(),
+           tab["cd"].data_ptr(), tab["ci"].data_ptr(), tab["scf"].data_ptr(),
+           F * B, S)
     return out
 
 
@@ -160,7 +134,7 @@ def l12_requant_ref(body, side, geom, layer: int, out=None):
     / parse_l2 in their order, then the rounding to f32."""
     (F, B, S), out = _check(body, side, geom, layer, out)
     N, dev = F * B, body.device
-    tab = device_tables(dev)
+    tab = device_tables(str(dev))
     side = side.reshape(N, SIDE_BYTES)
     cls = side[:, :SIDE_SCF].long().view(N, 2, 32, 1)
     cls = torch.where(cls < CLASSES, cls, 0)    # K9 reads no other class

@@ -12,7 +12,7 @@ Counterpart of the JAX package's ``pdmp3_tpu/models/l12.py``
   tensors;
 - K7, the hand-written CUDA kernel of ``csrc/l12_synth.cu``, launched
   for CUDA tensors: eight persistent instances (13-20 of
-  ``fused_step.granule_launch_info(..., layer=)``), Layer I (S = 12) or
+  ``launch.granule_launch_info(..., layer=)``), Layer I (S = 12) or
   Layer II (S = 36), fast or exact, S16 or float PCM.  There is no
   fallback between them: a CUDA tensor either runs the kernel or raises.
 
@@ -23,7 +23,7 @@ negated row's dot is zero or NaN it takes the image's signed zero for a
 row of +0.0 samples, else sums that row again), so it stays bitwise
 equal to the plain version.  It brings each slot's sb and
 FIFO rows into shared memory by bulk copies, which need 16-byte aligned sb, v_blocks and PCM
-(``fused_step.check_bulk_alignment`` raises otherwise); it reads nch and
+(``launch.check_bulk_alignment`` raises otherwise); it reads nch and
 active where they lie, int16 or int32 at any element stride (the pool's
 wire holds nch as a strided int16 view), so the wire is decoded in
 place.
@@ -37,16 +37,12 @@ import torch
 
 from . import dsp as D
 from .consts import device_consts
-from .fused_step import check_bulk_alignment, check_operands
-
-# Launches of K7 since the last reset, by precision and PCM type (both
-# layers in each): fast S16, exact S16, fast float, exact float.
-LAUNCHES = 0
-LAUNCHES_EXACT = 0
-LAUNCHES_FLOAT = 0
-LAUNCHES_FLOAT_EXACT = 0
+from .launch import check_bulk_alignment, check_operands, launch
 
 _F32 = torch.float32
+# K7's launch counter, by [float_pcm][exact] (both layers in each)
+_COUNTERS = (("l12_synth", "l12_synth_exact"),
+             ("l12_synth_float", "l12_synth_float_exact"))
 
 
 def _check(sb, nch, active, state) -> tuple[int, int]:
@@ -84,9 +80,6 @@ def l12_synth_step(sb, nch, active, state, exact: bool = True,
         if t.dtype not in (torch.int16, torch.int32):
             raise ValueError(f"{name} must be int16 or int32 on CUDA, got "
                              f"{t.dtype}")
-    from . import _build
-
-    lib = _build.load()
     pcm = torch.empty((B, S * 32, 2), device=sb.device,
                       dtype=_F32 if float_pcm else torch.int16)
     if B == 0:
@@ -95,21 +88,11 @@ def l12_synth_step(sb, nch, active, state, exact: bool = True,
     # K7's table image: the unique NWIN rows packed, synth_d, and the
     # store map of the mirrored rows (consts.l12_smem_image)
     image = device_consts(str(sb.device))["l12_smem"]
-    # launched on the operands' device (the C entry point uses the
-    # current one)
-    with torch.cuda.device(sb.device):
-        stream = torch.cuda.current_stream(sb.device).cuda_stream
-        rc = lib.pdmp3_l12_synth(
-            sb.data_ptr(), nch.data_ptr(), nch.element_size(), nch.stride(0),
-            active.data_ptr(), active.element_size(), active.stride(0),
-            state.v_blocks.data_ptr(), pcm.data_ptr(), image.data_ptr(), B,
-            S, int(bool(exact)), int(bool(float_pcm)), stream)
-    if rc != 0:
-        raise RuntimeError("l12_synth launch failed: "
-                           + lib.pdmp3_cuda_error_string(rc).decode())
-    counter = ("LAUNCHES" + ("_FLOAT" if float_pcm else "")
-               + ("_EXACT" if exact else ""))
-    globals()[counter] += 1
+    launch(_COUNTERS[bool(float_pcm)][bool(exact)], "pdmp3_l12_synth",
+           sb.device, sb.data_ptr(), nch.data_ptr(), nch.element_size(),
+           nch.stride(0), active.data_ptr(), active.element_size(),
+           active.stride(0), state.v_blocks.data_ptr(), pcm.data_ptr(),
+           image.data_ptr(), B, S, int(bool(exact)), int(bool(float_pcm)))
     return pcm, state
 
 

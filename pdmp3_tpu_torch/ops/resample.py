@@ -35,8 +35,7 @@ import math
 import numpy as np
 import torch
 
-# Launches of K8 since the last reset.
-LAUNCHES = 0
+from .launch import launch
 
 # the shared memory a block of K8 may take (an H100's 227 KB), the input
 # samples a channel of the window one of its units stages when a
@@ -143,7 +142,6 @@ def resample_block(carry, pcm, phase: int, up: int, down: int, H,
     taps-1, C], the last taps-1 samples of the carry and block).  CPU
     tensors take the plain version; CUDA tensors launch K8 (int16 or f32
     in and out)."""
-    global LAUNCHES
     B, N, C = pcm.shape
     taps = H.shape[1]
     if (tuple(carry.shape) != (B, taps - 1, C) or carry.dtype != torch.float32
@@ -185,27 +183,16 @@ def resample_block(carry, pcm, phase: int, up: int, down: int, H,
         raise ValueError(f"{up} x {taps} taps and a window of {C} channels "
                          f"at {up}/{down} need {geo['smem']} B of K8's "
                          "shared memory")
-    from . import _build
-
-    lib = _build.load()
     y = torch.empty((B, n_out, C), dtype=dtype, device=pcm.device)
     new_carry = torch.empty_like(carry)
     if B == 0:
         return y, new_carry
-    # launched on the operands' device (the C entry point uses the
-    # current one)
-    with torch.cuda.device(pcm.device):
-        stream = torch.cuda.current_stream(pcm.device).cuda_stream
-        rc = lib.pdmp3_resample(
-            carry.data_ptr(), pcm.data_ptr(), pcm.stride(0), f32[pcm.dtype],
-            H.data_ptr(), new_carry.data_ptr(), y.data_ptr(), f32[dtype], B,
-            N, C, taps, up, down, int(phase), n_out, geo["p_first"],
-            geo["p_end"], geo["p_chunk"], geo["chunks"], geo["hstride"],
-            geo["win"], int(geo["bulk"]), geo["smem"], stream)
-    if rc != 0:
-        raise RuntimeError("resample launch failed: "
-                           + lib.pdmp3_cuda_error_string(rc).decode())
-    LAUNCHES += 1
+    launch("resample", "pdmp3_resample", pcm.device, carry.data_ptr(),
+           pcm.data_ptr(), pcm.stride(0), f32[pcm.dtype], H.data_ptr(),
+           new_carry.data_ptr(), y.data_ptr(), f32[dtype], B, N, C, taps,
+           up, down, int(phase), n_out, geo["p_first"], geo["p_end"],
+           geo["p_chunk"], geo["chunks"], geo["hstride"], geo["win"],
+           int(geo["bulk"]), geo["smem"])
     return y, new_carry
 
 

@@ -30,15 +30,12 @@ generating the inputs once.
 """
 from __future__ import annotations
 
-import ctypes as C
 import time
 
 import torch
 
 from .consts import INV_SQRT2_F64
-
-# Launches of the sweep kernel since the last reset.
-LAUNCHES = 0
+from .launch import launch
 
 # the constructions in the order of the kernel's output rows
 # (csrc/rounding_sweep.cu)
@@ -98,21 +95,10 @@ def rounding_sweep_all(base: int, n: int, device) -> torch.Tensor:
     if device.type == "cpu":
         x = chunk_inputs(base, n, device)
         return torch.stack([PLAIN[c](x) for c in CONSTRUCTIONS])
-    global LAUNCHES
-    from . import _build
-
-    lib = _build.load()
     ld = row_stride(n)
     out = torch.empty((len(CONSTRUCTIONS), ld), dtype=_F32, device=device)
-    # launched on `device` (the C entry point uses the current one)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.pdmp3_rounding_sweep(base, out.data_ptr(), n, ld,
-                                      C.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError("rounding_sweep launch failed: "
-                           + lib.pdmp3_cuda_error_string(rc).decode())
-    LAUNCHES += 1
+    launch("rounding_sweep", "pdmp3_rounding_sweep", device, base,
+           out.data_ptr(), n, ld)
     return out[:, :n]
 
 

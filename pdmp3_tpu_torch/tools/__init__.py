@@ -124,41 +124,12 @@ def feasible_streams(cfgs, n: int, workers: int | None = None
     return streams
 
 
-def counters() -> dict:
-    """kernel name -> (module, attribute) of its wrapper's launch count,
-    which the wrapper bumps where it launches (on CUDA operands only)."""
-    from ..ops import back_half as BH
-    from ..ops import frame_step as FR
-    from ..ops import fused_step as FS
-    from ..ops import l12_requant as RQ
-    from ..ops import l12_synth as L12
-    from ..ops import resample as RS
-    from ..ops import rounding as R
-
-    return {"fused_granule": (FS, "LAUNCHES"),
-            "fused_granule_exact": (FS, "LAUNCHES_EXACT"),
-            "fused_granule_lsf": (FS, "LAUNCHES_LSF"),
-            "fused_granule_lsf_exact": (FS, "LAUNCHES_LSF_EXACT"),
-            "fused_granule_float": (FS, "LAUNCHES_FLOAT"),
-            "fused_granule_float_exact": (FS, "LAUNCHES_FLOAT_EXACT"),
-            "fused_granule_lsf_float": (FS, "LAUNCHES_LSF_FLOAT"),
-            "fused_granule_lsf_float_exact": (FS, "LAUNCHES_LSF_FLOAT_EXACT"),
-            "back_half": (BH, "LAUNCHES"),
-            "back_half_raw": (BH, "LAUNCHES_RAW"),
-            "rounding_sweep": (R, "LAUNCHES"),
-            "frame_fused": (FR, "LAUNCHES_FRAME"),
-            "frame_fused_lsf": (FR, "LAUNCHES_FRAME_LSF"),
-            "l12_synth": (L12, "LAUNCHES"),
-            "l12_synth_exact": (L12, "LAUNCHES_EXACT"),
-            "l12_synth_float": (L12, "LAUNCHES_FLOAT"),
-            "l12_synth_float_exact": (L12, "LAUNCHES_FLOAT_EXACT"),
-            "l12_requant": (RQ, "LAUNCHES"),
-            "resample": (RS, "LAUNCHES")}
-
-
 def launches() -> dict:
-    """Every kernel's launch count so far, by kernel."""
-    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+    """Every kernel's launch count so far (``ops.launch.LAUNCHES``), by
+    kernel, zeros included."""
+    from ..ops.launch import KERNELS, LAUNCHES
+
+    return {k: LAUNCHES[k] for k in KERNELS}
 
 
 def launched_since(before: dict) -> dict:

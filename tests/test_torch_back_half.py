@@ -25,7 +25,7 @@ from pdmp3_tpu.ops import dsp as JD
 from pdmp3_tpu.ops import pallas_step as PSF
 from pdmp3_tpu_torch.models.decoder import DecoderState
 from pdmp3_tpu_torch.ops import back_half as BH
-from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import launch as LA
 from test_pallas import _frames
 from test_torch_fused_step import (IDLE_SEAMS, RAGGED_B, STATE_RTOL,
                                    assert_pcm_contract, idle_slots,
@@ -159,9 +159,9 @@ def test_k4_matches_plain_version_on_cuda(exact):
     inputs = _inputs(exact)
     ak = _port(*inputs, exact, "cuda")
     ar = _port(*inputs, exact, "cuda")
-    n0 = BH.LAUNCHES
+    n0 = LA.LAUNCHES["back_half"]
     ok, pk = BH.back_half_step(*ak)
-    assert BH.LAUNCHES == n0 + 1
+    assert LA.LAUNCHES["back_half"] == n0 + 1
     orf, pr = BH.back_half_step_ref(*ar)
     for a, b in ((ok, orf), (pk, pr), (ak[1].store, ar[1].store),
                  (ak[1].v_blocks, ar[1].v_blocks)):
@@ -199,9 +199,9 @@ def _assert_k4_equals_plain(xa, st0, bt, active, exact, what):
     """K4 and its plain version from copies of st0: out, prev3, store and
     v_blocks bitwise; idle slots' output zero and state frozen."""
     sk, sr = _clone(st0), _clone(st0)
-    n0 = BH.LAUNCHES
+    n0 = LA.LAUNCHES["back_half"]
     ok, pk = BH.back_half_step(xa, sk, bt, active, exact)
-    assert BH.LAUNCHES == n0 + 1, what
+    assert LA.LAUNCHES["back_half"] == n0 + 1, what
     orf, pr = BH.back_half_step_ref(xa, sr, bt, active, exact)
     torch.cuda.synchronize()
     for name, a, b in (("out", ok, orf), ("prev3", pk, pr),
@@ -227,7 +227,7 @@ def test_k4_ragged_batches_and_idle_seams_on_cuda(n, pattern):
     the plain version, prev3 of idle slots included."""
     dev = _cuda()
     for exact in (True, False):
-        grid = FS.granule_launch_info(dev, exact, back_half=True)["grid"]
+        grid = LA.granule_launch_info(dev, exact, back_half=True)["grid"]
         Bn = ragged_batch(n, grid)
         xa, st0, bt, active = _tiled(Bn, dev)
         idle = (list(range(Bn)) if pattern == "all"
@@ -244,7 +244,7 @@ def test_k4_subnormal_spectra_and_state_on_cuda():
     to 1e-36), slot 3 idle: bitwise equal to the plain version in both
     modes (the card keeps subnormals: no flush to zero)."""
     dev = _cuda()
-    n = 2 * FS.granule_launch_info(dev, back_half=True)["grid"] + 3
+    n = 2 * LA.granule_launch_info(dev, back_half=True)["grid"] + 3
     xa, st0, bt, active = _tiled(n, dev, seed=6)
     active[3] = 0
     for t in (xa, st0.store, st0.v_blocks):
@@ -275,7 +275,7 @@ def test_k4_rejects_operands_off_16_byte_alignment_on_cuda(name):
     assert moved.data_ptr() % 16 == 4
     ops[name] = moved
     st = DecoderState(ops["store"], ops["v_blocks"], st.prev_lines)
-    n0 = BH.LAUNCHES
+    n0 = LA.LAUNCHES["back_half"]
     with pytest.raises(ValueError, match=name):
         BH.back_half_step(ops["xa"], st, ops["bt_eff"], active, True)
-    assert BH.LAUNCHES == n0
+    assert LA.LAUNCHES["back_half"] == n0

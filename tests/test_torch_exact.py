@@ -24,6 +24,7 @@ from pdmp3_tpu_torch.models.decoder import DecoderState, init_state
 from pdmp3_tpu_torch.ops import back_half as BH
 from pdmp3_tpu_torch.ops import dsp as TD
 from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import launch as LA
 from pdmp3_tpu_torch.ops import rounding as R
 from test_jax_decoder import _band12_zero_bits_stream
 from test_pallas import _frames
@@ -321,9 +322,9 @@ def test_k2_matches_plain_version_on_cuda():
             ops = [x.to(dev) if isinstance(x, torch.Tensor) else x
                    for x in wire_from_batch(batch)]
             ops[4][3] = 0
-            n0 = FS.LAUNCHES_EXACT
+            n0 = LA.LAUNCHES["fused_granule_exact"]
             pk, sk = FS.fused_granule_step(*ops, sk, exact=True)
-            assert FS.LAUNCHES_EXACT == n0 + 1
+            assert LA.LAUNCHES["fused_granule_exact"] == n0 + 1
             pr, sr = FS.fused_granule_step_ref(*ops, sr, exact=True)
             assert torch.equal(pk, pr)
             assert _states_equal(sk, sr)
@@ -338,9 +339,9 @@ def test_k6_chunks_match_plain_versions_on_cuda():
     128 the negative ones."""
     dev = _cuda()
     chunks = [0, 1, 127, 128, 129, 255]
-    n0 = R.LAUNCHES
+    n0 = LA.LAUNCHES["rounding_sweep"]
     res = R.sweep(24, dev, chunks=chunks)
-    assert R.LAUNCHES == n0 + len(chunks)
+    assert LA.LAUNCHES["rounding_sweep"] == n0 + len(chunks)
     assert res["mismatching_chunks"] == [] and res["chunks_swept"] == 6, res
 
 
@@ -354,9 +355,9 @@ def test_k6_ragged_and_top_chunks_on_cuda(chunk):
     dev = _cuda()
     base, n = SWEEP_CHUNKS[chunk]
     x = R.chunk_inputs(base, n, dev)
-    n0 = R.LAUNCHES
+    n0 = LA.LAUNCHES["rounding_sweep"]
     got = R.rounding_sweep_all(base, n, dev)
-    assert R.LAUNCHES == n0 + 1
+    assert LA.LAUNCHES["rounding_sweep"] == n0 + 1
     for k, name in enumerate(R.CONSTRUCTIONS):
         assert int(R.mismatches(got[k], R.PLAIN[name](x))) == 0, name
 

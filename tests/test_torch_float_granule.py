@@ -37,6 +37,7 @@ from pdmp3_tpu_torch.models.decoder import DecoderState
 from pdmp3_tpu_torch.ops import back_half as BH
 from pdmp3_tpu_torch.ops import dsp as D
 from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import launch as LA
 from pdmp3_tpu_torch.testing import mp3gen
 from test_torch_fused_step import (IDLE_SEAMS, RAGGED_B, idle_slots,
                                    ragged_batch, tiled_operands)
@@ -219,7 +220,7 @@ def test_exact_float_serving_matches_jax_decode_granules(family):
 def test_launch_instance_of_the_float_granule_steps(kw, instance):
     """K1, K2, K3 fast and K3 exact writing float PCM are the persistent
     instances 9-12 of pdmp3_granule_launch_info."""
-    assert FS.launch_instance(**kw) == instance
+    assert LA.launch_instance(**kw) == instance
 
 
 @pytest.mark.parametrize("kw", [dict(float_pcm=True, frame=True),
@@ -232,9 +233,9 @@ def test_float_instances_refuse_frames_and_the_back_half(kw):
     an unknown family) launch_instance and granule_launch_info raise
     ValueError before the kernel library is loaded."""
     with pytest.raises(ValueError):
-        FS.launch_instance(**kw)
+        LA.launch_instance(**kw)
     with pytest.raises(ValueError):
-        FS.granule_launch_info("cpu", **kw)
+        LA.granule_launch_info("cpu", **kw)
 
 
 # ---- on the card -----------------------------------------------------------
@@ -266,12 +267,12 @@ def _hostile_state(B, dev, seed):
 def _run_pair(ops, st0, family, exact, ip=None):
     """One float step on the card and its plain version from st0; the
     instance's counter checked."""
-    attr = ("LAUNCHES" + ("_LSF" if family else "") + "_FLOAT"
-            + ("_EXACT" if exact else ""))
-    n0 = getattr(FS, attr)
+    attr = ("fused_granule" + ("_lsf" if family else "") + "_float"
+            + ("_exact" if exact else ""))
+    n0 = LA.LAUNCHES[attr]
     pk, sk = FS.fused_granule_step(*ops, _clone(st0), exact=exact,
                                    family=family, is_pos=ip, float_pcm=True)
-    assert getattr(FS, attr) == n0 + 1
+    assert LA.LAUNCHES[attr] == n0 + 1
     pr, sr = FS.fused_granule_step_ref(*ops, _clone(st0), exact=exact,
                                        family=family, is_pos=ip,
                                        float_pcm=True)
@@ -303,7 +304,7 @@ def test_float_instances_ragged_batches_and_idle_seams_on_cuda(
     dev = _cuda()
     for family in (0, 1, 2):
         for exact in (False, True):
-            grid = FS.granule_launch_info(dev, exact, family,
+            grid = LA.granule_launch_info(dev, exact, family,
                                           float_pcm=True)["grid"]
             B = ragged_batch(n, grid)
             idle = idle_slots(pattern, B, grid)
@@ -343,7 +344,7 @@ def test_float_instances_ragged_batches_and_idle_seams_on_cuda(
 def test_float_instances_launch_geometry_on_cuda(exact, family):
     """Each float instance fits two blocks per SM in at most 56 registers
     with no local memory (spills)."""
-    info = FS.granule_launch_info(_cuda(), exact, family, float_pcm=True)
+    info = LA.granule_launch_info(_cuda(), exact, family, float_pcm=True)
     assert info["registers"] <= 56 and info["local_bytes"] == 0, info
     assert info["blocks_per_sm"] == 2, info
     assert info["grid"] == 2 * info["sm_count"], info
@@ -355,7 +356,7 @@ def test_float_pool_step_launches_the_float_instances_on_cuda(exact):
     """A float pool step (StreamDecoder(float_pcm=True), then the LSF
     route decode_frame_packed_lsf(float_pcm=True)) launches instances
     9 / 10 (twice a frame) or 11 / 12 (once) and no K4
-    (back_half.LAUNCHES and LAUNCHES_RAW unchanged); its PCM is bitwise
+    (K4's counts back_half and back_half_raw unchanged); its PCM is bitwise
     decode_granules(float_pcm=True)'s (stage ops + K4) on the same wire,
     from the same state."""
     dev = _cuda()
@@ -368,12 +369,12 @@ def test_float_pool_step_launches_the_float_instances_on_cuda(exact):
     for _ in range(3):
         assert dec.parse_step()
         wire = torch.from_numpy(dec.wire.copy()).to(dev)
-        k4 = (BH.LAUNCHES, BH.LAUNCHES_RAW)
-        attr = "LAUNCHES_FLOAT" + ("_EXACT" if exact else "")
-        n0 = getattr(FS, attr)
+        k4 = (LA.LAUNCHES["back_half"], LA.LAUNCHES["back_half_raw"])
+        attr = "fused_granule_float" + ("_exact" if exact else "")
+        n0 = LA.LAUNCHES[attr]
         pcm = dec.decode_step(fetch=False)
-        assert getattr(FS, attr) == n0 + 2
-        assert (BH.LAUNCHES, BH.LAUNCHES_RAW) == k4
+        assert LA.LAUNCHES[attr] == n0 + 2
+        assert (LA.LAUNCHES["back_half"], LA.LAUNCHES["back_half_raw"]) == k4
         w = TM.wire_sections(wire, B)
         want = []
         for g in range(2):
@@ -393,14 +394,14 @@ def test_float_pool_step_launches_the_float_instances_on_cuda(exact):
             assert dec.feed(s, data) == 0
         assert dec.parse_step()
         wire = torch.from_numpy(dec.wire.copy()).to(dev)
-        k4 = (BH.LAUNCHES, BH.LAUNCHES_RAW)
-        attr = "LAUNCHES_LSF_FLOAT" + ("_EXACT" if exact else "")
-        n0 = getattr(FS, attr)
+        k4 = (LA.LAUNCHES["back_half"], LA.LAUNCHES["back_half_raw"])
+        attr = "fused_granule_lsf_float" + ("_exact" if exact else "")
+        n0 = LA.LAUNCHES[attr]
         pf, _ = TM.decode_frame_packed_lsf(wire, TM.init_state(B, dev), B,
                                            family, exact=exact,
                                            float_pcm=True)
-        assert getattr(FS, attr) == n0 + 1
-        assert (BH.LAUNCHES, BH.LAUNCHES_RAW) == k4
+        assert LA.LAUNCHES[attr] == n0 + 1
+        assert (LA.LAUNCHES["back_half"], LA.LAUNCHES["back_half_raw"]) == k4
         w = TM.wire_sections_lsf(wire, B)
         want, _ = TM.decode_granules(TM.GranuleBatch(
             ix=w["ix"][0], scf_l=w["scf_l"][0], scf_s=w["scf_s"][0],

@@ -32,7 +32,7 @@ from pdmp3_tpu_torch.models import decoder as TM
 from pdmp3_tpu_torch.models.decoder import DecoderState
 from pdmp3_tpu_torch.ops import back_half as BH
 from pdmp3_tpu_torch.ops import dsp as D
-from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import launch as LA
 from test_torch_back_half import _inputs, _port, _tiled
 from test_torch_fused_step import IDLE_SEAMS, idle_slots, ragged_batch
 from test_torch_lsf import (N_FRAMES, _pool_streams,  # noqa: F401
@@ -362,13 +362,18 @@ def test_decode_granules_family_mismatch_raises(family, family_frames):
                            float_pcm=True, family=family)
 
 
+def _k4():
+    """K4's launch counts: (back_half, back_half_raw)."""
+    return LA.LAUNCHES["back_half"], LA.LAUNCHES["back_half_raw"]
+
+
 def test_launch_instance_of_the_raw_sums():
     """K4 fast raw sums is persistent instance 8; exact K4 returns raw
     sums anyway (7); raw without the back half raises."""
-    assert FS.launch_instance(back_half=True, raw=True) == 8
-    assert FS.launch_instance(back_half=True, exact=True, raw=True) == 7
+    assert LA.launch_instance(back_half=True, raw=True) == 8
+    assert LA.launch_instance(back_half=True, exact=True, raw=True) == 7
     with pytest.raises(ValueError):
-        FS.launch_instance(raw=True)
+        LA.launch_instance(raw=True)
 
 
 @pytest.mark.cuda
@@ -382,7 +387,7 @@ def test_k4_raw_fast_instance_matches_plain_on_cuda(n, pattern):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    grid = FS.granule_launch_info(dev, back_half=True, raw=True)["grid"]
+    grid = LA.granule_launch_info(dev, back_half=True, raw=True)["grid"]
     Bn = ragged_batch(n, grid)
     xa, st0, bt, active = _tiled(Bn, dev)
     active[idle_slots(pattern, Bn, grid)] = 0
@@ -390,9 +395,9 @@ def test_k4_raw_fast_instance_matches_plain_on_cuda(n, pattern):
                                              st0.prev_lines)))
     sr = DecoderState(*(t.clone() for t in (st0.store, st0.v_blocks,
                                              st0.prev_lines)))
-    n0, r0 = BH.LAUNCHES, BH.LAUNCHES_RAW
+    n0, r0 = _k4()
     ok, pk = BH.back_half_step(xa, sk, bt, active, False, raw=True)
-    assert (BH.LAUNCHES, BH.LAUNCHES_RAW) == (n0, r0 + 1)
+    assert _k4() == (n0, r0 + 1)
     orf, pr = BH.back_half_step_ref(xa, sr, bt, active, False, raw=True)
     torch.cuda.synchronize()
     for a, b in ((ok, orf), (pk, pr), (sk.store, sr.store),
@@ -424,7 +429,7 @@ def test_k4_raw_sums_on_lsf_spectra_match_plain_on_cuda(family, exact,
                        b.is_pos)
     f = D.fields(b.meta)
     bt0 = D.effective_block_types(f.win_switch, f.block_type, f.mixed)
-    grid = FS.granule_launch_info(dev, exact, back_half=True,
+    grid = LA.granule_launch_info(dev, exact, back_half=True,
                                   raw=True)["grid"]
     n = ragged_batch("2grid+3", grid)
     idx = torch.arange(n, device=dev) % n0
@@ -436,10 +441,9 @@ def test_k4_raw_sums_on_lsf_spectra_match_plain_on_cuda(family, exact,
            .to(dev) for s in ((n, 2, 32, 18), (n, 2, 15, 64), (n, 3))]
     sk = DecoderState(*(t.clone() for t in st0))
     sr = DecoderState(*(t.clone() for t in st0))
-    before = (BH.LAUNCHES, BH.LAUNCHES_RAW)
+    before = _k4()
     ok, pk = BH.back_half_step(xa, sk, bt, active, exact, raw=True)
-    assert (BH.LAUNCHES, BH.LAUNCHES_RAW) == (before[0] + exact,
-                                              before[1] + (not exact))
+    assert _k4() == (before[0] + exact, before[1] + (not exact))
     orf, pr = BH.back_half_step_ref(xa, sr, bt, active, exact, raw=True)
     torch.cuda.synchronize()
     for a, r in ((ok, orf), (pk, pr), (sk.store, sr.store),

@@ -26,6 +26,7 @@ from pdmp3_tpu_torch.models.decoder import (DecoderState, GranuleBatch,
                                             state_from_pallas)
 from pdmp3_tpu_torch.ops import frame_step as FR
 from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import launch as LA
 from test_frame_fused import _granule_batches
 from test_torch_fused_step import (assert_pcm_contract, assert_state_close,
                                    wire_from_batch)
@@ -167,7 +168,7 @@ def test_decode_frame_soa_routes(steps, monkeypatch, ff):
     B = steps[0][0].ix.shape[0]
     st, sg = TM.init_state(B, "cpu"), TM.init_state(B, "cpu")
     pst = PSF.init_pallas_state(B)
-    n0 = FR.LAUNCHES_FRAME
+    n0 = LA.LAUNCHES["frame_fused"]
     for t, frame in enumerate(steps):
         ops, parities, _ = _stack(frame)
         ix, scf_l, scf_s, meta, active = ops
@@ -186,7 +187,8 @@ def test_decode_frame_soa_routes(steps, monkeypatch, ff):
         px, sx = FS.fused_granule_step(*(o[g] for o in ops), g, sx,
                                        exact=True)
         assert torch.equal(pe[:, 576 * g:576 * (g + 1)], px)
-    assert FR.LAUNCHES_FRAME == n0   # CPU tensors never launch a kernel
+    # CPU tensors never launch a kernel
+    assert LA.LAUNCHES["frame_fused"] == n0
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -285,10 +287,10 @@ def test_k5_matches_plain_version_on_cuda(steps, family_frames):  # noqa
         sk = DecoderState(*(t.cuda() for t in (s0.store, s0.v_blocks,
                                                 s0.prev_lines)))
         sr = _clone(sk)
-        counter = "LAUNCHES_FRAME_LSF" if family else "LAUNCHES_FRAME"
-        n0 = getattr(FR, counter)
+        counter = "frame_fused_lsf" if family else "frame_fused"
+        n0 = LA.LAUNCHES[counter]
         pk, sk = FR.frame_step(*cops, par, sk, family=family, is_pos=ip)
-        assert getattr(FR, counter) == n0 + 1
+        assert LA.LAUNCHES[counter] == n0 + 1
         pr, sr = FR.frame_step_ref(*cops, par, sr, family=family,
                                    is_pos=ip)
         torch.cuda.synchronize()

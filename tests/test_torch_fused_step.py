@@ -28,6 +28,7 @@ from pdmp3_tpu.ops import pallas_step as PSF
 from pdmp3_tpu_torch.models.decoder import DecoderState, init_state
 from pdmp3_tpu_torch.ops import dsp as D
 from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import launch as LA
 from test_jax_decoder import _band12_zero_bits_stream
 from test_pallas import _frames
 
@@ -198,9 +199,9 @@ def test_kernel_matches_plain_version_on_cuda():
             ops = [x.cuda() if isinstance(x, torch.Tensor) else x
                    for x in wire_from_batch(batch)]
             ops[4] = act.cuda()
-            n0 = FS.LAUNCHES
+            n0 = LA.LAUNCHES["fused_granule"]
             pk, sk = FS.fused_granule_step(*ops, sk)
-            assert FS.LAUNCHES == n0 + 1
+            assert LA.LAUNCHES["fused_granule"] == n0 + 1
             pr, sr = FS.fused_granule_step_ref(*ops, sr)
             assert_pcm_contract(pk.cpu().numpy(), pr.cpu().numpy())
             assert torch.equal(pk, pr)
@@ -258,18 +259,18 @@ def test_granule_smem_image_reindexes_tables(name):
                                   np.ascontiguousarray(want).view(np.uint32))
 
 
-@pytest.mark.parametrize("name", sorted(FS.BULK_ALIGN))
+@pytest.mark.parametrize("name", sorted(LA.BULK_ALIGN))
 def test_bulk_alignment_check_raises_on_misaligned_operand(name):
     """The persistent kernels (K1-K3, K5) bulk-copy ix, meta, store,
     v_blocks and PCM (16-byte aligned) and copy scf_l, scf_s, prev_lines,
     active and the LSF is_pos sidecar by 4-byte words: an operand that
     starts off that alignment raises ValueError, aligned ones pass."""
-    align = FS.BULK_ALIGN[name]
+    align = LA.BULK_ALIGN[name]
     base = torch.zeros(4096, dtype=torch.int16)
     assert base.data_ptr() % 64 == 0
-    FS.check_bulk_alignment(**{name: base[align // 2:]})   # align bytes
+    LA.check_bulk_alignment(**{name: base[align // 2:]})   # align bytes
     with pytest.raises(ValueError, match=name):         # align / 2 bytes
-        FS.check_bulk_alignment(**{name: base[align // 4:]})
+        LA.check_bulk_alignment(**{name: base[align // 4:]})
 
 
 @pytest.mark.parametrize("stage", ["front", "antialias", "imdct", "matrix",
@@ -402,20 +403,20 @@ def check_ragged_seams(n: str, pattern: str, exact: bool) -> None:
     the ragged B `n` with the idle `pattern`: PCM, store, v_blocks and
     prev_lines bitwise; idle slots silent and frozen; launches counted."""
     dev = torch.device("cuda")
-    grid = FS.granule_launch_info(dev, exact)["grid"]
+    grid = LA.granule_launch_info(dev, exact)["grid"]
     B = ragged_batch(n, grid)
     grans, st0 = tiled_operands(B, dev)
     idle = idle_slots(pattern, B, grid)
     names = ("store", "v_blocks", "prev_lines")
     sk, sr = (DecoderState(*(getattr(st0, k).clone() for k in names))
               for _ in range(2))
-    attr = "LAUNCHES_EXACT" if exact else "LAUNCHES"
+    attr = "fused_granule_exact" if exact else "fused_granule"
     for ix, scf_l, scf_s, meta, act, gr1 in grans:
         act[idle] = 0
-        n0 = getattr(FS, attr)
+        n0 = LA.LAUNCHES[attr]
         pk, sk = FS.fused_granule_step(ix, scf_l, scf_s, meta, act, gr1, sk,
                                        exact=exact)
-        assert getattr(FS, attr) == n0 + 1
+        assert LA.LAUNCHES[attr] == n0 + 1
         pr, sr = FS.fused_granule_step_ref(ix, scf_l, scf_s, meta, act, gr1,
                                            sr, exact=exact)
         assert torch.equal(pk, pr), (n, pattern, gr1)
@@ -466,13 +467,13 @@ def test_sharded_on_one_card_on_cuda(exact):
     mesh = make_mesh([dev, dev])
     grans, st = tiled_operands(2 * 37, dev)
     shards = place_state(_clone(st), mesh)
-    attr = "LAUNCHES_EXACT" if exact else "LAUNCHES"
+    attr = "fused_granule_exact" if exact else "fused_granule"
     for ix, scf_l, scf_s, meta, act, gr1 in grans:
         batch = GranuleBatch(ix, scf_l, scf_s, meta, act, gr1)
-        n0 = getattr(FS, attr)
+        n0 = LA.LAUNCHES[attr]
         pcms, shards, clipped = decode_granules_sharded(
             place_batch(batch, mesh), shards, mesh, exact=exact)
-        assert getattr(FS, attr) == n0 + 2
+        assert LA.LAUNCHES[attr] == n0 + 2
         pk, st = FS.fused_granule_step(ix, scf_l, scf_s, meta, act, gr1, st,
                                        exact=exact)
         assert torch.equal(torch.cat(pcms), pk) and pk.any()
@@ -495,9 +496,9 @@ def test_k1_on_a_device_that_is_not_current_on_cuda():
         grans, sk = tiled_operands(300, dev)
         sr = _clone(sk)
         for ops in grans:
-            n0 = FS.LAUNCHES
+            n0 = LA.LAUNCHES["fused_granule"]
             pk, sk = FS.fused_granule_step(*ops, sk)
-            assert FS.LAUNCHES == n0 + 1 and pk.device == dev
+            assert LA.LAUNCHES["fused_granule"] == n0 + 1 and pk.device == dev
             pr, sr = FS.fused_granule_step_ref(*ops, sr)
             assert torch.equal(pk, pr) and pk.any()
             for name in ("store", "v_blocks", "prev_lines"):

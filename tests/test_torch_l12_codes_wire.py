@@ -37,7 +37,7 @@ from pdmp3_tpu_torch.host import (PROFILE_CRC, PROFILE_FREE_FORMAT,
                                   PROFILE_L12, PROFILE_LSF, NativePDMP3, lib)
 from pdmp3_tpu_torch.models import l12 as L
 from pdmp3_tpu_torch.ops import l12_requant as RQ
-from pdmp3_tpu_torch.ops import l12_synth as K7
+from pdmp3_tpu_torch.ops import launch as LA
 from pdmp3_tpu_torch.testing import mp3gen
 from pdmp3_tpu_torch.testing.l12wire import coded_wire
 
@@ -313,18 +313,19 @@ def test_k9_matches_its_plain_version_at_pool_size():
         w = L.l12_sections(buf, B, layer, F)
         want = RQ.l12_requant_ref(w["body"], w["side"], w["geom"], layer)
         dw = L.l12_sections(buf.to(dev), B, layer, F)
-        n0 = RQ.LAUNCHES
+        n0 = LA.LAUNCHES["l12_requant"]
         got = RQ.l12_requant(dw["body"], dw["side"], dw["geom"], layer)
         torch.cuda.synchronize()
-        assert RQ.LAUNCHES == n0 + 1
+        assert LA.LAUNCHES["l12_requant"] == n0 + 1
         assert torch.equal(got.cpu().view(torch.int32),
                            want.view(torch.int32)), layer
     dec = L12StreamDecoder(8, layer=2, frames_per_step=2, device=dev)
     feeder = LoopFeeder(dec, [_stream(2, 95 + s, n=5, sfreq=1,
                                       bitrate_index=12) for s in range(8)])
     for _ in range(3):
-        n0, k0 = RQ.LAUNCHES, K7.LAUNCHES
+        n0, k0 = LA.LAUNCHES["l12_requant"], LA.LAUNCHES["l12_synth"]
         feeder.step()
         assert dec.parse_step() == 16
         dec.decode_step()
-        assert (RQ.LAUNCHES, K7.LAUNCHES) == (n0 + 1, k0 + 2)
+        assert (LA.LAUNCHES["l12_requant"],
+                LA.LAUNCHES["l12_synth"]) == (n0 + 1, k0 + 2)

@@ -44,9 +44,9 @@ from pdmp3_tpu_torch.models import l12 as L
 from pdmp3_tpu_torch.ops import _build
 from pdmp3_tpu_torch.ops import consts as CC
 from pdmp3_tpu_torch.ops import dsp as D
-from pdmp3_tpu_torch.ops import fused_step as FS
 from pdmp3_tpu_torch.ops import l12_requant as RQ
 from pdmp3_tpu_torch.ops import l12_synth as K7
+from pdmp3_tpu_torch.ops import launch as LA
 from pdmp3_tpu_torch.testing.l12wire import coded_wire
 from test_torch_fused_step import (IDLE_SEAMS, RAGGED_B, idle_slots,
                                    ragged_batch)
@@ -231,17 +231,15 @@ def test_cpu_path_never_loads_the_library(monkeypatch):
     def refuse():
         raise AssertionError("the CPU path loaded the kernel library")
     monkeypatch.setattr(_build, "load", refuse)
-    before = [getattr(K7, k) for k in ("LAUNCHES", "LAUNCHES_EXACT",
-                                       "LAUNCHES_FLOAT",
-                                       "LAUNCHES_FLOAT_EXACT")]
+    k7 = ("l12_synth", "l12_synth_exact", "l12_synth_float",
+          "l12_synth_float_exact")
+    before = [LA.LAUNCHES[k] for k in k7]
     for float_pcm in (False, True):
         for layer in (1, 2):
             sb, nch, act, v = _operands(LAYERS[layer], 2, 1)
             pcm, _ = _port(sb, nch, act, v, True, float_pcm)
             assert pcm.shape == (2, LAYERS[layer] * 32, 2)
-    assert before == [getattr(K7, k) for k in (
-        "LAUNCHES", "LAUNCHES_EXACT", "LAUNCHES_FLOAT",
-        "LAUNCHES_FLOAT_EXACT")]
+    assert before == [LA.LAUNCHES[k] for k in k7]
 
 
 def test_refusals_and_instances():
@@ -258,16 +256,16 @@ def test_refusals_and_instances():
     with pytest.raises(ValueError):
         K7.l12_synth_step(sb.transpose(0, 1).contiguous().transpose(0, 1),
                           nch, act, st)
-    got = {(layer, exact, f): FS.launch_instance(exact, float_pcm=f,
+    got = {(layer, exact, f): LA.launch_instance(exact, float_pcm=f,
                                                  layer=layer)
            for layer in (1, 2) for f in (False, True)
            for exact in (False, True)}
     assert sorted(got.values()) == list(range(13, 21))
     assert got[(1, False, False)] == 13 and got[(2, True, True)] == 20
     with pytest.raises(ValueError):
-        FS.launch_instance(family=1, layer=2)
+        LA.launch_instance(family=1, layer=2)
     with pytest.raises(ValueError):
-        FS.launch_instance(layer=4)
+        LA.launch_instance(layer=4)
 
 
 def _image():
@@ -419,18 +417,18 @@ def _cuda():
 
 
 def _counter(exact, float_pcm):
-    return ("LAUNCHES" + ("_FLOAT" if float_pcm else "")
-            + ("_EXACT" if exact else ""))
+    return ("l12_synth" + ("_float" if float_pcm else "")
+            + ("_exact" if exact else ""))
 
 
 def _pair(sb, nch, act, v0, exact, float_pcm):
     """K7 and the plain version on the same CUDA operands from v0; the
     instance's counter checked."""
     name = _counter(exact, float_pcm)
-    n0 = getattr(K7, name)
+    n0 = LA.LAUNCHES[name]
     sk = L.L12State(v_blocks=v0.clone())
     pk, sk = K7.l12_synth_step(sb, nch, act, sk, exact, float_pcm)
-    assert getattr(K7, name) == n0 + 1
+    assert LA.LAUNCHES[name] == n0 + 1
     sr = L.L12State(v_blocks=v0.clone())
     pr, sr = K7.l12_synth_step_ref(sb, nch, act, sr, exact, float_pcm)
     torch.cuda.synchronize()
@@ -454,7 +452,7 @@ def test_k7_ragged_batches_and_idle_seams_on_cuda(n, pattern):
     for layer, S in LAYERS.items():
         for exact in (False, True):
             for float_pcm in (False, True):
-                grid = FS.granule_launch_info(dev, exact, layer=layer,
+                grid = LA.granule_launch_info(dev, exact, layer=layer,
                                               float_pcm=float_pcm)["grid"]
                 B = ragged_batch(n, grid)
                 idle = idle_slots(pattern, B, grid)
@@ -517,12 +515,12 @@ def test_k7_decodes_the_wire_in_place_on_cuda(layer):
                            for b in range(f, B, 7)])
     v = _operands(S, B, 0)[3]
     for exact in (False, True):
-        n0 = getattr(K7, _counter(exact, False))
-        r0 = RQ.LAUNCHES
+        n0 = LA.LAUNCHES[_counter(exact, False)]
+        r0 = LA.LAUNCHES["l12_requant"]
         st = L.L12State(v_blocks=torch.from_numpy(v).to(dev))
         pcm, st = L.decode_l12_wire(buf.to(dev), st, B, layer, F, exact)
-        assert getattr(K7, _counter(exact, False)) == n0 + F
-        assert RQ.LAUNCHES == r0 + 1
+        assert LA.LAUNCHES[_counter(exact, False)] == n0 + F
+        assert LA.LAUNCHES["l12_requant"] == r0 + 1
         ref = L.L12State(v_blocks=torch.from_numpy(v.copy()))
         want, ref = L.decode_l12_wire(buf, ref, B, layer, F, exact)
         assert torch.equal(pcm.cpu(), want)
@@ -540,7 +538,7 @@ def test_k7_refuses_misaligned_operands_on_cuda():
     bad_sb = flat[1:].view(sb.shape)
     vflat = torch.zeros(v.numel() + 1, device=dev)
     bad_v = L.L12State(v_blocks=vflat[1:].view(v.shape))
-    n0 = K7.LAUNCHES
+    n0 = LA.LAUNCHES["l12_synth"]
     with pytest.raises(ValueError):
         K7.l12_synth_step(bad_sb, nch, act, L.L12State(v_blocks=v.clone()),
                           exact=False)
@@ -549,7 +547,7 @@ def test_k7_refuses_misaligned_operands_on_cuda():
     with pytest.raises(ValueError):
         K7.l12_synth_step(sb, nch.to(torch.int64), act,
                           L.L12State(v_blocks=v.clone()), exact=False)
-    assert K7.LAUNCHES == n0
+    assert LA.LAUNCHES["l12_synth"] == n0
 
 
 @pytest.mark.cuda
@@ -564,7 +562,7 @@ def test_k7_launch_geometry_on_cuda():
     for layer in (1, 2):
         for float_pcm in (False, True):
             for exact in (False, True):
-                info = FS.granule_launch_info(dev, exact, layer=layer,
+                info = LA.granule_launch_info(dev, exact, layer=layer,
                                               float_pcm=float_pcm)
                 assert info["dynamic_smem_bytes"] == smem[(layer,
                                                            float_pcm)]

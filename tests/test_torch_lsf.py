@@ -42,6 +42,7 @@ from pdmp3_tpu_torch.ops import back_half as BH
 from pdmp3_tpu_torch.ops import consts as K
 from pdmp3_tpu_torch.ops import dsp as TD
 from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import launch as LA
 from test_lsf import JAX_MATRIX, _JAX_IDS
 from test_torch_consts import _onehot_matrix
 from test_torch_fused_step import (STATE_RTOL, assert_pcm_contract,
@@ -473,7 +474,8 @@ def test_k3_matches_plain_version_on_cuda(family, family_frames):
     for exact in (False, True):
         sk = DecoderState(*(torch.from_numpy(a.copy()).cuda() for a in st0))
         sr = DecoderState(*(torch.from_numpy(a.copy()).cuda() for a in st0))
-        n0 = FS.LAUNCHES_LSF_EXACT if exact else FS.LAUNCHES_LSF
+        kernel = "fused_granule_lsf_exact" if exact else "fused_granule_lsf"
+        n0 = LA.LAUNCHES[kernel]
         for t in range(N_FRAMES):
             batch = JM.frame_to_batches([fds[t] for fds in streams])[0]
             ops = [x.cuda() if isinstance(x, torch.Tensor) else x
@@ -490,5 +492,5 @@ def test_k3_matches_plain_version_on_cuda(family, family_frames):
                 assert torch.equal(getattr(sk, name).view(torch.int32),
                                    getattr(sr, name).view(torch.int32)), \
                     (exact, t, name)
-        n1 = FS.LAUNCHES_LSF_EXACT if exact else FS.LAUNCHES_LSF
+        n1 = LA.LAUNCHES[kernel]
         assert n1 - n0 == N_FRAMES

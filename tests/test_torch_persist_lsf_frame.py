@@ -23,6 +23,7 @@ from pdmp3_tpu_torch.models import decoder as TM
 from pdmp3_tpu_torch.models.decoder import DecoderState
 from pdmp3_tpu_torch.ops import frame_step as FR
 from pdmp3_tpu_torch.ops import fused_step as FS
+from pdmp3_tpu_torch.ops import launch as LA
 from test_torch_fused_step import (IDLE_SEAMS, RAGGED_B, idle_slots,
                                    ragged_batch, tiled_operands)
 from test_torch_lsf import family_frames  # noqa: F401
@@ -48,7 +49,7 @@ def test_packed_lsf_wire_sections_pass_the_alignment_check(B, F):
     assert w["is_pos"].data_ptr() - buf.data_ptr() == F * B * 2612
     assert (w["is_pos"].data_ptr() % 16 == 0) == (F * B % 4 == 0)
     for f in range(F):
-        FS.check_bulk_alignment(ix=w["ix"][f], scf_l=w["scf_l"][f],
+        LA.check_bulk_alignment(ix=w["ix"][f], scf_l=w["scf_l"][f],
                                 scf_s=w["scf_s"][f], is_pos=w["is_pos"][f])
 
 
@@ -60,7 +61,7 @@ def test_packed_lsf_wire_sections_pass_the_alignment_check(B, F):
 def test_launch_instance_names_every_persistent_kernel(kw, instance):
     """K1, K2, K3 fast / exact, K5 MPEG-1 / LSF and K4 fast / exact are
     the instances 0-7 of pdmp3_granule_launch_info."""
-    assert FS.launch_instance(**kw) == instance
+    assert LA.launch_instance(**kw) == instance
 
 
 @pytest.mark.parametrize("kw", [dict(family=3), dict(family=-1),
@@ -73,9 +74,9 @@ def test_granule_launch_info_rejects_other_arguments(kw):
     K4 with a frame or a family (it takes post-antialias spectra) raises
     ValueError before the kernel library is loaded."""
     with pytest.raises(ValueError):
-        FS.launch_instance(**kw)
+        LA.launch_instance(**kw)
     with pytest.raises(ValueError):
-        FS.granule_launch_info("cpu", **kw)
+        LA.granule_launch_info("cpu", **kw)
 
 
 # ---- on the card -----------------------------------------------------------
@@ -140,20 +141,20 @@ def test_k3_ragged_batches_and_idle_seams_on_cuda(n, pattern,
     dev = _cuda()
     for family in FAMILIES:
         for exact in (False, True):
-            grid = FS.granule_launch_info(dev, exact, family)["grid"]
+            grid = LA.granule_launch_info(dev, exact, family)["grid"]
             B = ragged_batch(n, grid)
             idle = idle_slots(pattern, B, grid)
             st0 = _random_state(B, dev, family)
             sk, sr = _clone(st0), _clone(st0)
-            attr = "LAUNCHES_LSF_EXACT" if exact else "LAUNCHES_LSF"
+            attr = "fused_granule_lsf_exact" if exact else "fused_granule_lsf"
             for t, (ix, scf_l, scf_s, meta, act, ip) in enumerate(
                     tiled_lsf(family_frames[family], family, B, dev)):
                 act[idle] = 0
-                n0 = getattr(FS, attr)
+                n0 = LA.LAUNCHES[attr]
                 pk, sk = FS.fused_granule_step(ix, scf_l, scf_s, meta, act,
                                                0, sk, exact=exact,
                                                family=family, is_pos=ip)
-                assert getattr(FS, attr) == n0 + 1
+                assert LA.LAUNCHES[attr] == n0 + 1
                 pr, sr = FS.fused_granule_step_ref(ix, scf_l, scf_s, meta,
                                                    act, 0, sr, exact=exact,
                                                    family=family, is_pos=ip)
@@ -175,11 +176,11 @@ def frame_case(family_frames, family, B, dev):
 
 
 def _run_frame(ops, parities, st0, family, ip):
-    counter = "LAUNCHES_FRAME_LSF" if family else "LAUNCHES_FRAME"
-    n0 = getattr(FR, counter)
+    counter = "frame_fused_lsf" if family else "frame_fused"
+    n0 = LA.LAUNCHES[counter]
     pk, sk = FR.frame_step(*ops, parities, _clone(st0), family=family,
                            is_pos=ip)
-    assert getattr(FR, counter) == n0 + 1
+    assert LA.LAUNCHES[counter] == n0 + 1
     pr, sr = FR.frame_step_ref(*ops, parities, _clone(st0), family=family,
                                is_pos=ip)
     return pk, sk, pr, sr
@@ -195,7 +196,7 @@ def test_k5_ragged_batches_and_idle_seams_on_cuda(n, pattern,
     plain chain."""
     dev = _cuda()
     for family in (0, 1):
-        grid = FS.granule_launch_info(dev, family=family,
+        grid = LA.granule_launch_info(dev, family=family,
                                       frame=True)["grid"]
         B = ragged_batch(n, grid)
         idle = idle_slots(pattern, B, grid)
@@ -217,7 +218,7 @@ def test_k5_slots_idle_in_one_granule_on_cuda(ng):
     throughout; bitwise equal to the plain chain, the carry latched and
     read around the idle granules as the chain does."""
     dev = _cuda()
-    grid = FS.granule_launch_info(dev, frame=True)["grid"]
+    grid = LA.granule_launch_info(dev, frame=True)["grid"]
     B = grid + 5
     frames = [tiled_operands(B, dev, seed)[0] for seed in (0, 1)]
     grans = frames[0] + frames[1]
@@ -251,7 +252,7 @@ def test_k3_k5_read_is_pos_off_16_byte_alignment_on_cuda(family,
     and K5 on the wire's own sections equal their plain versions
     bitwise."""
     dev = _cuda()
-    grid = FS.granule_launch_info(dev, family=family)["grid"]
+    grid = LA.granule_launch_info(dev, family=family)["grid"]
     B = grid + 1 if (grid + 1) % 4 else grid + 2
     F = 2
     w_cpu = torch.zeros(TM.soa_layout_lsf(B, F)["total"], dtype=torch.int16)
@@ -269,11 +270,11 @@ def test_k3_k5_read_is_pos_off_16_byte_alignment_on_cuda(family,
     st0 = _random_state(B, dev, 20 + family)
     for exact in (False, True):
         sk, sr = _clone(st0), _clone(st0)
-        attr = "LAUNCHES_LSF_EXACT" if exact else "LAUNCHES_LSF"
-        n0 = getattr(FS, attr)
+        attr = "fused_granule_lsf_exact" if exact else "fused_granule_lsf"
+        n0 = LA.LAUNCHES[attr]
         pk, sk = TM.decode_frame_packed_lsf(wire, sk, B, family, F,
                                             exact=exact)
-        assert getattr(FS, attr) == n0 + F
+        assert LA.LAUNCHES[attr] == n0 + F
         prs = []
         for f in range(F):
             p, sr = FS.fused_granule_step_ref(

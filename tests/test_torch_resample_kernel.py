@@ -33,6 +33,7 @@ import torch
 
 from pdmp3_tpu.ops import resample as JR
 from pdmp3_tpu_torch.ops import _build
+from pdmp3_tpu_torch.ops import launch as LA
 from pdmp3_tpu_torch.ops import resample as RS
 from pdmp3_tpu_torch.ops.resample import StreamResampler
 
@@ -279,11 +280,11 @@ def test_cpu_path_never_loads_the_library(monkeypatch):
     def refuse():
         raise AssertionError("the CPU path loaded the kernel library")
     monkeypatch.setattr(_build, "load", refuse)
-    n0 = RS.LAUNCHES
+    n0 = LA.LAUNCHES["resample"]
     rs = StreamResampler(44100, 48000, 2, 2, device="cpu")
     for x in _blocks(5, 2, 2):
         rs(torch.from_numpy(x))
-    assert RS.LAUNCHES == n0
+    assert LA.LAUNCHES["resample"] == n0
 
 
 # ---- on the card -----------------------------------------------------------
@@ -318,9 +319,9 @@ def test_k8_matches_plain_version_on_cuda(from_rate, to_rate, B):
                 what = (C, int16, dtype)
                 for t, x in enumerate(_blocks(B + C, B, C, int16=int16)):
                     x = torch.from_numpy(x).to(dev)
-                    n0 = RS.LAUNCHES
+                    n0 = LA.LAUNCHES["resample"]
                     yk = k(x)
-                    assert RS.LAUNCHES == n0 + 1, what
+                    assert LA.LAUNCHES["resample"] == n0 + 1, what
                     n_in = x.shape[1]
                     n_out = (n_in * r.up - r.phase + r.down - 1) // r.down
                     yr, r.carry = RS.resample_block_ref(
@@ -409,7 +410,7 @@ def test_k8_refusals_on_cuda():
     contiguous raise before any launch."""
     dev = _cuda()
     rs = StreamResampler(44100, 48000, 2, 2, device=dev)
-    n0 = RS.LAUNCHES
+    n0 = LA.LAUNCHES["resample"]
     with pytest.raises(ValueError):
         StreamResampler(44100, 48000, 2, 3, device=dev)(
             torch.zeros(2, 1152, 3, dtype=torch.int16, device=dev))
@@ -418,4 +419,4 @@ def test_k8_refusals_on_cuda():
     with pytest.raises(ValueError):
         rs(torch.zeros(2, 2, 1152, dtype=torch.int16, device=dev)
            .transpose(1, 2))
-    assert RS.LAUNCHES == n0
+    assert LA.LAUNCHES["resample"] == n0

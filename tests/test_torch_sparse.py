@@ -374,14 +374,14 @@ def test_cuda_frame_fused_sparse_pipelined_serving(corpus, monkeypatch):
     byte-equal to the CPU decoder."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from pdmp3_tpu_torch.ops import frame_step as FR
-    from pdmp3_tpu_torch.ops import fused_step as FS
+    from pdmp3_tpu_torch.ops import launch as LA
     monkeypatch.setattr(TM, "_FRAME_FUSED", True)
     want, _ = _serve(SparseStreamDecoder(6, frames_per_step=2,
                                          device="cpu"), corpus)
-    k5, k1 = FR.LAUNCHES_FRAME, FS.LAUNCHES
+    k5, k1 = LA.LAUNCHES["frame_fused"], LA.LAUNCHES["fused_granule"]
     gdec = SparseStreamDecoder(6, frames_per_step=2, device="cuda")
     got, _ = _serve(gdec, corpus, pipelined=True)
-    assert FR.LAUNCHES_FRAME > k5 and FS.LAUNCHES == k1
+    assert LA.LAUNCHES["frame_fused"] > k5
+    assert LA.LAUNCHES["fused_granule"] == k1
     for s in range(6):
         np.testing.assert_array_equal(got[s], want[s])
