@@ -402,8 +402,10 @@ def bench_e2e_ab(streams, dev, B: int = 4096, trials: int = 3,
                  seconds: float = 3.0) -> dict:
     """bench.py ``_bench_e2e_ab``: the full pipeline (native parse at one
     thread, wire upload, K1) over distinct streams, dense and sparse
-    wire in interleaved trials.  {"dense", "sparse": RTF per trial,
-    "dense_bpg", "sparse_bpg": wire bytes a granule, "decode_steps"}."""
+    wire in interleaved trials ("dense": ``StreamDecoder``, whose MPEG-1
+    wire is the coded one, widened by K10 a step).  {"dense", "sparse":
+    RTF per trial, "dense_bpg", "sparse_bpg": wire bytes a granule,
+    "decode_steps", "dense_steps": those of the dense pool}."""
     from .runtime import SparseStreamDecoder, StreamDecoder
 
     wires = ("dense", "sparse")
@@ -411,12 +413,12 @@ def bench_e2e_ab(streams, dev, B: int = 4096, trials: int = 3,
         B, exact=False, device=dev) for w in wires}
     src = [streams[i % len(streams)] for i in range(B)]
     pos = {w: [0] * B for w in wires}
-    steps = 0
-    for w in wires:  # warm the pools and the sparse sticky bucket
+    steps = dict.fromkeys(wires, 0)
+    for w in wires:  # warm the pools and the sticky buckets
         for _ in range(4):
             _refill(decs[w], src, pos[w])
             decs[w].parse_step()
-        steps += decs[w].decode_step(fetch=False) is not None
+        steps[w] += decs[w].decode_step(fetch=False) is not None
     sync(dev)
     out = {w: [] for w in wires}
     for _ in range(trials):
@@ -431,13 +433,14 @@ def bench_e2e_ab(streams, dev, B: int = 4096, trials: int = 3,
                     continue
                 wire_bytes += dec.wire_bytes()
                 dec.decode_step(fetch=False)
-                steps += 1
+                steps[w] += 1
                 granules += 2 * na
             sync(dev)
             el = time.perf_counter() - t0
             out[w].append(granules * 576 / 44100.0 / el)
             out[f"{w}_bpg"] = wire_bytes / max(granules, 1)
-    out["decode_steps"] = steps
+    out["decode_steps"] = sum(steps.values())
+    out["dense_steps"] = steps["dense"]
     return out
 
 
@@ -769,15 +772,18 @@ def run(sz: Sizes, dev) -> dict:
 
     streams = corpus(e2e_spec, sz.e2e_distinct)
     ab = counted("e2e_ab", lambda r: {"fused_granule":
-                                      2 * r["decode_steps"]},
+                                      2 * r["decode_steps"],
+                                      "l3_expand": r["dense_steps"]},
                  bench_e2e_ab, streams, dev, sz.e2e_slots, sz.e2e_trials,
                  sz.e2e_seconds)
     drain = counted("drain_ab", lambda r: {"fused_granule":
-                                           2 * r["decode_steps"]},
+                                           2 * r["decode_steps"],
+                                           "l3_expand": r["decode_steps"]},
                     bench_drain_ab, streams, dev, sz.drain_slots,
                     sz.drain_trials, sz.drain_seconds)
     at_size = counted("serving_at_size", lambda r: {
-        "fused_granule": 2 * r["decode_steps"]}, bench_serving_at_size,
+        "fused_granule": 2 * r["decode_steps"],
+        "l3_expand": r["decode_steps"]}, bench_serving_at_size,
         dev, sz.at_size_slots or B, sz.at_size_steps, sz.repeats)
     single = counted("single_core", lambda r: {}, bench_single_core,
                      sz.host_trials, sz.host_seconds)

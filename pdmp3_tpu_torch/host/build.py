@@ -43,7 +43,8 @@ BUILD_DIR = os.path.join(REPO, "build", "torch_host")
 LIB = os.path.join(BUILD_DIR, "libpdmp3host_torch.so")
 CLI = os.path.join(BUILD_DIR, "pdmp3")
 
-SRCS = ["tables.cc", "frame.cc", "dsp.cc", "api.cc", "wire_l12_codes.cc"]
+SRCS = ["tables.cc", "frame.cc", "dsp.cc", "api.cc", "wire_l12_codes.cc",
+        "wire_l3_codes.cc"]
 CXXFLAGS = ["-std=c++17", "-O3", "-Wall", "-Wextra", "-fPIC", "-pthread",
             "-ffp-contract=off", "-fno-fast-math"]
 

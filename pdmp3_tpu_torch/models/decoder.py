@@ -5,10 +5,13 @@ the LSF families (1 MPEG-2, 2 MPEG-2.5), in fast and exact precision.
 Three routes:
 
 - serving: one step decodes F frames per slot from the native
-  frontend's packed int16 wire, dense (``decode_frame_packed``,
-  ``decode_frame_packed_lsf``) or sparse (``decode_frame_sparse``,
-  ``decode_frame_lsf_sparse``: count1-bounded 128-line blocks that the
-  device re-densifies), with the fused granule step
+  frontend's packed wire: dense int16 (``decode_frame_packed``,
+  ``decode_frame_packed_lsf``), coded MPEG-1 (``decode_frame_packed`` on
+  a uint8 wire: 4-bit line codes and an escape list that the device
+  widens, ``ops.l3_expand``, K10 on CUDA) or sparse
+  (``decode_frame_sparse``, ``decode_frame_lsf_sparse``: count1-bounded
+  128-line blocks that the device re-densifies), with the fused granule
+  step
   (``ops.fused_step.fused_granule_step``): an MPEG-1 frame as two
   granule steps (K1 fast, K2 exact on CUDA), or, fast and with
   ``_FRAME_FUSED`` set, as one frame step (``ops.frame_step``, K5 on
@@ -37,6 +40,7 @@ slot contiguously, and checkpoints need no conversion.
 """
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 
@@ -49,6 +53,7 @@ from ..ops.back_half import float_granule_step, split_granule_step
 from ..ops.dsp import META_WORDS
 from ..ops.frame_step import frame_step
 from ..ops.fused_step import fused_granule_step
+from ..ops.l3_expand import CODE_BYTES, l3_expand
 from ..utils.trace import span
 
 # The frame-fused opt-in, the JAX package's own: read once at import from
@@ -321,12 +326,94 @@ def _decode_frames(w: dict, state, F: int, bug_compat: bool, exact: bool,
 
 def decode_frame_packed(buf, state, B: int, F: int = 1,
                         bug_compat: bool = True, exact: bool = False,
-                        float_pcm: bool = False):
+                        float_pcm: bool = False, ix=None):
     """decode_frame_soa over the packed F-frame wire, on the decode
-    device.  Returns (pcm int16 [B, F*1152, 2], f32 with float_pcm;
-    state updated in place)."""
-    return _decode_frames(wire_sections(buf, B, F), state, F, bug_compat,
-                          exact, float_pcm)
+    device: the dense wire (int16, ``soa_layout``) or the coded one
+    (uint8, ``codes_layout``), whose rows are widened first
+    (``ops.l3_expand``: K10 on CUDA, one launch) into `ix` (int16
+    [2F,B,2,576], a buffer the caller keeps; made here when None) in the
+    program's span ``step.expand``.  Returns (pcm int16 [B, F*1152, 2],
+    f32 with float_pcm; state updated in place)."""
+    if buf.dtype == torch.uint8:
+        w = codes_sections(buf, B, F)
+        with span("step.expand"):
+            w["ix"] = l3_expand(w["codes"], w["starts"], w["esc"], out=ix)
+    else:
+        w = wire_sections(buf, B, F)
+    return _decode_frames(w, state, F, bug_compat, exact, float_pcm)
+
+
+# ---------------------------------------------------------------------------
+# Coded MPEG-1 pool wire (the native packer pdmp3_parse_step_wire_l3_codes,
+# host/src/wire_l3_codes.cc): each granule-channel row's 576 lines as
+# 4-bit codes (288 B) and the row's start in the step's escape list, the
+# dense wire's scf_l, scf_s, meta and active, then the escape list, last,
+# so a step uploads the fixed sections and the list's used prefix.  One
+# uint8 buffer, each section 16-byte aligned.
+# ---------------------------------------------------------------------------
+
+def codes_worst_escapes(B: int, F: int = 1) -> int:
+    """Escapes of an F-frame MPEG-1 step whose every line escapes."""
+    return F * 2 * B * 2 * 576
+
+
+def codes_layout(B: int, F: int = 1) -> dict:
+    """Byte offsets of the coded MPEG-1 wire: name -> (offset, bytes) for
+    codes [F*2,B,2,288], starts int32 [F*2,B,2], scf_l, scf_s and meta
+    (int16, as soa_layout), active, then esc int16 at the worst case;
+    'fixed' (the escape list's offset), 'cap' (its entries) and
+    'total'."""
+    return dict(_codes_layout(B, F))
+
+
+@functools.lru_cache(maxsize=64)
+def _codes_layout(B: int, F: int) -> tuple:
+    G = F * 2 * B
+    off, pos = [], 0
+    for name, n in (("codes", G * 2 * CODE_BYTES), ("starts", G * 2 * 4),
+                    ("scf_l", G * 2 * 22 * 2), ("scf_s", G * 2 * 39 * 2),
+                    ("meta", G * META_WORDS * 2), ("active", F * B * 2)):
+        off.append((name, (pos, n)))
+        pos += -(-n // 16) * 16
+    cap = codes_worst_escapes(B, F)
+    return tuple(off) + (("esc", (pos, 2 * cap)), ("fixed", pos),
+                         ("cap", cap), ("total", pos + 2 * cap))
+
+
+def codes_sections(buf, B: int, F: int = 1) -> dict:
+    """Views of a coded MPEG-1 wire (uint8 [codes_layout(B, F)['fixed'] +
+    2 n], host or device: the fixed sections and n escapes, n a multiple
+    of 8 up to the worst case) by section: codes uint8 [F*2,B,2,288],
+    starts int32 [F*2,B,2], scf_l int16 [F*2,B,2,22], scf_s int16
+    [F*2,B,2,39], meta int16 [F*2,B,32], active int16 [B] for F = 1,
+    else [F,B], esc int16 [n]."""
+    off = codes_layout(B, F)
+    fixed = off["fixed"]
+    n = buf.shape[0] - fixed if buf.dim() == 1 else -1
+    if buf.dtype != torch.uint8 or not 0 <= n <= 2 * off["cap"] or n % 16:
+        raise ValueError(f"coded wire must be uint8 [{fixed} + 16 k], k <= "
+                         f"{off['cap'] // 8}, got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+
+    # one view a dtype and a strided view a section: a step's enqueue
+    # takes these views of each uploaded wire
+    views = {1: buf, 2: buf.view(torch.int16), 4: buf.view(torch.int32)}
+
+    def sec(name, size, shape):
+        t = views[size]
+        at = t.storage_offset() + off[name][0] // size
+        strides = [1] * len(shape)
+        for i in range(len(shape) - 1, 0, -1):
+            strides[i - 1] = strides[i] * shape[i]
+        return t.as_strided(shape, strides, at)
+    G = F * 2
+    return {"codes": sec("codes", 1, (G, B, 2, CODE_BYTES)),
+            "starts": sec("starts", 4, (G, B, 2)),
+            "scf_l": sec("scf_l", 2, (G, B, 2, 22)),
+            "scf_s": sec("scf_s", 2, (G, B, 2, 39)),
+            "meta": sec("meta", 2, (G, B, META_WORDS)),
+            "active": sec("active", 2, _active_shape(B, F)),
+            "esc": sec("esc", 2, (n // 2,))}
 
 
 # ---------------------------------------------------------------------------

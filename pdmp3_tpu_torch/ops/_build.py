@@ -147,6 +147,8 @@ def load() -> C.CDLL:
         # body, side, geom, sb, the class tables cd, ci, scf, slot-frames,
         # S
         "pdmp3_l12_requant": [ptr] * 7 + [i64, i32, ptr],
+        # codes, starts, esc, its length, ix, rows
+        "pdmp3_l3_expand": [ptr, ptr, ptr, i64, ptr, i64, ptr],
         # carry, in, its stream stride, in_f32, H, new carry, out,
         # out_f32, B, N, C, taps, up, down, phase, n_out, p_first, p_end,
         # p_chunk, chunks, hstride, win, bulk, shared bytes

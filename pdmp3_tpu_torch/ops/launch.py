@@ -3,9 +3,9 @@ launch counter, the operand rules the kernels' copies share, and the
 persistent kernels' instance map.
 
 Each wrapper of ``ops/`` (``fused_step``, ``back_half``, ``frame_step``,
-``l12_synth``, ``l12_requant``, ``resample``, ``rounding``) checks its
-own operands, allocates its outputs and builds its argument list, then
-calls ``launch`` once: the C entry point of the kernel library
+``l12_synth``, ``l12_requant``, ``l3_expand``, ``resample``,
+``rounding``) checks its own operands, allocates its outputs and builds
+its argument list, then calls ``launch`` once: the C entry point of the kernel library
 (``_build.load``) on the operands' device and that device's current
 stream, a RuntimeError with the library's error string on a nonzero
 return, and, on success only, one more count of the kernel in
@@ -24,22 +24,24 @@ from . import _build
 # every kernel's launch counter, each instance family apart: K1 and K2
 # (family 0, fast and exact), K3 (the LSF families, fast and exact), the
 # four again writing float PCM (instances 9-12), K4 (its raw sums
-# apart), K6, K5 (MPEG-1 and LSF), K7 by precision and PCM type, K9, K8
+# apart), K6, K5 (MPEG-1 and LSF), K7 by precision and PCM type, K9, K8,
+# K10
 KERNELS = ("fused_granule", "fused_granule_exact", "fused_granule_lsf",
            "fused_granule_lsf_exact", "fused_granule_float",
            "fused_granule_float_exact", "fused_granule_lsf_float",
            "fused_granule_lsf_float_exact", "back_half", "back_half_raw",
            "rounding_sweep", "frame_fused", "frame_fused_lsf", "l12_synth",
            "l12_synth_exact", "l12_synth_float", "l12_synth_float_exact",
-           "l12_requant", "resample")
+           "l12_requant", "resample", "l3_expand")
 # launches of each kernel since the last reset
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 # byte alignment the kernels need of each operand: bulk-copied ones 16,
-# the 4-byte copies 4 (the persistent K1-K5 and K7; K9's body and side)
+# the 4-byte copies 4 (the persistent K1-K5 and K7; K9's body and side;
+# K10's codes, and its 16-byte stores into ix)
 BULK_ALIGN = {"ix": 16, "meta": 16, "store": 16, "v_blocks": 16, "pcm": 16,
               "xa": 16, "bt_eff": 16, "out": 16, "sb": 16, "body": 16,
-              "side": 16, "scf_l": 4, "scf_s": 4, "prev_lines": 4,
+              "side": 16, "codes": 4, "scf_l": 4, "scf_s": 4, "prev_lines": 4,
               "active": 4, "is_pos": 4}
 # granule_launch_info's fields, in the order of pdmp3_granule_launch_info
 LAUNCH_INFO = ("grid", "blocks_per_sm", "dynamic_smem_bytes", "registers",

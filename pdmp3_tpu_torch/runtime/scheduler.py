@@ -5,9 +5,9 @@ Counterpart of ``pdmp3_tpu/runtime/scheduler.py`` (``LoopFeeder``,
 ``L12StreamDecoder``, ``decode_files_batched``) for MPEG-1 pools, the
 per-family LSF pools (MPEG-2, MPEG-2.5) and the per-layer Layer I/II
 pools, in fast or exact precision.  N streams are pinned to slots; one
-native call parses F frames per slot into a packed wire buffer (dense,
-or count1-bounded sparse), one upload moves it to the device, and the
-frames' steps decode every slot in lockstep.
+native call parses F frames per slot into a packed wire buffer (coded,
+dense, or count1-bounded sparse), one upload moves it to the device,
+and the frames' steps decode every slot in lockstep.
 Starved, finished or malformed streams leave their slot inactive for
 the step: its state stays frozen and its PCM is silence, so one bad
 stream never perturbs its neighbours.
@@ -60,8 +60,8 @@ class _Pool:
     pinned double-buffered wire with an upload fence per buffer, the step
     (parse, upload, decode, buffer flip) and the pipelined PCM drain.  A
     pool sets the wire's layout and host views (``_host_views``), the
-    native packer (``_fn``, ``_packer_args``) and the device decode
-    (``_decode``).
+    native packer (``_fn``, ``_packer_args``, and ``_parsed`` after it)
+    and the device decode (``_decode``).
 
     The next parse and upload use buffer ``_cur``.  The pool's views
     (``active``, ``meta``, the wire's sections) show the buffer last
@@ -105,6 +105,10 @@ class _Pool:
     def _upload_len(self) -> int:
         """Elements of the wire that the next step uploads."""
         return self._wires_t[0].shape[0]
+
+    def _parsed(self, views: dict) -> None:
+        """What a pool does to a buffer's views after its packer wrote
+        them, before the idle meta is kept: nothing here."""
 
     def wire_bytes(self) -> int:
         """Bytes the next decode_step uploads."""
@@ -158,6 +162,7 @@ class _Pool:
         with span("pool.parse"):
             n = self._fn(self._handle_arr, self.n, self.parse_threads,
                          self.F, *self._packer_args(views))
+        self._parsed(views)
         self._keep_idle_meta(self._sets[self._shown], views)
         self._show(self._cur)
         return n
@@ -278,7 +283,22 @@ class StreamDecoder(_Pool):
     decode_step returns interleaved PCM int16 [B, F*1152, 2] ([B, F*576,
     2] for LSF pools; f32 with float_pcm; [B, n_out, 2] resampled);
     a step decodes two granule steps per MPEG-1 frame (or one frame
-    step), one per LSF frame."""
+    step), one per LSF frame.
+
+    An MPEG-1 pool's wire is the coded one (``models.decoder.
+    codes_layout``, the native packer ``pdmp3_parse_step_wire_l3_codes``):
+    each granule-channel row's lines as 4-bit codes, the lines outside
+    -7..7 in an escape list last in the buffer, and the dense wire's
+    scalefactors, meta and active.  A step uploads the fixed sections and
+    the list's used prefix, rounded up to ``ESCAPE_GRANULE`` escapes and
+    sticky upward (``wire_bytes``), and the device widens the rows into
+    the pool's own int16 lines [2F,B,2,576] (``ops.l3_expand``: K10, one
+    launch a step, on CUDA) before the granule steps read them.  The
+    recorder's ``pool.ix_escapes`` counts the escapes a parse step
+    writes.  An LSF pool's wire is the dense one (``soa_layout_lsf``)."""
+
+    # the coded wire's upload covers its escapes in steps of 64 KiB
+    ESCAPE_GRANULE = 32768
 
     def __init__(self, n_slots: int, exact: bool = False,
                  bug_compat: bool = True, parse_threads: int = 1,
@@ -308,8 +328,13 @@ class StreamDecoder(_Pool):
         self.n, self.F = n_slots, frames_per_step
         self._lay = self._layout()
         self._open(n_slots, profile, parse_threads, frames_per_step, device,
-                   self._lay["total"], torch.int16)
+                   self._lay["total"],
+                   torch.uint8 if self._coded() else torch.int16)
         self.state = M.init_state(n_slots, self.device)
+        # the coded wire's widened lines, written and read on the device
+        self._ix = torch.empty((2 * frames_per_step, n_slots, 2, 576),
+                               dtype=torch.int16, device=self.device) \
+            if self._coded() else None
         self._fn, self._sections = self._packer()
         if resample_to is not None:
             from ..ops.resample import StreamResampler
@@ -319,34 +344,66 @@ class StreamDecoder(_Pool):
 
     # ---- the wire (SparseStreamDecoder overrides these) ----
 
+    def _coded(self) -> bool:
+        """Whether the pool's wire is the coded MPEG-1 one."""
+        return not self.family
+
     def _layout(self) -> dict:
-        return (M.soa_layout_lsf if self.family else M.soa_layout)(self.n,
-                                                                    self.F)
+        if self.family:
+            return M.soa_layout_lsf(self.n, self.F)
+        lay = M.codes_layout(self.n, self.F)
+        if lay["cap"] >= 2 ** 31:
+            raise ValueError(f"{self.n} slots x {self.F} frames: the coded "
+                             "wire's escape starts are int32")
+        self._esc_used = C.c_longlong(0)
+        self._esc_bucket = 0
+        return lay
 
     def _views(self, buf) -> dict:
-        return (M.wire_sections_lsf if self.family else M.wire_sections)(
-            buf, self.n, self.F)
+        if self.family:
+            return M.wire_sections_lsf(buf, self.n, self.F)
+        return M.codes_sections(buf, self.n, self.F)
 
     def _packer(self):
         """The native packer, its argtypes set, and the wire sections it
         fills, in its argument order."""
-        sections = ["ix", "scf_l", "scf_s", "meta", "active"]
         if self.family:
-            sections.insert(4, "is_pos")
+            sections = ["ix", "scf_l", "scf_s", "meta", "is_pos", "active"]
             fn = lib().pdmp3_parse_step_wire16_lsf
+            tail = []
         else:
-            fn = lib().pdmp3_parse_step_wire16
+            sections = ["codes", "starts", "scf_l", "scf_s", "meta",
+                        "active", "esc"]
+            fn = lib().pdmp3_parse_step_wire_l3_codes
+            tail = [C.POINTER(C.c_longlong)]
         fn.argtypes = ([C.c_void_p, C.c_size_t, C.c_int, C.c_size_t]
-                       + [C.c_void_p] * len(sections))
+                       + [C.c_void_p] * len(sections) + tail)
         return fn, sections
 
     def _packer_args(self, views: dict) -> list:
-        return [views[name].ctypes.data_as(C.c_void_p)
+        args = [views[name].ctypes.data_as(C.c_void_p)
                 for name in self._sections]
+        return args + [C.byref(self._esc_used)] if self._coded() else args
+
+    def _parsed(self, views: dict) -> None:
+        """The coded wire: count the step's escapes, round the upload's
+        escapes up to ESCAPE_GRANULE (at most the worst case), sticky
+        upward, and zero the list past the step's escapes up to there."""
+        if not self._coded():
+            return
+        used = int(self._esc_used.value)
+        count("pool.ix_escapes", used)
+        gran = self.ESCAPE_GRANULE
+        bucket = min(-(-used // gran) * gran, self._lay["cap"])
+        self._esc_bucket = max(bucket, self._esc_bucket)
+        views["esc"][used:self._esc_bucket] = 0
 
     def _upload_len(self) -> int:
-        """int16 elements of the wire that the next step uploads."""
-        return self._lay["total"]
+        """Elements of the wire that the next step uploads: the coded
+        wire's bytes up to its escape bucket, the dense wire's int16."""
+        if self.family:
+            return self._lay["total"]
+        return self._lay["fixed"] + 2 * self._esc_bucket
 
     def _decode(self, wire):
         if self.family:
@@ -356,7 +413,7 @@ class StreamDecoder(_Pool):
         return M.decode_frame_packed(wire, self.state, B=self.n, F=self.F,
                                      bug_compat=self.bug_compat,
                                      exact=self.exact,
-                                     float_pcm=self.float_pcm)
+                                     float_pcm=self.float_pcm, ix=self._ix)
 
     def _host_views(self, host) -> dict:
         """numpy views of a wire buffer: the whole (``wire``) and its
@@ -464,6 +521,9 @@ class SparseStreamDecoder(StreamDecoder):
     and the device re-densifies them; PCM and state are bit for bit the
     dense wire's.  A step uploads the fixed sections and the blocks'
     prefix of the flat region (``wire_bytes``)."""
+
+    def _coded(self) -> bool:
+        return False
 
     def _layout(self) -> dict:
         lay = (M.sparse_layout_lsf if self.family else M.sparse_layout)(

@@ -7,7 +7,7 @@ asynchronous D2H PCM drain overlapping in steady state.
         --device cpu
 
 Counterpart of ``tools/drain_trace.py``.  ``StreamDecoder(B,
-device=...)`` fast (K1), fed by ``LoopFeeder`` from 8 looping streams,
+device=...)`` fast (K10 widens the coded wire, then K1), fed by ``LoopFeeder`` from 8 looping streams,
 runs ``--steps`` steps twice: ``sync`` (``decode_step``, the PCM fetched
 every step) and ``pipelined`` (``decode_step_pipelined``, the PCM
 fetched one step late from a side-stream copy, ``drain_pending`` at the
@@ -85,7 +85,7 @@ def serve(mode: str, streams: list[bytes], B: int, steps: int, dev,
         _sync(dev)
         total = time.perf_counter() - t0    # before the trace is written
     check_launches(dev, launched_since(before), "fused_granule", 2 * steps,
-                   f"{mode} serving")
+                   f"{mode} serving", widened=steps)
     return {"mode": mode, "total_s": total, "steps": steps,
             "step_ms": total / steps * 1e3, "stage_s": stage,
             "audio_s_per_s": steps * 1152 * B / 44100.0 / total}

@@ -8,8 +8,8 @@ per frame step on wires already on the device, no host feed.
 Counterpart of ``tools/kernel_trace.py``.  Four steps of natively parsed
 wire (``StreamDecoder`` fed by ``LoopFeeder`` from 8 looping streams)
 are uploaded once; ``--steps`` frame steps then decode them in turn
-(``models.decoder.decode_frame_packed``: the wire's sections widened,
-two K1 launches) on one recurrent state, untraced, then once more
+(``models.decoder.decode_frame_packed``: the coded lines widened by
+K10, the other sections widened, two K1 launches) on one recurrent state, untraced, then once more
 under ``utils.trace.Trace`` (a Chrome trace file showing the kernels and
 the gaps between them).  The summary's step times are CUDA events
 around each loop over its steps (the host clock on the CPU); the traced
@@ -33,7 +33,8 @@ RESIDENT = 4
 
 
 def resident_wires(B: int, dev) -> list:
-    """RESIDENT consecutive steps of parsed dense wire, each on `dev`."""
+    """RESIDENT consecutive steps of parsed wire (the MPEG-1 pool's coded
+    wire, the length its upload takes), each on `dev`."""
     from ..runtime import LoopFeeder, StreamDecoder
 
     dec = StreamDecoder(B, exact=False, device=dev)
@@ -42,7 +43,8 @@ def resident_wires(B: int, dev) -> list:
     for _ in range(RESIDENT):
         feeder.step()
         dec.parse_step()
-        wires.append(dec._wires_t[dec._cur].to(dev, copy=True))
+        wires.append(dec._wires_t[dec._cur][:dec._upload_len()].to(
+            dev, copy=True))
     return wires
 
 
@@ -61,7 +63,7 @@ def run(B: int, steps: int, out_dir: str, dev) -> dict:
     before = launches()
     _, ms = cuda_ms(dev, loop)
     check_launches(dev, launched_since(before), "fused_granule", 2 * steps,
-                   "device-only step loop")
+                   "device-only step loop", widened=steps)
     with Trace(out_dir):
         _, traced_ms = cuda_ms(dev, loop)
     return {"batch": B, "steps": steps, "device": str(dev),

@@ -113,8 +113,8 @@ def rank_main(cfg: dict, rank: int, port: int, out_path: str) -> None:
             raise RuntimeError(f"rank {rank}: streams not done after "
                                f"{MAX_STEPS} steps")
         ran = launched_since(before)
-        want = {"fused_granule_exact": 2 * busy} if dev.type == "cuda" \
-            and busy else {}
+        want = {"fused_granule_exact": 2 * busy, "l3_expand": busy} \
+            if dev.type == "cuda" and busy else {}
         if ran != want:
             raise RuntimeError(f"rank {rank}: launched {ran}, want {want}")
         for s in range(n):

@@ -5,15 +5,17 @@
         --steps 2 --e2e-seconds 0.2 --trials 1 --trial-seconds 0.2 \\
         --device cpu
 
-Counterpart of ``tools/wire_profile.py``.  For ``StreamDecoder`` (the
-dense wire) and ``SparseStreamDecoder`` (the count1-bounded sparse wire)
+Counterpart of ``tools/wire_profile.py``.  For ``StreamDecoder`` ("dense"
+in the output, as the JAX tool names it; its MPEG-1 wire is the coded
+one: 4-bit line codes and an escape list, widened on the device by K10)
+and ``SparseStreamDecoder`` (the count1-bounded sparse wire)
 at B slots, fast MPEG-1, fed by ``LoopFeeder`` from looping streams:
 
 - a blocked step split into its stages: ``parse`` (the native parse into
   the pinned wire, host clock), ``upload`` (the pool's ``upload``: the
   wire's H2D copy), ``decode`` (the pool's ``advance``: the device step
-  from the uploaded wire, the sparse re-densify included, two K1
-  launches) and ``drain`` (the PCM's D2H copy), each device stage
+  from the uploaded wire, the sparse re-densify or the coded wire's K10
+  widening included, two K1 launches) and ``drain`` (the PCM's D2H copy), each device stage
   between CUDA events and synchronised (the host clock on the CPU), in
   ms per step; ``decode_step`` is those two parts, so the tool steps the
   pool as serving does;
@@ -139,7 +141,8 @@ def profile(streams: list[bytes], B: int, sparse: bool, steps: int,
         for k, v in stage.items():
             t[k] += v
     check_launches(dev, launched_since(before), "fused_granule", 2 * steps,
-                   f"{'sparse' if sparse else 'dense'} blocked steps")
+                   f"{'sparse' if sparse else 'dense'} blocked steps",
+                   widened=0 if sparse else steps)
     ms = {f"{k}_ms": v / steps for k, v in t.items()}
     wb = float(np.mean(wire_bytes))
     rate, decoded = _pipelined(dec, feeder, e2e_seconds, dev)
@@ -157,29 +160,30 @@ def ab_compare(streams: list[bytes], B: int, trials: int, secs: float,
                dev) -> dict:
     """The pipelined loop of the dense and the sparse pool in alternating
     windows of `secs`; each wire's rates and median, and the decode
-    steps run."""
+    steps run, in all and by wire."""
     pools = {w: _pool(w == "sparse", B, streams, dev)
              for w in ("dense", "sparse")}
-    decoded = 0
-    for dec, feeder in pools.values():       # warm: kernels, sticky bucket
+    decoded = dict.fromkeys(pools, 0)
+    for w, (dec, feeder) in pools.items():   # warm: kernels, sticky bucket
         for _ in range(4):
             _parse(dec, feeder)
-        decoded += dec.decode_step(fetch=False) is not None
+        decoded[w] += dec.decode_step(fetch=False) is not None
     rates = {w: [] for w in pools}
     for _ in range(trials):
         for w, (dec, feeder) in pools.items():
             rate, n = _pipelined(dec, feeder, secs, dev)
             rates[w].append(rate)
-            decoded += n
+            decoded[w] += n
     return {"trials": rates,
             "medians": {w: float(np.median(r)) for w, r in rates.items()},
-            "decode_steps": decoded}
+            "decode_steps": sum(decoded.values()), "by_wire": decoded}
 
 
 def run(streams: list[bytes], B: int, steps: int, e2e_seconds: float,
         trials: int, trial_seconds: float, dev) -> dict:
     """Both wires' rows and the A/B trials; ``decode_steps`` counts every
-    decode step the run made."""
+    decode step the run made, ``dense_decode_steps`` those of the dense
+    pool (one K10 launch each on CUDA)."""
     rows = [profile(streams, B, sparse, steps, e2e_seconds, dev)
             for sparse in (False, True)]
     ab = ab_compare(streams, B, trials, trial_seconds, dev)
@@ -190,7 +194,9 @@ def run(streams: list[bytes], B: int, steps: int, e2e_seconds: float,
             rows[1]["wire_bytes_per_step"] / rows[0]["wire_bytes_per_step"],
             "ab": ab,
             "decode_steps": sum(r["decode_steps"] for r in rows)
-            + ab["decode_steps"]}
+            + ab["decode_steps"],
+            "dense_decode_steps": rows[0]["decode_steps"]
+            + ab["by_wire"]["dense"]}
 
 
 def main(argv=None) -> dict:

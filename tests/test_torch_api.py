@@ -23,6 +23,7 @@ from pdmp3_tpu.oracle import OracleDSP
 from pdmp3_tpu.testing import mp3gen
 from pdmp3_tpu_torch import LoopFeeder, StreamDecoder, TorchDSP
 from pdmp3_tpu_torch.models import decoder as TM
+from pdmp3_tpu_torch.testing import l3wire
 from test_jax_decoder import CONFIGS, _band12_zero_bits_stream
 from test_torch_fused_step import assert_pcm_contract
 
@@ -94,7 +95,7 @@ def test_frame_to_batches_equals_native_wire():
     for t in range(4):
         feeder.step()
         assert dec.parse_step() == B
-        w = TM.wire_sections(torch.from_numpy(dec.wire.copy()), B)
+        w = TM.wire_sections(l3wire.pool_dense_wire(dec), B)
         batches = TM.frame_to_batches([fds[t] for fds in per_stream], "cpu")
         for gr, b in enumerate(batches):
             assert b.gr1 == gr and b.active.tolist() == [1] * B

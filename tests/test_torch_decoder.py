@@ -1,5 +1,6 @@
 """The port's model layer (pdmp3_tpu_torch/models/decoder.py) against the
-JAX package's: decode_frame_packed on a natively parsed wire, and the
+JAX package's: decode_frame_packed on a natively parsed wire (the
+pool's coded wire for the port, the same wire made dense for JAX), and the
 state converters that carry JAX state across.
 
 Tolerances as in test_torch_fused_step.py: PCM within the fast contract
@@ -17,6 +18,7 @@ from pdmp3_tpu.ops import pallas_step as PSF
 from pdmp3_tpu.testing import mp3gen
 from pdmp3_tpu_torch import LoopFeeder, StreamDecoder
 from pdmp3_tpu_torch.models import decoder as TM
+from pdmp3_tpu_torch.testing import l3wire
 from test_torch_fused_step import assert_pcm_contract, assert_state_close
 
 
@@ -32,6 +34,8 @@ def _streams():
 
 
 def test_decode_frame_packed_matches_jax_pallas():
+    """The port on the pool's coded wire, JAX on the same wire made dense
+    (``testing.l3wire``)."""
     streams = _streams()
     B = len(streams)
     dec = StreamDecoder(B, device="cpu")   # only its native parse is used
@@ -41,10 +45,11 @@ def test_decode_frame_packed_matches_jax_pallas():
     for _ in range(4):
         feeder.step()
         assert dec.parse_step() == B
-        wire = dec.wire.copy()
-        pt, st = TM.decode_frame_packed(torch.from_numpy(wire), st, B=B)
-        pj, pst = JM.decode_frame_packed(jnp.asarray(wire), pst, B=B, F=1,
-                                         exact=False, kernel="pallas")
+        wire = torch.from_numpy(dec.wire.copy())
+        pt, st = TM.decode_frame_packed(wire, st, B=B)
+        pj, pst = JM.decode_frame_packed(
+            jnp.asarray(l3wire.dense_wire(wire, B).numpy()), pst, B=B, F=1,
+            exact=False, kernel="pallas")
         assert pt.shape == (B, 1152, 2)
         assert_pcm_contract(pt.numpy(), pj)
         assert_state_close(st, pst)

@@ -38,7 +38,7 @@ from pdmp3_tpu_torch.ops import back_half as BH
 from pdmp3_tpu_torch.ops import dsp as D
 from pdmp3_tpu_torch.ops import fused_step as FS
 from pdmp3_tpu_torch.ops import launch as LA
-from pdmp3_tpu_torch.testing import mp3gen
+from pdmp3_tpu_torch.testing import l3wire, mp3gen
 from test_torch_fused_step import (IDLE_SEAMS, RAGGED_B, idle_slots,
                                    ragged_batch, tiled_operands)
 from test_torch_lsf import _pool_streams, family_frames  # noqa: F401
@@ -75,7 +75,9 @@ def _granule_steps(family: int, max_steps: int = 3):
     while len(out) < max_steps and dec.parse_step():
         if len(out) == MID_IDLE[0]:
             dec.active[MID_IDLE[1]] = 0
-        wire = torch.from_numpy(dec.wire.copy())
+        # an MPEG-1 pool's coded wire, made dense
+        wire = (torch.from_numpy(dec.wire.copy()) if family
+                else l3wire.pool_dense_wire(dec))
         dec.decode_step()
         if family:
             w = TM.wire_sections_lsf(wire, B)
@@ -368,7 +370,7 @@ def test_float_pool_step_launches_the_float_instances_on_cuda(exact):
     st = TM.init_state(B, dev)
     for _ in range(3):
         assert dec.parse_step()
-        wire = torch.from_numpy(dec.wire.copy()).to(dev)
+        wire = l3wire.pool_dense_wire(dec).to(dev)
         k4 = (LA.LAUNCHES["back_half"], LA.LAUNCHES["back_half_raw"])
         attr = "fused_granule_float" + ("_exact" if exact else "")
         n0 = LA.LAUNCHES[attr]

@@ -1,6 +1,6 @@
 """The port's one launch path (pdmp3_tpu_torch/ops/launch.py) on the CPU.
 
-``tools.launches()`` names exactly the 19 kernel counters, every
+``tools.launches()`` names exactly the 20 kernel counters, every
 ``kernel.counter`` a benchmark configuration reads among them (the
 benchmark's traced run holds the profiler's launches to that count);
 ``launch`` against a stand-in kernel library counts one launch on
@@ -27,14 +27,14 @@ NAMES = ("fused_granule", "fused_granule_exact", "fused_granule_lsf",
          "fused_granule_lsf_float_exact", "back_half", "back_half_raw",
          "rounding_sweep", "frame_fused", "frame_fused_lsf", "l12_synth",
          "l12_synth_exact", "l12_synth_float", "l12_synth_float_exact",
-         "l12_requant", "resample")
+         "l12_requant", "resample", "l3_expand")
 WRAPPERS = ("fused_step", "back_half", "frame_step", "l12_synth",
-            "l12_requant", "resample", "rounding")
+            "l12_requant", "l3_expand", "resample", "rounding")
 
 
 def test_launches_names_the_19_kernels():
-    """Every name, in order, zeros included; a snapshot differs from
-    itself in nothing."""
+    """Every name, in order, zeros included (K10's ``l3_expand`` made
+    them 20); a snapshot differs from itself in nothing."""
     got = tools.launches()
     assert tuple(got) == NAMES == LA.KERNELS
     assert tools.launched_since(got) == {}

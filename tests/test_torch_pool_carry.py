@@ -34,7 +34,8 @@ class _CarryEveryStep:
     """The carry as ``advance`` made it before: this step's active and
     meta copied, the views turned to the other buffer, that buffer
     reclaimed and both copies written over it; ``parse_step`` parses
-    into that buffer as it stands."""
+    into that buffer as it stands (with what the wire itself does after
+    its packer, ``_parsed``: the coded MPEG-1 wire's escape bucket)."""
 
     def advance(self, wire):
         pcm, self.state = self._decode(wire)
@@ -48,8 +49,11 @@ class _CarryEveryStep:
 
     def parse_step(self):
         self._reclaim()
-        return self._fn(self._handle_arr, self.n, self.parse_threads,
-                        self.F, *self._packer_args(self._sets[self._cur]))
+        views = self._sets[self._cur]
+        n = self._fn(self._handle_arr, self.n, self.parse_threads, self.F,
+                     *self._packer_args(views))
+        self._parsed(views)
+        return n
 
 
 class _RefStream(_CarryEveryStep, StreamDecoder):

@@ -5,9 +5,10 @@ pool, whose model step is K9's requantization and K7's launches.
 Under a profiler session (``utils.trace.Trace``) the pipelined serving
 loop's spans land in the session's Chrome trace, nested as the step runs
 them (``pool.advance`` holds ``pool.decode``, which holds the model
-step's ``step.widen`` / ``step.launch`` / ``step.join``, then
-``pool.carry``), each around the work its metric names, and the recorder
-counts one of each a step or a granule step; without a session the
+step's ``step.expand`` (the MPEG-1 coded wire's widening, once a step,
+outside every ``step.launch``) and ``step.widen`` / ``step.launch`` /
+``step.join``, then ``pool.carry``), each around the work its metric
+names, and the recorder counts one of each a step or a granule step; without a session the
 recorder stays empty, and the PCM is the same bits either way.  The
 advance copies no wire view and selects no views: the reclaim, the idle
 slot-frames' meta and the views' selection belong to the parse step.  On
@@ -30,12 +31,15 @@ SLOTS = 4
 
 
 def _streams(family):
+    """Four streams, the first with lines outside -7..7 (escapes on the
+    MPEG-1 pool's coded wire)."""
     return [mp3gen.make_stream(n_frames=6, seed=70 + 10 * family + i,
                                family=family,
                                bitrate_index=11 if family else 9,
                                blocks=["long", "short", "mixed",
                                        "varied"][i],
-                               mode=[0, 1, 1, 3][i], mode_extension=2)
+                               mode=[0, 1, 1, 3][i], mode_extension=2,
+                               amp=40 if i == 0 else 6)
             for i in range(SLOTS)]
 
 
@@ -43,8 +47,8 @@ def _streams(family):
 # recorder does not count) around each piece of the step's work, and the
 # innermost program span each probe must sit in.  Moving work across
 # these spans redefines the metrics that read them.
-ENCLOSED = {"probe.decode": "pool.decode", "probe.widen": "step.widen",
-            "probe.launch": "step.launch"}
+ENCLOSED = {"probe.decode": "pool.decode", "probe.expand": "step.expand",
+            "probe.widen": "step.widen", "probe.launch": "step.launch"}
 # The pool's work between steps, inside each parse_step (probed), in this
 # order, and never inside pool.advance.
 PARSE_STEP = ("probe.reclaim", "probe.keep_meta", "probe.show")
@@ -71,6 +75,7 @@ def _probe_pool(dec, monkeypatch):
                         _probe(M._batch_from_meta, "probe.widen"))
     monkeypatch.setattr(M, "fused_granule_step",
                         _probe(M.fused_granule_step, "probe.launch"))
+    monkeypatch.setattr(M, "l3_expand", _probe(M.l3_expand, "probe.expand"))
     dec._decode = _probe(dec._decode, "probe.decode")
     dec._reclaim = _probe(dec._reclaim, "probe.reclaim")
     dec._keep_idle_meta = _probe(dec._keep_idle_meta, "probe.keep_meta")
@@ -82,10 +87,11 @@ def _probe_pool(dec, monkeypatch):
     dec.__dict__.update(dec._sets[dec._shown])
 
 
-def _serve(family, monkeypatch=None, device="cpu"):
+def _serve(family, monkeypatch=None, device="cpu", escapes=None):
     """STEPS parse + decode_step_pipelined steps of a looping 4-slot
     pool, then the flush: the PCM of every step; with `monkeypatch`, the
-    pool's work probed."""
+    pool's work probed; each parse step's escapes (an MPEG-1 pool's
+    coded wire) appended to `escapes`."""
     dec = StreamDecoder(SLOTS, family=family, device=device)
     if monkeypatch is not None:
         _probe_pool(dec, monkeypatch)
@@ -94,6 +100,8 @@ def _serve(family, monkeypatch=None, device="cpu"):
     for _ in range(STEPS):
         feeder.step()
         assert dec.parse_step() == SLOTS
+        if escapes is not None and not family:
+            escapes.append(dec._esc_used.value)
         pcm = dec.decode_step_pipelined()
         if pcm is not None:
             out.append(pcm)
@@ -121,16 +129,19 @@ def served(request, tmp_path_factory):
     spans_off = trace.RECORDER.spans()
     report_off = trace.RECORDER.report()
     out = tmp_path_factory.mktemp("trace")
+    parsed = []
     with pytest.MonkeyPatch.context() as monkeypatch:
         with Trace(str(out)):
-            on = _serve(family, monkeypatch)
+            on = _serve(family, monkeypatch, escapes=parsed)
     spans_on = trace.RECORDER.spans()
     kept = trace.RECORDER.counts.get("pool.meta_kept")
+    escapes = trace.RECORDER.counts.get("pool.ix_escapes")
     trace.RECORDER.reset()
     files = sorted(out.glob("*.pt.trace.json"))
     assert len(files) == 1
     return dict(family=family, off=off, on=on, spans_off=spans_off,
                 report_off=report_off, spans_on=spans_on, kept=kept,
+                escapes=escapes, parsed_escapes=parsed,
                 notes=_events(files[0], ("pool.", "step.")),
                 probes=_events(files[0], ("probe.",)),
                 cats=_events(files[0], ("aten::cat",)))
@@ -138,13 +149,16 @@ def served(request, tmp_path_factory):
 
 def test_spans_nest_as_the_step_runs(served):
     """Each pool.advance holds one pool.decode, then one pool.carry; each
-    pool.decode holds its granule steps' step.widen and step.launch, in
-    turn, and the MPEG-1 granules' step.join; nothing else runs inside."""
+    pool.decode holds the MPEG-1 wire's step.expand first, then its
+    granule steps' step.widen and step.launch, in turn, and the MPEG-1
+    granules' step.join, none inside another; nothing else runs
+    inside."""
     notes = served["notes"]
     adv = [n for n in notes if n[2] == "pool.advance"]
     assert len(adv) == STEPS
     granules = 1 if served["family"] else 2
-    want = (["step.widen", "step.launch"] * granules
+    want = (([] if served["family"] else ["step.expand"])
+            + ["step.widen", "step.launch"] * granules
             + ([] if served["family"] else ["step.join"]))
     for a0, a1, _ in adv:
         inner = [n for n in notes if a0 <= n[0] and n[1] <= a1
@@ -166,13 +180,16 @@ def test_spans_nest_as_the_step_runs(served):
 def test_spans_enclose_the_work_their_metrics_name(served):
     """Inside each pool.advance, every probed piece of work sits in the
     span that its metric reads (ENCLOSED), innermost: the model step's
-    call in pool.decode, the widening in step.widen, the granule step's
-    call in step.launch, and nothing else is probed there; and the
-    MPEG-1 granules' concatenation is the step.join."""
+    call in pool.decode, the MPEG-1 coded wire's widening of the lines
+    in step.expand, the widening of meta and active in step.widen, the
+    granule step's call in step.launch, and nothing else is probed
+    there; and the MPEG-1 granules' concatenation is the step.join."""
     notes = served["notes"]
     granules = 1 if served["family"] else 2
     want = {"probe.decode": 1, "probe.widen": granules,
             "probe.launch": granules}
+    if not served["family"]:
+        want["probe.expand"] = 1
     for a0, a1, _ in (n for n in notes if n[2] == "pool.advance"):
         seen = collections.Counter()
         for p0, p1, probe in served["probes"]:
@@ -224,7 +241,9 @@ def test_the_reclaim_and_the_idle_meta_sit_under_parse_step(served):
 def test_recorder_counts_every_step_and_granule_step(served):
     """The recorder's counts equal the steps run and the granule steps
     they launched, and the annotations in the trace; every slot is
-    active, so no parse step keeps a meta row (``pool.meta_kept``)."""
+    active, so no parse step keeps a meta row (``pool.meta_kept``); an
+    MPEG-1 pool counts the escapes its parse steps wrote
+    (``pool.ix_escapes``), an LSF pool none."""
     granules = 1 if served["family"] else 2
     want = {"pool.parse": STEPS, "pool.upload": STEPS,
             "pool.advance": STEPS, "pool.decode": STEPS,
@@ -232,10 +251,15 @@ def test_recorder_counts_every_step_and_granule_step(served):
             "step.widen": granules * STEPS,
             "step.launch": granules * STEPS}
     if not served["family"]:
-        want["step.join"] = STEPS
+        want["step.join"] = want["step.expand"] = STEPS
     spans = served["spans_on"]
     assert {k: c for k, (_, c) in spans.items()} == want
     assert served["kept"] == 0
+    if served["family"]:
+        assert served["escapes"] is None
+    else:
+        assert len(served["parsed_escapes"]) == STEPS
+        assert served["escapes"] == sum(served["parsed_escapes"]) > 0
     names = [n[2] for n in served["notes"]]
     assert {k: names.count(k) for k in want} == want
     # the decode and the carry make up the advance, less the spans' cost

@@ -40,10 +40,11 @@ def corpus():
             for i in range(6)]
 
 
-def _serve(dec, streams, pipelined=False):
+def _serve(dec, streams, pipelined=False, steps=None):
     """Feed each slot its stream in 4 KiB pieces as its ring frees, step
     until no slot is active.  Returns (per-slot PCM int16 [n, 2] of its
-    active frames, wire bytes summed over the steps)."""
+    active frames, wire bytes summed over the steps); each step's wire
+    bytes also appended to `steps` when given."""
     n, F = dec.n, dec.F
     spf = 576 if dec.family else 1152
     per = [[] for _ in range(n)]
@@ -67,8 +68,11 @@ def _serve(dec, streams, pipelined=False):
                 pos[s] += k
         if dec.parse_step() == 0:
             break
-        wire += (dec.wire_bytes() if hasattr(dec, "wire_bytes")
-                 else 2 * dec._lay["total"])
+        nbytes = (dec.wire_bytes() if hasattr(dec, "wire_bytes")
+                  else 2 * dec._lay["total"])
+        wire += nbytes
+        if steps is not None:
+            steps.append(nbytes)
         if pipelined:
             out = dec.decode_step_pipelined()
             masks.append(dec.active.copy())
@@ -133,7 +137,7 @@ def test_multi_frame_step_equals_native(corpus, exact):
     contract)."""
     dec = StreamDecoder(3, exact=exact, frames_per_step=3, device="cpu")
     streams = [corpus[0], corpus[3], corpus[2]]   # corpus[3]: mono
-    assert dec.active.shape == (3, 3) and dec.ix.shape == (6, 3, 2, 576)
+    assert dec.active.shape == (3, 3) and dec.codes.shape == (6, 3, 2, 288)
     got, _ = _serve(dec, streams)
     for s, d in enumerate(streams):
         _assert_native(d, got[s], exact)
@@ -163,16 +167,22 @@ def test_lsf_multi_frame_pool_equals_native(family):
 def test_sparse_equals_dense_and_saves_bytes(corpus, exact, F):
     """test_sparse_wire.py::test_sparse_equals_dense_and_saves_bytes and
     ::test_sparse_multi_frame_step: the sparse wire decodes byte-equal to
-    the dense one and uploads fewer bytes."""
-    dense, d_wire = _serve(StreamDecoder(6, exact=exact, frames_per_step=F,
-                                         device="cpu"), corpus)
+    StreamDecoder's (the coded MPEG-1 wire, itself the dense wire's
+    lines: tests/test_torch_l3_codes_wire.py) and uploads fewer bytes
+    than the dense wire (``soa_layout``) would over the same steps."""
+    coded, sparse_steps = [], []
+    dense, _ = _serve(StreamDecoder(6, exact=exact, frames_per_step=F,
+                                    device="cpu"), corpus, steps=coded)
     sparse, s_wire = _serve(SparseStreamDecoder(6, exact=exact,
                                                 frames_per_step=F,
-                                                device="cpu"), corpus)
+                                                device="cpu"), corpus,
+                            steps=sparse_steps)
     for s in range(6):
         assert dense[s].shape == sparse[s].shape and len(dense[s])
         np.testing.assert_array_equal(dense[s], sparse[s])
-    assert s_wire < d_wire, (s_wire, d_wire)
+    d_wire = len(coded) * 2 * TM.soa_layout(6, F)["total"]
+    assert len(sparse_steps) == len(coded) and s_wire < d_wire, (s_wire,
+                                                                 d_wire)
     if exact:
         for s, d in enumerate(corpus):
             _assert_native(d, dense[s], True)
